@@ -8,24 +8,40 @@ CUDA toolkit::
 
 Phases, in order; any failure exits non-zero:
 
-1. card and build — the card's name and power limit, then the Hopper
-   kernel built from ``src/repro_torch/csrc/pmwcas_apply.cu`` (seconds);
-2. kernel vs plain — the kernel's verdicts and tables held bit for bit
-   against its plain PyTorch version on the card, over seeded
-   ``[S, B, K]`` batches (S in {1, 4}, B in {1, 7, 1024}, K in
-   {1, 2, 8}; uniform and Zipf-hot addresses; all-padded rows,
-   duplicate ids, (a)-passing rows that lose and still block),
-   ``reserve_slots``' corner cases and ``sequential_oracle``
-   containment; then the service on the card against the service on the
-   CPU at a small size;
-3. the slice at full size — ``KVService(n_shards=4, round_cap=1024)``
+1. card and build — the card's name and power limit, then both Hopper
+   kernels built from ``src/repro_torch/csrc/{pmwcas_apply,
+   flash_attention}.cu``, one nvcc each in parallel (seconds, ptxas
+   registers/spills);
+2. kernels vs plain — the PMwCAS kernel's verdicts and tables held bit
+   for bit against its plain PyTorch version over seeded ``[S, B, K]``
+   batches (S in {1, 4}, B in {1, 7, 1024}, K in {1, 2, 8}; uniform and
+   Zipf-hot addresses; all-padded rows, duplicate ids, (a)-passing rows
+   that lose and still block), ``reserve_slots``' corner cases and
+   ``sequential_oracle`` containment, and the service on the card
+   against the service on the CPU; then the flash kernel against its
+   plain version over ``FA_CHECK_CASES`` in f32 (2e-5) and bf16 (2e-2),
+   and a small serve (llama3-8b smoke config, f32) on the card against
+   the CPU;
+3. the KV slice at full size — ``KVService(n_shards=4, round_cap=1024)``
    with 1,048,576 records (4 x 1,048,576-word tables on the card),
    loaded, then driven by YCSB core workload A (50% read, 50% update,
    Zipfian 0.99) from 8 clients in bounded windows; integrity, the
    acknowledged writes read back, and ``conflict_rate == 0`` are checked;
-4. timings — the kernel's and the plain version's time per launch at
-   the slice's shape, the per-wave split of a traced window, ops/s and
-   p50/p99 latency.
+4. PMwCAS timings — the kernel's and the plain version's time per launch
+   at the slice's shape, the per-wave split of a traced window, ops/s and
+   p50/p99 latency;
+5. the LM serve slice at full width — ``repro_torch.launch.serve.serve``
+   on llama3-8b (32 layers, bf16 weights drawn on the card from the
+   seed, ``attn_impl="pallas"``): 128 proposed requests of 2048 prompt
+   tokens and 32 greedy decode steps, KV pages of 256 tokens out of 1024;
+   admission equals the plain ``reserve_slots``, logits are finite, and
+   the flash kernel runs exactly 32 x (1 + 32) times on the path;
+6. flash timings — kernel against plain at the slice's prefill and
+   decode shapes in f32 (2e-5) and bf16 (2e-2), the stream time per call
+   (CUDA events) of the kernel, the plain version and SDPA beside the
+   bound, then one prefill and a window of decode steps profiled: the
+   device idle share and the device time by kernel group (flash, matrix
+   products, the rest).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``{"kernels": [...]}`` record.
@@ -45,6 +61,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA's H100 SXM data sheet
+H100_BF16_FLOPS = 989e12            # dense bf16 tensor cores, same sheet
 N_SHARDS, ROUND_CAP, N_CLIENTS = 4, 1024, 8
 RECORDS, OPS = 1 << 20, 1 << 16      # YCSB-A recordcount, operationcount
 
@@ -389,23 +406,32 @@ def _event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_us(fn, iters: int = 1):
-    """Device time (µs) of every kernel, copy and fill ``fn`` enqueues,
-    summed over ``iters`` calls, and the host wall time (µs) of those
-    calls, from the profiler's CUDA activity trace.  Device time is None
-    when the trace shows none."""
+def _profile(fn):
+    """One call of ``fn`` under the profiler, from the CUDA activity
+    trace: (device µs of every kernel, copy and fill it enqueued, by name;
+    how many of each the trace shows; host wall µs)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy = sum(e.device_time_total for e in prof.events()
-               if e.device_type == DeviceType.CUDA)
+    by_name, count = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+            count[e.name] = count.get(e.name, 0) + 1
+    return by_name, count, wall_us
+
+
+def _device_us(fn, iters: int = 1):
+    """Device time (µs) of ``iters`` calls of ``fn`` and their host wall
+    time (µs); the device time is None when the trace shows none."""
+    by_name, _, wall_us = _profile(lambda: [fn() for _ in range(iters)])
+    busy = sum(by_name.values())
     return (busy if busy > 0 else None), wall_us
 
 
@@ -449,16 +475,17 @@ def kernel_timings(pm, ref, kernel, svc, seed: int, dev):
         _event_ms(run_kernel, 500), _event_ms(run_plain, 20))
     wrapper_ms = _event_ms(
         lambda: pm.pmwcas_apply_stacked(w_k, a, e, d, claim=claim), 200)
-    # device time per call (profiler): what the card itself spends
+    # device time per call (profiler): what the card itself spends; the
+    # host's ctypes call would dominate the kernel's event time
     k_dev, _ = _device_us(run_kernel, 200)
     p_dev, _ = _device_us(run_plain, 20)
     ms = k_dev / 200 / 1e3 if k_dev else min(kernel_ms, kernel_ms2)
     plain = p_dev / 20 / 1e3 if p_dev else min(plain_ms, plain_ms2)
+    src = "profiler device time" if k_dev and p_dev else "CUDA events"
     valid = int((addr >= 0).sum())
     winners = int((np.asarray(s_k.cpu())[..., None] & (addr >= 0)).sum())
     n_bytes = 3 * addr.size * 4 + valid * 4 + winners * 4 + S * ROUND_CAP
     bound_ms = n_bytes / H100_BYTES_PER_S * 1e3
-    src = "profiler device time" if k_dev and p_dev else "CUDA events"
     log(f"phase 4: [S, B, K] = [{S}, {ROUND_CAP}, 2], W = {W}: kernel "
         f"{ms * 1e3:.3f} us/launch, plain {plain * 1e3:.3f} us/call "
         f"({src}); stream time back to back (CUDA events): kernel "
@@ -470,11 +497,406 @@ def kernel_timings(pm, ref, kernel, svc, seed: int, dev):
 
 
 # ---------------------------------------------------------------------------
+# flash attention: kernel vs plain
+# ---------------------------------------------------------------------------
+
+FA_CHECK_CASES = [
+    # (name, B, KV, G, Sq, Sk, hd, causal, window, cap, no_visible_row):
+    # the FA_CASES of tests/test_kernels.py:28-38, then the slice's shapes
+    ("fa_case0", 1, 1, 1, 16, 16, 8, True, 0, 0.0, False),
+    ("fa_case1", 2, 2, 2, 32, 32, 16, True, 0, 0.0, False),
+    ("fa_gqa_ragged", 1, 2, 4, 24, 40, 8, True, 0, 0.0, False),
+    ("fa_cross", 1, 1, 1, 16, 48, 8, False, 0, 0.0, False),
+    ("fa_window", 2, 1, 2, 32, 32, 8, True, 9, 0.0, False),
+    ("fa_softcap", 1, 2, 1, 32, 32, 8, True, 0, 30.0, False),
+    ("fa_bf16", 1, 1, 2, 16, 16, 8, True, 0, 0.0, False),
+    ("fa_decode", 1, 1, 1, 1, 40, 8, True, 0, 0.0, False),
+    ("llama3", 1, 8, 4, 128, 200, 128, True, 0, 0.0, False),
+    ("gemma2", 1, 2, 2, 96, 96, 256, True, 32, 50.0, False),
+    ("decode_long", 2, 8, 4, 1, 2080, 128, True, 0, 0.0, False),
+    ("ragged", 1, 2, 2, 70, 135, 64, True, 0, 0.0, False),
+    ("no_visible", 1, 2, 2, 8, 24, 8, True, 0, 0.0, True),
+]
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def fa_case_inputs(case, dtype, dev, seed: int = 0):
+    """Seeded flat inputs of one case: ``(q, k, v, q_pos, k_pos)`` and the
+    keywords.  Positions as in tests/test_kernels.py (a decode row sits at
+    the last key); the no_visible case moves row 0 before every key."""
+    _, B, KV, G, Sq, Sk, hd, causal, window, cap, empty = case
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B * KV * G, Sq, hd), dtype=np.float32)
+    k = rng.standard_normal((B * KV, Sk, hd), dtype=np.float32)
+    v = rng.standard_normal((B * KV, Sk, hd), dtype=np.float32)
+    qp = np.arange(Sq, dtype=np.float32) + (Sk - Sq if causal and Sq == 1
+                                            else 0)
+    if empty:
+        qp[0] = -1.0
+    kp = np.arange(Sk, dtype=np.float32)
+
+    def t(a):
+        return torch.from_numpy(a).to(device=dev, dtype=dtype)
+
+    args = (t(q), t(k), t(v), torch.from_numpy(qp).to(dev),
+            torch.from_numpy(kp).to(dev))
+    return args, dict(g=G, scale=1.0 / np.sqrt(hd), causal=causal,
+                      window=window, attn_cap=cap)
+
+
+def fa_close(got, want, dtype):
+    """``|got - want| <= tol + tol * |want|`` (numpy's allclose with rtol =
+    atol = tol) and every value finite; returns the max abs difference."""
+    tol = FA_TOL[dtype]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    ok = bool(torch.isfinite(g).all()) and bool(
+        (diff <= tol + tol * w.abs()).all())
+    return ok, float(diff.max())
+
+
+def fa_kernel_vs_plain(fa_ops, fa_ref, seed: int, dev) -> float:
+    """The flash op (the kernel on ``dev``) against its plain version on
+    the same inputs, every case in f32 and bf16; returns the largest
+    absolute difference."""
+    worst = 0.0
+    for case in FA_CHECK_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args, kw = fa_case_inputs(case, dtype, dev, seed)
+            got = fa_ops.flash_attention_flat(*args, **kw)
+            want = fa_ref.flash_attention_flat(*args, **kw)
+            _sync(dev)
+            ok, err = fa_close(got, want, dtype)
+            check(got.dtype == dtype and got.shape == args[0].shape,
+                  f"flash {case[0]} {dtype}: dtype/shape")
+            check(ok, f"flash kernel != plain at {case[0]} {dtype}: max abs "
+                  f"err {err}")
+            worst = max(worst, err)
+    log(f"phase 2: flash kernel == plain on {len(FA_CHECK_CASES)} cases x "
+        f"{{f32, bf16}} (tol 2e-5 / 2e-2), max abs err {worst:.3e}")
+    return worst
+
+
+def small_serve_matches_cpu(serve_mod, build_model, get_config, seed: int,
+                            dev):
+    """A small serve (the llama3-8b smoke config, f32 compute, attn_impl
+    "pallas", the same weights on both devices) on the card against the
+    CPU: the same admitted set, logits within ``tol`` at every step, and
+    the same tokens up to the first step whose top-2 gap is within
+    ``tol`` (a near-tie may pick either token; the runs part there).  The
+    tolerance covers f32 sums taken in another order and the bf16 KV
+    cache, which turns a last-bit difference into one bf16 ulp."""
+    import copy
+    tol = 1e-3
+    cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
+                              dtype="float32", attn_impl="pallas")
+    cpu_model = build_model(cfg, device="cpu", seed=seed)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    kw = dict(requests=16, steps=8, prompt_len=16, page_size=16, n_pages=64,
+              seed=seed, keep_logits=True)
+    res = [serve_mod.serve(cfg, device=d, model=m, **kw)
+           for d, m in ((dev, card_model), ("cpu", cpu_model))]
+    card, cpu = res
+    check(np.array_equal(card.admitted, cpu.admitted),
+          "card and CPU admitted different requests")
+    check(card.logits_finite and cpu.logits_finite, "non-finite logits")
+    for step, (lk, lc) in enumerate(zip(card.logits, cpu.logits)):
+        lk, lc = lk.numpy(), lc.numpy()
+        check(np.allclose(lk, lc, rtol=tol, atol=tol),
+              f"step {step}: card logits differ from the CPU's by "
+              f"{np.abs(lk - lc).max():.3e}")
+        if step == len(card.logits) - 1:
+            break
+        same = card.generated[:, step] == cpu.generated[:, step]
+        top2 = np.sort(lc, axis=-1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > tol
+        check(same[clear].all(), f"step {step}: a token differs where the "
+              f"top-2 gap exceeds {tol}")
+        if not same.all():
+            log(f"phase 2: near-tie at step {step}; compared up to there")
+            break
+    log(f"phase 2: small serve (llama3-8b smoke, f32) on the card == on the "
+        f"CPU: {len(card.admitted)} admitted, logits within {tol}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the LM serve slice at full width
+# ---------------------------------------------------------------------------
+
+LM_REQUESTS, LM_STEPS, LM_PROMPT = 128, 32, 2048
+LM_PAGE, LM_PAGES = 256, 1024
+
+
+def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
+             pm_kernel, seed: int, dev):
+    """llama3-8b at full width and depth, random bf16 weights from a seeded
+    generator on the card, served through ``serve``: admission by the
+    PMwCAS kernel, attention by the flash kernel."""
+    cfg = dataclasses.replace(get_config("llama3-8b"), attn_impl="pallas")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=seed)
+    _sync(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    norms = (2 * cfg.n_layers + 1) * cfg.d_model
+    check(n_params - norms == cfg.n_params, f"{n_params} parameters")
+    log(f"phase 5: llama3-8b ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}): {cfg.n_params} weights + {norms} norm weights, "
+        f"{n_bytes / 1e9:.2f} GB on the card, drawn in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    # the plain reserve_slots on the same proposals
+    pages_per_req = -(-(LM_PROMPT + LM_STEPS) // LM_PAGE)
+    proposals = serve_mod.propose_pages(LM_REQUESTS, pages_per_req, LM_PAGES,
+                                        np.random.default_rng(seed))
+    r = torch.as_tensor(proposals, device=dev)
+    _, want = pm_ref.pmwcas_apply(torch.ones(LM_PAGES, dtype=torch.int32,
+                                             device=dev), r,
+                                  torch.ones_like(r), torch.zeros_like(r))
+
+    fa_kernel.flash_attention_cuda.launches = 0     # count this path only
+    pm_kernel.pmwcas_apply_cuda.launches = 0
+    res = serve_mod.serve(cfg, requests=LM_REQUESTS, steps=LM_STEPS,
+                          prompt_len=LM_PROMPT, page_size=LM_PAGE,
+                          n_pages=LM_PAGES, device=dev, seed=seed,
+                          model=model)
+    fa_launches = fa_kernel.flash_attention_cuda.launches
+    pm_launches = pm_kernel.pmwcas_apply_cuda.launches
+    B = len(res.admitted)
+    log(f"phase 5: admitted {B}/{LM_REQUESTS} requests ({pages_per_req} "
+        f"pages each of {LM_PAGE} tokens, {LM_PAGES} pages)")
+    check(np.array_equal(res.granted, want.cpu().numpy()),
+          "admission != the plain reserve_slots on the same proposals")
+    check(B >= 8, f"only {B} requests admitted")
+    check(res.logits_finite, "non-finite logits")
+    check(res.generated.shape == (B, LM_STEPS)
+          and (res.generated >= 0).all()
+          and (res.generated < cfg.vocab).all(), "generated tokens")
+    want_fa = cfg.n_layers * (1 + LM_STEPS)
+    check(fa_launches == want_fa,
+          f"flash launches {fa_launches} != {cfg.n_layers} x (1 + "
+          f"{LM_STEPS}) = {want_fa}")
+    check(pm_launches == 1, f"page-grant launches {pm_launches} != 1")
+    kv_bytes = 2 * cfg.n_layers * B * cfg.n_kv_heads * (
+        LM_PROMPT + LM_STEPS) * cfg.resolved_head_dim * 2
+    t = res.timings
+    log(f"phase 5: KV cache bf16 {kv_bytes / 1e9:.2f} GB; prefill of "
+        f"{B} x {LM_PROMPT} tokens {t['prefill_s']:.3f} s; decode "
+        f"{t['decode_ms_per_step']:.3f} ms/step over {LM_STEPS} steps "
+        f"({t['decode_tokens_per_s']:.1f} tokens/s decoding, "
+        f"{t['tokens_per_s']:.1f} generated tokens/s with the prefill); "
+        f"launches on this path: flash {fa_launches}, pmwcas {pm_launches}")
+    return dict(model=model, cfg=cfg, B=B, fa_launches=fa_launches,
+                pm_launches=pm_launches, timings=t)
+
+
+def _visible_pairs(qp, kp) -> int:
+    """(q row, key) pairs the causal mask leaves visible, for one head."""
+    return int(((kp < 2.0 ** 29)[None, :] & (qp[:, None] >= kp[None, :]))
+               .sum())
+
+
+def _clocks() -> str:
+    """The card's SM clock, power draw and temperature right now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def _sdpa_library(q, k, v, qp, kp, scale: float, B: int):
+    """One PyTorch call computing the same function: SDPA with GQA and an
+    explicit boolean mask from the positions (timed here, never called by
+    the port)."""
+    import torch.nn.functional as F
+    H, Sq, hd = q.shape
+    HK, Sk, _ = k.shape
+    ok = (kp < 2.0 ** 29)[None, :] & (qp[:, None] >= kp[None, :])
+    q4 = q.view(B, H // B, Sq, hd)
+    k4, v4 = k.view(B, HK // B, Sk, hd), v.view(B, HK // B, Sk, hd)
+    return lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=ok[None, None], scale=scale, enable_gqa=True)
+
+
+def flash_timings(fa_ops, fa_ref, fa_kernel, lm, dev, seed: int):
+    """The flash kernel at the slice's prefill and decode shapes (one
+    layer, random q/k/v from a seed): kernel against plain in bf16 (2e-2)
+    and in f32 (2e-5, prefill at B = 1: a dropped 64-key tile or a
+    mis-masked edge moves outputs by ~1e-3), then the stream time per call
+    (CUDA events) of the kernel, the plain version and SDPA in bf16
+    beside the bound."""
+    cfg, B = lm["cfg"], lm["B"]
+    hd = cfg.resolved_head_dim
+    Sk = LM_PROMPT + LM_STEPS
+    G = cfg.n_heads // cfg.n_kv_heads
+    free, _ = torch.cuda.mem_get_info()
+    # the plain version holds about four f32 [H, Sq, Sk] score tensors
+    per_req = 4 * cfg.n_heads * LM_PROMPT * Sk * 4
+    B_cmp = max(1, min(B, int(0.8 * free) // per_req))
+    out = {}
+    for shape, Sq, Bc in (("prefill", LM_PROMPT, B_cmp), ("decode", 1, B)):
+        rng = np.random.default_rng(seed + 11)
+        mk = (lambda *s: torch.from_numpy(rng.standard_normal(
+            s, dtype=np.float32)).to(device=dev))
+        q32 = mk(Bc * cfg.n_heads, Sq, hd)
+        k32, v32 = (mk(Bc * cfg.n_kv_heads, Sk, hd) for _ in range(2))
+        # prefill rows at 0..Sq-1; the decode row at the last cached key
+        qp = torch.arange(Sq, device=dev, dtype=torch.float32) + (
+            Sk - 1 if Sq == 1 else 0)
+        kp = torch.arange(Sk, device=dev, dtype=torch.float32)
+        kw = dict(g=G, scale=1.0 / np.sqrt(hd), causal=True, window=0,
+                  attn_cap=0.0)
+        B32 = 1 if shape == "prefill" else Bc
+        f32_args = (q32[:B32 * cfg.n_heads], k32[:B32 * cfg.n_kv_heads],
+                    v32[:B32 * cfg.n_kv_heads], qp, kp)
+        got = fa_ops.flash_attention_flat(*f32_args, **kw)
+        want = fa_ref.flash_attention_flat(*f32_args, **kw)
+        torch.cuda.synchronize()
+        ok, err32 = fa_close(got, want, torch.float32)
+        check(ok, f"flash kernel != plain in f32 at the {shape} shape: "
+              f"{err32}")
+        rms = float(want.pow(2).mean().sqrt())
+        del got, want
+        q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
+        del q32, k32, v32
+        got = fa_ops.flash_attention_flat(q, k, v, qp, kp, **kw)
+        want = fa_ref.flash_attention_flat(q, k, v, qp, kp, **kw)
+        torch.cuda.synchronize()
+        ok, err = fa_close(got, want, torch.bfloat16)
+        check(ok, f"flash kernel != plain in bf16 at the {shape} shape: "
+              f"{err}")
+        del want
+        o = torch.empty_like(q)
+
+        def run_kernel():
+            fa_kernel.launch(q, k, v, qp, kp, o, **kw)
+
+        def run_plain():
+            fa_ref.flash_attention_flat(q, k, v, qp, kp, **kw)
+
+        run_lib = _sdpa_library(q, k, v, qp, kp, kw["scale"], Bc)
+        lib_err = float((run_lib().reshape(q.shape).float()
+                         - got.float()).abs().max())
+        n_k = 20 if shape == "decode" else 5
+        n_p = 5 if shape == "decode" else 2
+        ms, plain, lib = (_event_ms(run_kernel, n_k),
+                          _event_ms(run_plain, n_p), _event_ms(run_lib, n_k))
+        pairs = _visible_pairs(qp, kp) * q.shape[0]
+        flops = 4 * hd * pairs
+        n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        bound_ops = flops / H100_BF16_FLOPS * 1e3
+        bound_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+        bound = max(bound_ops, bound_bytes)
+        by = "operations" if bound_ops >= bound_bytes else "bytes"
+        log(f"phase 6: flash at the {shape} shape q [{q.shape[0]}, {Sq}, "
+            f"{hd}] x k/v [{k.shape[0]}, {Sk}, {hd}] bf16 (B = {Bc} of "
+            f"{B}; f32 check at B = {B32}): stream time per call (CUDA "
+            f"events, back to back) kernel {ms * 1e3:.3f} us, plain "
+            f"{plain * 1e3:.3f} us, SDPA {lib * 1e3:.3f} us; clocks, power, "
+            f"temperature after the timed runs {_clocks()}; bound "
+            f"{bound * 1e3:.3f} us by {by} ({flops} flops over {pairs} "
+            f"visible pairs at {H100_BF16_FLOPS:.3g} FLOP/s, {n_bytes} bytes "
+            f"at {H100_BYTES_PER_S:.3g} B/s); kernel max abs err vs plain "
+            f"f32 {err32:.3e} (output RMS {rms:.3e}), bf16 {err:.3e}, vs "
+            f"SDPA {lib_err:.3e}")
+        out[shape] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                          bound_ms=bound, bound_by=by, err=max(err, err32))
+        del q, k, v, o, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def _device_split(fn):
+    """Device time of one call of ``fn`` by kernel (profiler): (busy µs,
+    wall µs, {group: µs}, [(kernel name, µs), ...] largest first, flash
+    launches in the trace).  Groups: the flash kernel, matrix products
+    (cuBLAS's gemm/nvjet kernels), and everything else (norms, RoPE,
+    casts, copies, argmax)."""
+    by_name, count, wall_us = _profile(fn)
+    groups = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, us in by_name.items():
+        low = name.lower()
+        key = ("flash" if "flash_attention_kernel" in name else "matmul"
+               if any(w in low for w in ("gemm", "cutlass", "xmma", "cublas",
+                                         "nvjet"))
+               else "other")
+        groups[key] += us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    flash = sum(n for k, n in count.items() if "flash_attention_kernel" in k)
+    return sum(by_name.values()), wall_us, groups, top, flash
+
+
+def _log_split(what, flash_made, busy, wall, groups, top, flash_seen):
+    if not busy:
+        log(f"phase 6: {what}: device time not measured (the profiler saw "
+            "no device time)")
+        return
+    shares = ", ".join(f"{k} {v:.1f} us ({v / busy:.3f})"
+                       for k, v in groups.items())
+    log(f"phase 6: {what}: device busy {busy:.1f} us of {wall:.1f} us "
+        f"wall, idle share {1 - busy / wall:.4f} (profiler); by group: "
+        f"{shares}; flash launches in the trace: {flash_seen} of "
+        f"{flash_made}")
+    for name, us in top[:5]:
+        log(f"phase 6:   {us:12.1f} us  {name[:100]}")
+
+
+def where_time_goes(lm, dev, seed: int, steps: int = 8):
+    """One prefill and a window of decode steps at the slice's batch and
+    cache length, profiled: device busy share and time by kernel group.
+    The prompt is drawn from the seed; the decode tokens are arbitrary
+    (the work depends only on the shapes and positions)."""
+    model, cfg, B = lm["model"], lm["cfg"], lm["B"]
+    rng = np.random.default_rng(seed + 13)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (B, LM_PROMPT)),
+                             device=dev)
+    tok = torch.zeros(B, 1, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        cache = model.init_cache(B, LM_PROMPT + LM_STEPS)
+        _log_split(f"one prefill of {B} x {LM_PROMPT} tokens", cfg.n_layers,
+                   *_device_split(lambda: model.prefill(prompt, cache)))
+        log(f"phase 6: clocks, power, temperature after it: {_clocks()}")
+
+        def window():
+            for _ in range(steps):
+                model.decode_step(tok, cache)
+
+        window()                                   # warm
+        cache["index"] = LM_PROMPT
+        _log_split(f"decode window of {steps} steps", cfg.n_layers * steps,
+                   *_device_split(window))
+
+
+# ---------------------------------------------------------------------------
+
+def build_kernels(kernels) -> None:
+    """Build every kernel's source at once (one nvcc each, in parallel);
+    report the seconds and the compiler's register/spill/shared-memory
+    lines."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(mod):
+        t0 = time.perf_counter()
+        return mod.build(), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        built = list(pool.map(timed, kernels))
+    for lib, secs in built:
+        log(f"phase 1: built {lib.name} in {secs:.3f} s")
+        report = lib.with_name(lib.name + ".log")
+        if report.exists():
+            for line in report.read_text().splitlines():
+                if "registers" in line or "spill" in line or \
+                        "Compiling entry" in line:
+                    log("phase 1: ptxas " + line.strip())
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of every workload and batch (default 0)")
+                    help="seed of every workload, batch and weight draw "
+                         "(default 0)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -487,12 +909,21 @@ def main(argv=None) -> int:
         import repro_torch.pmwcas as pm
         import repro_torch.service as svc_mod
         import repro_torch.structures as st
+        from repro_torch.configs import get_config
+        from repro_torch.kernels.flash_attention import kernel as fa_kernel
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        from repro_torch.kernels.flash_attention import ref as fa_ref
         from repro_torch.kernels.pmwcas_apply import kernel
         from repro_torch.kernels.pmwcas_apply import ref
+        from repro_torch.launch import serve as serve_mod
+        from repro_torch.models import build_model
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT / 'src'}:"
               f" {e}", file=sys.stderr)
         return 3
+    # float32 references run in full float32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -502,22 +933,27 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, device "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-
-    t0 = time.perf_counter()
-    lib = kernel.build()
-    log(f"phase 1: built {lib.name} in {time.perf_counter() - t0:.3f} s")
-    report = lib.with_name(lib.name + ".log")
-    if report.exists():
-        for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("phase 1: ptxas " + line.strip())
+    t_start = time.perf_counter()
+    build_kernels([kernel, fa_kernel])
 
     dev = torch.device("cuda")
     worst = kernel_vs_plain(pm, ref, args.seed, dev)
     small_service_matches_cpu(svc_mod, st, args.seed, dev)
+    fa_worst = fa_kernel_vs_plain(fa_ops, fa_ref, args.seed, dev)
+    small_serve_matches_cpu(serve_mod, build_model, get_config, args.seed,
+                            dev)
     run = full_slice(pm, svc_mod, st, obs, kernel, dev, args.seed)
     t = kernel_timings(pm, ref, kernel, run["svc"], args.seed, dev)
+    del run["svc"]
+    log(f"phases 1-4 took {time.perf_counter() - t_start:.1f} s")
 
+    lm = lm_slice(serve_mod, build_model, get_config, ref, fa_kernel, kernel,
+                  args.seed, dev)
+    ft = flash_timings(fa_ops, fa_ref, fa_kernel, lm, dev, args.seed)
+    where_time_goes(lm, dev, args.seed)
+    log(f"the whole smoke took {time.perf_counter() - t_start:.1f} s")
+
+    pre = ft["prefill"]
     log(card)
     print(json.dumps({"kernels": [{
         "name": "pmwcas_apply", "route": "cuda",
@@ -525,7 +961,15 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/pmwcas_apply/kernel.py:62",
         "launches": run["launches"], "max_abs_err": worst,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}]}), flush=True)
+        "bound_by": "bytes", "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
+        "launches": lm["fa_launches"],
+        "max_abs_err": max(fa_worst, pre["err"], ft["decode"]["err"]),
+        "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+        "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+        "library_ms": pre["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -17,6 +17,12 @@ Public surface (import from here or from the subpackages):
 - ``repro_torch.service`` — ``KVService`` on sharded kernel backends,
   the stacked executor, router, migration log and ``ServiceStats``.
 - ``repro_torch.obs`` — metrics registry, span tracer, flush provenance.
+- ``repro_torch.configs`` / ``repro_torch.models`` — the architecture
+  registry and the dense attention model stack (forward, bf16 KV
+  cache); ``attn_impl="pallas"`` runs the hand-written Hopper
+  flash-attention kernel on a CUDA tensor.
+- ``repro_torch.launch.serve`` — batched LM serving: KV-page admission
+  through ``reserve_slots``, prefill and greedy decode.
 
 Entry points take ``device=`` and default to ``"cuda"``; ``"cpu"`` is
 an explicit request.  Word tables hold uint32 words as int32 bit
@@ -29,8 +35,8 @@ from typing import Any
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("checkpoint", "core", "kernels", "obs", "pmwcas", "service",
-                "structures")
+_SUBPACKAGES = ("checkpoint", "configs", "core", "kernels", "launch",
+                "models", "obs", "pmwcas", "service", "structures")
 _LAZY = {name: "repro_torch.pmwcas" for name in (
     "Target", "MwCASOp", "OpResult", "KernelBackend", "make_backend",
     "pmwcas_apply", "pmwcas_apply_stacked", "reserve_slots")}

@@ -1,0 +1,8 @@
+"""Forward flash attention: the Hopper kernel, its plain PyTorch version
+and the device-dispatching public op."""
+from . import ops, ref
+from .kernel import flash_attention_cuda
+from .ops import flash_attention, flash_attention_flat
+
+__all__ = ["flash_attention", "flash_attention_cuda", "flash_attention_flat",
+           "ops", "ref"]

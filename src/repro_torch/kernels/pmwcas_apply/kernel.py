@@ -15,67 +15,28 @@ touched.
 
 Build: at first use the source is compiled with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface under ``build/repro_torch/``
-of the checkout (keyed by a hash of the source and flags), then loaded
-with ``ctypes``.  Nothing is built or imported at module import time, so
-the CPU tests import this module freely.
+of the checkout (``repro_torch.kernels._build``, keyed by source and
+flags), then loaded with ``ctypes``.  Nothing is built or imported at
+module import time, so the CPU tests import this module freely.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 
 import torch
 
-SOURCE = pathlib.Path(__file__).resolve().parents[2] / "csrc" / \
-    "pmwcas_apply.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" / \
-    "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+from .. import _build
+
+SOURCE = _build.CSRC / "pmwcas_apply.cu"
 CLAIM_FREE = (1 << 31) - 1          # INT_MAX: an unclaimed word
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and (pathlib.Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(pathlib.Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the pmwcas_apply kernel is built "
-                       "from source at first use and needs the CUDA "
-                       "toolkit")
-
-
-def library_path() -> pathlib.Path:
-    """Where the built library lives (keyed by source + flags)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"pmwcas_apply-{digest[:16]}.so"
 
 
 def build() -> pathlib.Path:
     """Compile the kernel unless this source was built already; returns
-    the library path.  The compiler's report (``-Xptxas=-v``: registers,
-    shared memory, spills) is kept beside it as ``<lib>.log``."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stderr}")
-    out.with_name(out.name + ".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)            # atomic: concurrent builders agree
-    return out
+    the library path (see :func:`repro_torch.kernels._build.build`)."""
+    return _build.build(SOURCE)
 
 
 @functools.lru_cache(maxsize=None)

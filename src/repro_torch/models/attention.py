@@ -1,0 +1,237 @@
+"""Grouped-query attention with the features the dense archs need.
+
+The port of ``repro/models/attention.py``.  Covered: GQA/MQA (kv groups),
+RoPE (partial rotation for glm4), QKV bias (qwen1.5), attention-logit
+softcapping and local/global layers (gemma2), sliding windows, a bf16 KV
+cache, and the core softmax(QK^T)V.
+
+On a CUDA tensor the core is always the hand-written Hopper kernel of
+:mod:`repro_torch.kernels.flash_attention`, whatever ``impl`` says.  On
+a CPU tensor ``impl`` picks one of three plain versions, the oracles of
+the parity tests:
+
+- ``ref``      materialized [B,KV,G,S,S] scores with an additive mask
+               bias -- the model's oracle
+- ``chunked``  online softmax over KV chunks (the forward of the
+               reference's flash-style jnp scan, as a loop over chunks)
+- ``pallas``   the kernel's plain PyTorch version
+
+Not on the serving path of the dense archs, so they raise
+``NotImplementedError`` naming ROADMAP Queue 1 #8: the int8 KV cache,
+cross-attention (``kv=``) and the chunked backward (the port runs the
+forward only; call it under ``torch.no_grad()``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from .layers import KeyGen, apply_rope, make_param, matmul, softcap
+
+NEG_INF = -2.0 ** 20  # large-but-finite to keep softcap/tanh well-behaved
+LATER = "not ported yet (ROADMAP Queue 1 #8)"
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def init_attention(kg: Optional[KeyGen], d_model: int, n_heads: int,
+                   n_kv_heads: int, head_dim: int, dtype,
+                   qkv_bias: bool = False, bias_dtype=torch.float32,
+                   mode: str = "normal",
+                   device=None) -> Dict[str, torch.Tensor]:
+    gen = kg() if kg is not None else None
+    shapes = {"wq": (d_model, n_heads * head_dim),
+              "wk": (d_model, n_kv_heads * head_dim),
+              "wv": (d_model, n_kv_heads * head_dim),
+              "wo": (n_heads * head_dim, d_model)}
+    p = {name: make_param(gen, shape, dtype, mode=mode, device=device)
+         for name, shape in shapes.items()}
+    if qkv_bias:
+        dev = gen.device if gen is not None else device
+        p["bq"] = torch.zeros(n_heads * head_dim, dtype=bias_dtype,
+                              device=dev)
+        p["bk"] = torch.zeros(n_kv_heads * head_dim, dtype=bias_dtype,
+                              device=dev)
+        p["bv"] = torch.zeros(n_kv_heads * head_dim, dtype=bias_dtype,
+                              device=dev)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Score-level masks
+# ---------------------------------------------------------------------------
+
+def _mask_bias(q_pos, k_pos, causal: bool, window: int) -> torch.Tensor:
+    """Additive bias [S_q, S_k] in f32."""
+    ok = torch.ones(q_pos.shape[-1], k_pos.shape[-1], dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        ok &= (q_pos[:, None] - k_pos[None, :]) < window
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def _fmask_bias(q_pos, k_pos, causal: bool, window: int) -> torch.Tensor:
+    """Additive bias from float positions; pad sentinels (>= 2**29) drop."""
+    ok = (k_pos[None, :] < 2.0 ** 29).expand(q_pos.shape[-1],
+                                             k_pos.shape[-1])
+    if causal:
+        ok = ok & (q_pos[:, None] >= k_pos[None, :])
+    if window > 0:
+        ok = ok & ((q_pos[:, None] - k_pos[None, :]) < window)
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+# ---------------------------------------------------------------------------
+# Core softmax(QK^T)V implementations.  Layouts:
+#   q: [B, KV, G, S_q, hd]   k/v: [B, KV, S_k, hd]
+# ---------------------------------------------------------------------------
+
+def _sdpa_ref(q, k, v, q_pos, k_pos, *, causal, window, attn_cap, scale):
+    s = torch.einsum("bkgqd,bkcd->bkgqc", q.float(), k.float()) * scale
+    s = softcap(s, attn_cap)
+    s = s + _mask_bias(q_pos, k_pos, causal, window)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgqc,bkcd->bkgqd", w.to(v.dtype), v)
+
+
+def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, window, attn_cap, scale,
+                  chunk: int = 1024):
+    """Flash-style attention forward: online softmax over KV chunks."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(f"the chunked attention backward is {LATER}")
+    B, KV, G, Sq, hd = q.shape
+    Sk = k.shape[2]
+    c = min(chunk, Sk)
+    n_chunks = -(-Sk // c)
+    pad = n_chunks * c - Sk
+    q_pos = q_pos.float()
+    k_pos = k_pos.float()
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        # pad sentinel: beyond the validity limit so every mask drops it
+        k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=2.0 ** 30)
+    qf = q.float()
+    m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32,
+                      device=q.device)
+    for i in range(n_chunks):
+        kb, vb = k[:, :, i * c:(i + 1) * c], v[:, :, i * c:(i + 1) * c]
+        pb = k_pos[i * c:(i + 1) * c]
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qf, kb.float()) * scale
+        s = softcap(s, attn_cap)
+        s = s + _fmask_bias(q_pos, pb, causal, window)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        # the reference multiplies p (cast to v's dtype) by v in v's dtype
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqc,bkcd->bkgqd", p.to(vb.dtype), vb).float()
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def _sdpa_pallas(q, k, v, q_pos, k_pos, **kw):
+    dt = torch.promote_types(q.dtype, k.dtype)   # a qkv bias widens q
+    return fa_ops.flash_attention(q.to(dt), k.to(dt), v.to(dt), q_pos,
+                                  k_pos, **kw)
+
+
+_IMPLS = {"ref": _sdpa_ref, "chunked": _sdpa_chunked, "pallas": _sdpa_pallas}
+
+
+# ---------------------------------------------------------------------------
+# KV cache: bf16 whatever the compute dtype, updated in place
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(batch: int, n_kv_heads: int, max_len: int, head_dim: int,
+                  kv_dtype: str, n_layers: int,
+                  device="cpu") -> Dict[str, Any]:
+    """Stacked-over-layers cache ``[n_layers, B, KV, max_len, hd]`` in
+    bf16, with the write position ``index`` as a Python int."""
+    if kv_dtype == "int8":
+        raise NotImplementedError(f"the int8 KV cache is {LATER}")
+    if kv_dtype != "bfloat16":
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
+    shape = (n_layers, batch, n_kv_heads, max_len, head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "index": 0}
+
+
+def cache_update(layer_cache, k_new, v_new, index: int):
+    """Write ``[B,KV,S,hd]`` at position ``index`` IN PLACE (the reference
+    returns an updated copy); returns ``layer_cache``."""
+    if layer_cache["k"].dtype != torch.bfloat16:
+        raise NotImplementedError(f"the int8 KV cache is {LATER}")
+    S = k_new.shape[2]
+    layer_cache["k"][:, :, index:index + S] = k_new
+    layer_cache["v"][:, :, index:index + S] = v_new
+    return layer_cache
+
+
+def cache_kv(layer_cache, dtype):
+    return layer_cache["k"].to(dtype), layer_cache["v"].to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full attention layer
+# ---------------------------------------------------------------------------
+
+def attention(p, x, *, n_heads: int, n_kv_heads: int, head_dim: int,
+              positions, window: int = 0, rotary_fraction: float = 1.0,
+              rope_theta: float = 10_000.0, attn_cap: float = 0.0,
+              impl: str = "chunked", chunk: int = 1024, kv=None,
+              layer_cache: Optional[Dict[str, Any]] = None,
+              cache_index: int = 0):
+    """One causal self-attention sublayer.
+
+    - without a cache (layer_cache=None): keys are this call's positions
+    - cached decode/prefill: writes at cache_index in place and attends
+      over the whole cache
+    Returns (output [B,S,D], the layer cache or None).
+    """
+    if kv is not None:
+        raise NotImplementedError(f"cross-attention (kv=) is {LATER}")
+    B, S, _ = x.shape
+    G = n_heads // n_kv_heads
+    q = matmul(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    q = apply_rope(q.reshape(B, S, n_heads, head_dim), positions,
+                   rotary_fraction, rope_theta)
+    k = matmul(x, p["wk"])
+    v = matmul(x, p["wv"])
+    if "bk" in p:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    k = apply_rope(k.reshape(B, S, n_kv_heads, head_dim), positions,
+                   rotary_fraction, rope_theta).transpose(1, 2)  # [B,KV,S,hd]
+    v = v.reshape(B, S, n_kv_heads, head_dim).transpose(1, 2)
+    if layer_cache is not None:
+        cache_update(layer_cache, k, v, cache_index)
+        k, v = cache_kv(layer_cache, x.dtype)
+        k_pos = torch.arange(k.shape[2], device=x.device)
+    else:
+        k_pos = positions
+
+    qg = q.reshape(B, S, n_kv_heads, G, head_dim).permute(0, 2, 3, 1, 4)
+    scale = 1.0 / np.sqrt(head_dim)
+    kw = dict(causal=True, window=window, attn_cap=attn_cap, scale=scale)
+    if x.device.type != "cpu":
+        impl = "pallas"          # the card runs the kernel, never a plain one
+    if impl == "chunked":
+        kw.update(chunk=chunk)
+    out = _IMPLS[impl](qg, k, v, positions, k_pos, **kw)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, n_heads * head_dim)
+    return matmul(out, p["wo"]), layer_cache

@@ -1,0 +1,201 @@
+"""Shared neural-net building blocks (PyTorch; parameters in mappings).
+
+The port of ``repro/models/layers.py``.  Functions take their weights as
+a mapping (``p["wq"]``), so an ``nn.ParameterDict`` and a plain dict both
+serve.  Weights are laid out ``[in, out]`` (``x @ W``) as in the
+reference, so carrying them across is a plain copy.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16, "int8": torch.int8}[name]
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+class KeyGen:
+    """The explicit random source of initialisation: one
+    ``torch.Generator`` on the device the weights are drawn on, seeded
+    once; every ``kg()`` returns it for the next draw."""
+
+    def __init__(self, seed: int, device="cpu"):
+        self.generator = torch.Generator(device=torch.device(device))
+        self.generator.manual_seed(int(seed))
+
+    def __call__(self) -> torch.Generator:
+        return self.generator
+
+
+def make_param(gen: Optional[torch.Generator], shape, dtype: torch.dtype,
+               scale: float = 1.0, mode: str = "normal",
+               device=None) -> torch.Tensor:
+    """A weight: float32 normals drawn from ``gen`` on its device, scaled
+    by ``scale / sqrt(fan_in)`` and cast to ``dtype``.  ``mode="empty"``
+    allocates on ``device`` without drawing (weights about to be copied
+    in)."""
+    device = gen.device if gen is not None else device
+    if mode == "empty":
+        return torch.empty(shape, dtype=dtype, device=device)
+    fan_in = shape[0] if len(shape) > 1 else max(1, shape[0])
+    std = scale / np.sqrt(fan_in)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return x.mul_(std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms / activations
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + weight.float())).to(dt)
+
+
+def act_fn(name: str):
+    # jax.nn.gelu defaults to the tanh approximation
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 style logit soft-capping."""
+    if cap <= 0.0:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (partial rotation supported for glm4)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, rotary_fraction: float, theta: float,
+               device=None):
+    """Inverse frequencies computed in float64 numpy and only then cast to
+    float32, as the reference does: with theta = 500000 a float32
+    ``theta ** x`` drifts at large positions.  The tensor is made once per
+    device and shape and shared: a fresh host-to-device copy per call
+    would stall the host on every layer of every decode step."""
+    return _rope_freqs(int(head_dim), float(rotary_fraction), float(theta),
+                       torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=64)
+def _rope_freqs(head_dim: int, rotary_fraction: float, theta: float,
+                device: torch.device):
+    rot_dim = int(head_dim * rotary_fraction) // 2 * 2
+    inv = 1.0 / (theta ** (np.arange(0, rot_dim, 2) / rot_dim))
+    return rot_dim, torch.as_tensor(inv, dtype=torch.float32, device=device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               rotary_fraction: float = 1.0,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """x: [..., seq, heads, head_dim]; positions: [..., seq]."""
+    head_dim = x.shape[-1]
+    rot_dim, inv = rope_freqs(head_dim, rotary_fraction, theta, x.device)
+    xr, xp = x[..., :rot_dim], x[..., rot_dim:]
+    ang = positions[..., :, None, None].float() * inv   # [.., S, 1, rd/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    out = torch.stack([o1, o2], dim=-1).reshape(xr.shape)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Products and the gated MLP (llama-family)
+# ---------------------------------------------------------------------------
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with both operands first promoted to a common dtype, as
+    jnp promotes (torch refuses mixed dtypes).  A float32 QKV bias widens
+    the activations of a bf16 model this way in both libraries."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+def init_mlp(kg: KeyGen, d_model: int, d_ff: int, dtype,
+             mode: str = "normal", device=None) -> Dict[str, torch.Tensor]:
+    gen = kg() if kg is not None else None
+    return {
+        "wi_gate": make_param(gen, (d_model, d_ff), dtype, mode=mode,
+                              device=device),
+        "wi_up": make_param(gen, (d_model, d_ff), dtype, mode=mode,
+                            device=device),
+        "wo": make_param(gen, (d_ff, d_model), dtype, mode=mode,
+                         device=device),
+    }
+
+
+def apply_mlp(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    h = act_fn(act)(matmul(x, p["wi_gate"])) * matmul(x, p["wi_up"])
+    return matmul(h, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embed(kg: KeyGen, vocab: int, d_model: int, dtype, tie: bool,
+               mode: str = "normal",
+               device=None) -> Dict[str, torch.Tensor]:
+    gen = kg() if kg is not None else None
+    p = {"embedding": make_param(gen, (vocab, d_model), dtype, scale=1.0,
+                                 mode=mode, device=device)}
+    if not tie:
+        p["lm_head"] = make_param(gen, (d_model, vocab), dtype, mode=mode,
+                                  device=device)
+    return p
+
+
+def embed_tokens(p, tokens: torch.Tensor, scale_embed: bool, d_model: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    x = p["embedding"][tokens].to(dtype)
+    if scale_embed:
+        x = x * torch.tensor(np.sqrt(d_model), dtype=dtype)
+    return x
+
+
+def unembed(p, x: torch.Tensor, logit_cap: float = 0.0,
+            n_valid: int = 0) -> torch.Tensor:
+    """Logits in float32.  The product runs in the activation dtype and
+    only its result is widened, as in the reference; padded-vocab columns
+    get -1e9 so they never win a softmax or an argmax."""
+    if "lm_head" in p:
+        logits = matmul(x, p["lm_head"])
+    else:
+        logits = x @ p["embedding"].to(x.dtype).T
+    logits = softcap(logits.float(), logit_cap)
+    V = logits.shape[-1]
+    if n_valid and n_valid < V:
+        mask = torch.where(torch.arange(V, device=logits.device) < n_valid,
+                           0.0, -1e9)
+        logits = logits + mask
+    return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Stable CE over logits.  [B,S,V] x [B,S]."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse ** 2
+    return loss.mean()

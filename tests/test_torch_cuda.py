@@ -1,18 +1,33 @@
-"""The port's Hopper kernel on the card, against its plain PyTorch version.
+"""The port's Hopper kernels on the card, against their plain PyTorch
+versions.
 
 Every test here is marked ``requires_cuda`` and skips where there is no
-CUDA card (the kernel has no CPU mode).  The file imports no JAX and
+CUDA card (the kernels have no CPU mode).  The file imports no JAX and
 nothing of the reference, so it runs on a machine with a card::
 
     python -m pytest -m requires_cuda tests/test_torch_cuda.py
 
-Tolerance: bit-identical verdicts and word tables.
+Tolerances: bit-identical verdicts and word tables for the PMwCAS
+kernel; 2e-5 (f32) and 2e-2 (bf16) for the flash kernel, over the cases
+of ``chip_smoke.py``'s ``FA_CHECK_CASES``; a small serve on the card
+matches the CPU's within 1e-3 in f32.
 """
+import dataclasses
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_cuda,
+                                                 flash_attention_flat)
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.pmwcas_apply import ref
+from repro_torch.launch import serve as serve_mod
+from repro_torch.models import build_model
 from repro_torch.pmwcas import (pmwcas_apply_cuda, pmwcas_apply_stacked,
                                 reserve_slots, sequential_oracle,
                                 tensor_to_words, words_to_tensor)
@@ -20,6 +35,12 @@ from repro_torch.service import KVService
 from repro_torch.structures import WorkloadSpec, client_streams, load_phase
 
 pytestmark = pytest.mark.requires_cuda
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location("chip_smoke",
+                                               REPO / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture
@@ -133,3 +154,81 @@ def test_service_on_card_matches_cpu(cuda):
                       for f in futs],
                      [b.values().tolist() for b in svc.backends]))
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", chip_smoke.FA_CHECK_CASES,
+                         ids=[c[0] for c in chip_smoke.FA_CHECK_CASES])
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    args, kw = chip_smoke.fa_case_inputs(case, dtype, cuda, seed=7)
+    before = flash_attention_cuda.launches
+    got = flash_attention_flat(*args, **kw)
+    want = fa_ref.flash_attention_flat(*args, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    ok, err = chip_smoke.fa_close(got, want, dtype)
+    assert ok, f"max abs err {err}"
+
+
+def test_flash_model_layout_op(cuda):
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               .to(cuda) for s in ((2, 2, 4, 24, 128), (2, 2, 40, 128),
+                                   (2, 2, 40, 128)))
+    pos_q, pos_k = torch.arange(24, device=cuda), torch.arange(40, device=cuda)
+    kw = dict(causal=True, window=0, attn_cap=0.0, scale=128 ** -0.5)
+    got = flash_attention(q, k, v, pos_q, pos_k, **kw)
+    want = flash_attention(q.cpu(), k.cpu(), v.cpu(), pos_q.cpu(),
+                           pos_k.cpu(), **kw)
+    assert got.shape == (2, 2, 4, 24, 128)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_flash_refuses_inputs(cuda):
+    q = torch.zeros(4, 8, 16, device=cuda)
+    k = torch.zeros(2, 8, 16, device=cuda)
+    pos = torch.arange(8, device=cuda)
+    kw = dict(g=2, scale=0.25, causal=True, window=0, attn_cap=0.0)
+    before = flash_attention_cuda.launches
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_flat(q.half(), k.half(), k.half(), pos, pos, **kw)
+    with pytest.raises(ValueError, match="H == HK"):
+        flash_attention_flat(q, k, k, pos, pos, **dict(kw, g=3))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_flat(q.transpose(0, 1).contiguous().transpose(0, 1),
+                             k, k, pos, pos, **kw)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_flat(torch.zeros(4 * 8 * 16 + 1, device=cuda)[1:]
+                             .view(4, 8, 16), k, k, pos, pos, **kw)
+    assert flash_attention_cuda.launches == before
+
+
+def test_small_serve_on_card_matches_cpu(cuda):
+    before = (flash_attention_cuda.launches, pmwcas_apply_cuda.launches)
+    chip_smoke.small_serve_matches_cpu(serve_mod, build_model, get_config, 0,
+                                       cuda)
+    cfg = get_config("llama3-8b", smoke=True)
+    # the card run: one admission batch and n_layers x (1 + steps) flash
+    # launches; the CPU run launches nothing
+    assert (flash_attention_cuda.launches - before[0],
+            pmwcas_apply_cuda.launches - before[1]) == (
+        cfg.n_layers * (1 + 8), 1)
+
+
+@pytest.mark.parametrize("impl", ["chunked", "ref"])
+def test_serve_runs_the_kernel_whatever_attn_impl(cuda, impl):
+    # the config's default ("chunked") and the oracle ("ref") both run the
+    # flash kernel on the card: n_layers x (1 + steps) launches
+    cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
+                              attn_impl=impl)
+    before = flash_attention_cuda.launches
+    res = serve_mod.serve(cfg, requests=8, steps=4, prompt_len=16,
+                          page_size=16, n_pages=64, device=cuda)
+    assert len(res.admitted) > 0 and res.logits_finite
+    assert flash_attention_cuda.launches - before == cfg.n_layers * (1 + 4)
