@@ -45,15 +45,20 @@
 //
 // What bounds it on an H100: a causal prefill does 4*hd flops per visible
 // (q, k) pair; at 989 TFLOP/s in bf16 that is the bound, far above the
-// bytes.  This first design runs the products on the CUDA cores in f32
-// (67 TFLOP/s peak, and two shared-memory loads per four FMAs in the
-// score loop), with no copy/compute overlap, so it sits an order of
-// magnitude or more above the bound.  A decode step (Sq = 1) is bound by
-// the K/V bytes; here one block per kv head walks the cache alone with
-// synchronous tile loads, so fewer than 132 blocks stream it.  Left on the
-// table for a later PR: tensor cores (mma.sync / wgmma), TMA with a ring
-// of tiles and a producer warp, and a split-K decode that spreads one kv
-// head over many SMs.
+// bytes.  This design runs the products on the CUDA cores in f32 (67
+// TFLOP/s peak, and two shared-memory loads per four FMAs in the score
+// loop), with no copy/compute overlap, so it sits an order of magnitude or
+// more above the bound.
+//
+// Which calls still reach it: the route plan (plan() in
+// src/repro_torch/kernels/flash_attention/kernel.py) sends a call here
+// only when a kv head has more than 16 q rows and the call is float32 (an
+// f32 prefill: wgmma has no f32 product, and TF32 would break the f32
+// tolerance) or bf16 at a head_dim other than 64, 128 or 256.  bf16
+// prefills at those head dims go to flash_attention_tc.cu (tensor cores,
+// TMA), and every call with at most 16 q rows per kv head, decode steps
+// included, to flash_attention_decode.cu (split-K).  The 16-row tile
+// instantiations below are reached by no route now.
 
 #include <cstdint>
 

@@ -1,21 +1,25 @@
-"""Hopper kernel: forward flash attention over flattened heads.
+"""Hopper kernels: forward flash attention over flattened heads.
 
-Replaces ``flash_attention_flat`` (``src/repro/kernels/flash_attention/
-kernel.py:73``).  The CUDA C++ source is
-``src/repro_torch/csrc/flash_attention.cu``; its header comment has the
-design.  In short: one block of 256 threads per (kv head, 16- or 64-row
-q tile) with the ``g`` q heads of a kv head packed into the tile's rows,
-a loop over 64-key tiles staged in shared memory, scores and the online
-softmax in f32 registers, and fully masked tiles skipped before their
-K/V are read.
+Replace ``flash_attention_flat`` (``src/repro/kernels/flash_attention/
+kernel.py:73``).  Three CUDA C++ sources under ``src/repro_torch/csrc/``,
+one route each; :func:`plan` picks the route from the call's shape and
+dtype, and each source's header comment has its design:
 
-What bounds it on the card: the f32 products on the CUDA cores in a
-prefill (the bound is the bf16 tensor-core rate), the K/V bytes in a
-decode step.  Tensor cores, TMA and a split-K decode are left for later.
+- ``decode`` (``flash_attention_decode.cu``): at most 16 q rows per kv
+  head (a decode step), f32 or bf16, any head_dim.  Split-K: one CTA per
+  (kv head, key split) streams its keys through a cp.async ring, a second
+  launch combines the splits (none when there is one split).  Bound by
+  the K/V bytes.
+- ``tc`` (``flash_attention_tc.cu``): bf16 with head_dim 64, 128 or 256.
+  wgmma on the tensor cores fed by TMA, a producer warpgroup and two
+  consumer warpgroups per 128 packed q rows.  Bound by the bf16 FLOPs.
+- ``simt`` (``flash_attention.cu``): everything else (f32 prefill, other
+  head dims): 64-key tiles in shared memory, products on the CUDA cores.
 
-Build: at first use the source is compiled with ``nvcc`` for ``sm_90a``
-by :mod:`repro_torch.kernels._build` and loaded with ``ctypes``.
-Nothing is built at import time, so the CPU tests import this module.
+Build: at first use a route's source is compiled with ``nvcc`` for
+``sm_90a`` by :mod:`repro_torch.kernels._build` and loaded with
+``ctypes``.  Nothing is built at import time, so the CPU tests import
+this module.
 """
 from __future__ import annotations
 
@@ -27,30 +31,88 @@ import torch
 
 from .. import _build
 
-SOURCE = _build.CSRC / "flash_attention.cu"
+SOURCES = {"tc": _build.CSRC / "flash_attention_tc.cu",
+           "decode": _build.CSRC / "flash_attention_decode.cu",
+           "simt": _build.CSRC / "flash_attention.cu"}
+ROUTES = tuple(SOURCES)
 NEG_INF = -2.0 ** 20                 # the finite mask fill of the TPU kernel
 POS_LIMIT = 2.0 ** 29                # keys at or beyond this position are invalid
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+DECODE_ROWS = 16                     # q rows per kv head on the decode route
+TC_HEAD_DIMS = (64, 128, 256)
+SPLIT_QUANTUM = 64                   # a decode split is a whole number of these keys
+MAX_SPLIT_KEYS = 65536               # the split kernel keeps per-tile flags in smem
 
 
-def build() -> pathlib.Path:
-    """Compile the kernel unless this source was built already; returns
+def decode_splits(Sk: int, HK: int, n_sms: int) -> int:
+    """The decode route's split count: one CTA per SM at most (``HK *
+    splits <= n_sms``), at least 128 keys a split, at least one split,
+    and no split longer than ``MAX_SPLIT_KEYS``.  At the serve cell (HK =
+    104, Sk = 2080, 132 SMs) that is 1: the split kernel then writes the
+    output itself and the combine launch is skipped, which measured
+    fastest on the H100 (``PERF.md`` §6); more CTAs than SMs only add
+    combine work and a partial last wave."""
+    return max(1, min(Sk // 128, n_sms // HK), -(-Sk // MAX_SPLIT_KEYS))
+
+
+def split_chunk(Sk: int, splits: int) -> tuple:
+    """``(chunk, splits)``: the keys of each split, a multiple of
+    ``SPLIT_QUANTUM``, and the number of splits that covers ``Sk`` with
+    it (at most the ``splits`` asked for; the pair is a fixed point)."""
+    quanta = -(-Sk // SPLIT_QUANTUM)
+    per = -(-quanta // max(1, min(splits, quanta)))
+    return per * SPLIT_QUANTUM, -(-quanta // per)
+
+
+def plan(dtype: torch.dtype, hd: int, rows_per_kv_head: int, Sk: int,
+         HK: int, n_sms: int, splits: int | None = None) -> tuple:
+    """``(route, splits)`` for one call: ``decode`` when a kv head has at
+    most 16 q rows (``g * Sq``), any dtype and head_dim; else ``tc`` for
+    bf16 at head_dim 64, 128 or 256; else ``simt`` (every f32 prefill:
+    wgmma has no f32 product, and TF32 would break the f32 tolerance).
+    ``splits`` forces the decode route's split count (the tests do);
+    the count returned is the one that launches."""
+    if rows_per_kv_head <= DECODE_ROWS:
+        want = decode_splits(Sk, HK, n_sms) if splits is None else splits
+        return "decode", split_chunk(Sk, want)[1]
+    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
+        return "tc", 1
+    return "simt", 1
+
+
+def build(route: str = "simt") -> pathlib.Path:
+    """Compile one route's source unless it was built already; returns
     the library path (see :func:`repro_torch.kernels._build.build`)."""
-    return _build.build(SOURCE)
+    return _build.build(SOURCES[route])
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+def _lib(route: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build(route)))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
-                                           i32, i32, i32, i32, i32, i32,
-                                           f32, i32, i32, f32, ptr]
-    lib.flash_attention_launch.restype = ctypes.c_int
-    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    name = {"simt": "flash_attention", "tc": "flash_attention_tc",
+            "decode": "flash_attention_decode"}[route]
+    fn = getattr(lib, name + "_launch")
+    if route == "simt":       # q k v qp kp out dtype HK G Sq Sk hd ...
+        fn.argtypes = [ptr] * 6 + [i32] * 6 + [f32, i32, i32, f32, ptr]
+    elif route == "tc":       # q k v qp kp out HK G Sq Sk hd ...
+        fn.argtypes = [ptr] * 6 + [i32] * 5 + [f32, i32, i32, f32, ptr]
+    else:                     # q k v qp kp out ws dtype HK G Sq Sk hd ...
+        fn.argtypes = [ptr] * 7 + [i32] * 6 + [f32, i32, i32, f32, i32,
+                                               i32, ptr]
+    fn.restype = ctypes.c_int
+    err = getattr(lib, name + "_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    lib.launch, lib.error_string = fn, err
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def n_sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -92,35 +154,76 @@ def _positions(pos: torch.Tensor, device) -> torch.Tensor:
     return pos.to(device=device, dtype=torch.float32).contiguous()
 
 
+def workspace_floats(HK: int, splits: int, rows: int, hd: int) -> int:
+    """f32 words of the decode route's workspace: ``m``, ``l`` and
+    ``acc[hd]`` for every (kv head, split, row)."""
+    return HK * splits * rows * (hd + 2)
+
+
+def needs_workspace(dtype: torch.dtype, hd: int, splits: int) -> bool:
+    """Whether a decode call needs the f32 workspace: every call but one
+    split of the mma kernel (bf16 at head_dim 64, 128 or 256), whose CTA
+    writes the output itself."""
+    return splits > 1 or not (dtype == torch.bfloat16
+                              and hd in TC_HEAD_DIMS)
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_pos: torch.Tensor, k_pos: torch.Tensor, out: torch.Tensor, *,
            g: int, scale: float, causal: bool, window: int,
-           attn_cap: float) -> None:
-    """Enqueue one launch on the current stream, WITHOUT the input checks
-    and without counting it: for timing loops over inputs that
-    :func:`flash_attention_cuda` has already accepted (float32
-    positions).  Raises if the launch is refused."""
+           attn_cap: float, splits: int | None = None,
+           workspace: torch.Tensor | None = None) -> tuple:
+    """Enqueue one call on the current stream along the route that
+    :func:`plan` picks, WITHOUT the input checks and without counting it:
+    for timing loops over inputs that :func:`flash_attention_cuda` has
+    already accepted (float32 positions).  Where the decode route needs a
+    workspace (:func:`needs_workspace`) it allocates one unless one of at
+    least :func:`workspace_floats` f32 words is given.  Returns ``(route,
+    splits)``; raises if a launch is refused."""
     HK, Sk, hd = k.shape
-    lib = _lib()
+    Sq = q.shape[1]
+    route, n = plan(q.dtype, hd, g * Sq, Sk, HK, n_sms(q.device.index or 0),
+                    splits)
+    lib = _lib(route)
+    common = (float(scale), int(bool(causal)), int(window), float(attn_cap))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            k_pos.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            k_pos.data_ptr(), out.data_ptr(), DTYPES[q.dtype], HK, g,
-            q.shape[1], Sk, hd, float(scale), int(bool(causal)),
-            int(window), float(attn_cap), stream)
+        if route == "simt":
+            err = lib.launch(*ptrs, DTYPES[q.dtype], HK, g, Sq, Sk, hd,
+                             *common, stream)
+        elif route == "tc":
+            err = lib.launch(*ptrs, HK, g, Sq, Sk, hd, *common, stream)
+        else:
+            need = workspace_floats(HK, n, g * Sq, hd)
+            if not needs_workspace(q.dtype, hd, n):
+                workspace = None
+            elif workspace is None:
+                workspace = torch.empty(need, dtype=torch.float32,
+                                        device=q.device)
+            elif workspace.numel() < need or \
+                    workspace.dtype != torch.float32:
+                raise ValueError(f"decode workspace needs {need} f32 words")
+            ws = None if workspace is None else workspace.data_ptr()
+            err = lib.launch(*ptrs, ws, DTYPES[q.dtype], HK, g, Sq, Sk, hd,
+                             *common, n, split_chunk(Sk, n)[0], stream)
     if err:
-        raise RuntimeError("flash_attention launch failed: "
-                           + lib.flash_attention_error_string(err).decode())
+        raise RuntimeError(f"flash_attention {route} launch failed: "
+                           + lib.error_string(err).decode())
+    return route, n
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                          g: int, scale: float, causal: bool, window: int,
-                         attn_cap: float) -> torch.Tensor:
-    """Launch the kernel: ``q [H, Sq, hd]``, ``k``/``v [HK, Sk, hd]``
-    (q head ``h`` reads kv head ``h // g``) -> ``out [H, Sq, hd]`` in q's
-    dtype.  The tensors must be contiguous CUDA tensors, 16-byte aligned."""
+                         attn_cap: float,
+                         splits: int | None = None) -> torch.Tensor:
+    """Launch the route :func:`plan` picks: ``q [H, Sq, hd]``, ``k``/``v
+    [HK, Sk, hd]`` (q head ``h`` reads kv head ``h // g``) -> ``out [H,
+    Sq, hd]`` in q's dtype.  The tensors must be contiguous CUDA tensors,
+    16-byte aligned.  ``splits`` forces the decode route's split count.
+    Counts the call in ``launches`` and its route in ``route_launches``."""
     check_inputs(q, k, v, q_pos, k_pos, g)
     if not q.is_cuda:
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
@@ -132,10 +235,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be 16-byte aligned")
     qp, kp = _positions(q_pos, q.device), _positions(k_pos, q.device)
     out = torch.empty_like(q)
-    launch(q, k, v, qp, kp, out, g=g, scale=scale, causal=causal,
-           window=window, attn_cap=attn_cap)
+    route, _ = launch(q, k, v, qp, kp, out, g=g, scale=scale, causal=causal,
+                      window=window, attn_cap=attn_cap, splits=splits)
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.route_launches[route] += 1
     return out
 
 
-flash_attention_cuda.launches = 0    # launches issued by this process
+def reset_counts() -> None:
+    """Set the call count and every route's count to 0."""
+    flash_attention_cuda.launches = 0
+    flash_attention_cuda.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+flash_attention_cuda.launches = 0    # calls launched by this process
+flash_attention_cuda.route_launches = dict.fromkeys(ROUTES, 0)   # by route

@@ -8,9 +8,14 @@ nothing of the reference, so it runs on a machine with a card::
     python -m pytest -m requires_cuda tests/test_torch_cuda.py
 
 Tolerances: bit-identical verdicts and word tables for the PMwCAS
-kernel; 2e-5 (f32) and 2e-2 (bf16) for the flash kernel, over the cases
-of ``chip_smoke.py``'s ``FA_CHECK_CASES``; a small serve on the card
-matches the CPU's within 1e-3 in f32.
+kernel; 2e-5 (f32) and 2e-2 (bf16, and ``chip_smoke.FA_ROW_TOL`` per
+row) for the flash kernels, over the cases of ``chip_smoke.py``'s
+``FA_CHECK_CASES``, each on the route the plan gives it; a small serve
+on the card matches the CPU's within 1e-3 in f32, and within
+``chip_smoke.SERVE_BF16_TOL`` (0.15, absolute) in bf16 at head_dim 128,
+where the tensor-core and decode routes run inside the model (the
+constants' comments give the reasons; ``tests/test_torch_flash_faults.py``
+puts both bf16 limits to planted faults on the CPU).
 """
 import dataclasses
 import importlib.util
@@ -24,6 +29,8 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_cuda,
                                                  flash_attention_flat)
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.pmwcas_apply import ref
 from repro_torch.launch import serve as serve_mod
@@ -167,10 +174,13 @@ def test_service_on_card_matches_cpu(cuda):
 def test_flash_kernel_matches_plain(cuda, case, dtype):
     args, kw = chip_smoke.fa_case_inputs(case, dtype, cuda, seed=7)
     before = flash_attention_cuda.launches
-    got = flash_attention_flat(*args, **kw)
+    routes = dict(flash_attention_cuda.route_launches)
+    got = chip_smoke.fa_run(fa_ops, fa_kernel, case, args, kw)
     want = fa_ref.flash_attention_flat(*args, **kw)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == before + 1
+    routes[chip_smoke.fa_route(case, dtype)] += 1
+    assert flash_attention_cuda.route_launches == routes
     ok, err = chip_smoke.fa_close(got, want, dtype)
     assert ok, f"max abs err {err}"
 
@@ -219,6 +229,15 @@ def test_small_serve_on_card_matches_cpu(cuda):
     assert (flash_attention_cuda.launches - before[0],
             pmwcas_apply_cuda.launches - before[1]) == (
         cfg.n_layers * (1 + 8), 1)
+
+
+def test_small_bf16_serve_runs_tc_and_decode_routes(cuda):
+    # head_dim 128 in bf16: the prefill (64 rows per kv head) takes the
+    # tensor-core route, each decode step (4 rows) the decode route
+    routes = chip_smoke.small_serve_bf16(serve_mod, build_model, get_config,
+                                         0, cuda)
+    n_layers = get_config("llama3-8b", smoke=True).n_layers
+    assert routes == dict(tc=n_layers, decode=n_layers * 8, simt=0)
 
 
 @pytest.mark.parametrize("impl", ["chunked", "ref"])
