@@ -13,26 +13,34 @@ Phases, in order; any failure exits non-zero:
    flash_attention_tc, flash_attention_decode, flash_attention}.cu``, one
    nvcc each in parallel (seconds, ptxas registers/spills);
 2. kernels vs plain — the PMwCAS kernel's verdicts and tables held bit
-   for bit against its plain PyTorch version over seeded ``[S, B, K]``
-   batches (S in {1, 4}, B in {1, 7, 1024}, K in {1, 2, 8}; uniform and
+   for bit against its plain PyTorch version on both routes (``smem``,
+   where its hash fits, and ``global``) over seeded ``[S, B, K]``
+   batches (S in {1, 4}, B in {1, 7, 1024}, K in {1, 2, 8}, serve's
+   ``[1, 128, 9]`` and a ``global``-sized ``[2, 4500, 2]``; uniform and
    Zipf-hot addresses; all-padded rows, duplicate ids, (a)-passing rows
-   that lose and still block), ``reserve_slots``' corner cases and
-   ``sequential_oracle`` containment, and the service on the card
-   against the service on the CPU; then the flash op against its plain
-   version over ``FA_CHECK_CASES`` in f32 (2e-5) and bf16 (2e-2, and
-   ``FA_ROW_TOL`` per row), each call on the route the plan gives it
-   (``tc``, ``decode`` or ``simt``), and two small serves (llama3-8b
-   smoke config: f32 within 1e-3, and bf16 at head_dim 128, which runs
-   the ``tc`` and ``decode`` routes, within ``SERVE_BF16_TOL``) on the
-   card against the CPU;
+   that lose and still block) and over batches whose every address the
+   smem hash sends to one home bucket; ``reserve_slots``' corner cases
+   on both routes and ``sequential_oracle`` containment, and the service
+   on the card against the service on the CPU; then the flash op against
+   its plain version over ``FA_CHECK_CASES`` in f32 (2e-5) and bf16
+   (2e-2, and ``FA_ROW_TOL`` per row), each call on the route the plan
+   gives it (``tc``, ``decode`` or ``simt``), and two small serves
+   (llama3-8b smoke config: f32 within 1e-3, and bf16 at head_dim 128,
+   which runs the ``tc`` and ``decode`` routes, within
+   ``SERVE_BF16_TOL``) on the card against the CPU;
 3. the KV slice at full size — ``KVService(n_shards=4, round_cap=1024)``
-   with 1,048,576 records (4 x 1,048,576-word tables on the card),
-   loaded, then driven by YCSB core workload A (50% read, 50% update,
-   Zipfian 0.99) from 8 clients in bounded windows; integrity, the
-   acknowledged writes read back, and ``conflict_rate == 0`` are checked;
-4. PMwCAS timings — the kernel's and the plain version's time per launch
-   at the slice's shape, the per-wave split of a traced window, ops/s and
-   p50/p99 latency;
+   with 1,048,576 records (4 x 1,048,576-word tables on the card, the
+   rows of one persistent ``[4, W]`` tensor), loaded, then driven by
+   YCSB core workload A (50% read, 50% update, Zipfian 0.99) from 8
+   clients in bounded windows; integrity, the acknowledged writes read
+   back, ``conflict_rate == 0``, every wave one launch on the ``smem``
+   route, and the tables still rows of that tensor are checked;
+4. PMwCAS timings — the device time per wave of a profiled window by op
+   name (the dispatch's kernel, upload and verdict copy; the rest), the
+   kernel's time per launch on both routes and the plain version's at
+   the slice's shape beside the byte bound and the latency floor (an
+   empty launch plus three dependent 4-byte loads), the per-wave host
+   split of a traced window, ops/s and p50/p99 latency;
 5. the LM serve slice at full width — ``repro_torch.launch.serve.serve``
    on llama3-8b (32 layers, bf16 weights drawn on the card from the
    seed, ``attn_impl="pallas"``): 128 proposed requests of 2048 prompt
@@ -61,6 +69,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import itertools
 import json
 import pathlib
 import subprocess
@@ -122,52 +131,92 @@ def _batch(rng, S, B, K, W, hot, words_np):
     return addr, exp.astype(np.uint32), des.astype(np.uint32)
 
 
-def kernel_vs_plain(pm, ref, seed: int, dev) -> int:
-    """Bit-for-bit comparisons on ``dev``; returns the largest absolute
+def _colliding(kernel, rng, S, B, K, W):
+    """A batch whose addresses the smem route's tag table (and so its
+    hash too) sends to bucket 0, shared between rows and duplicated
+    within some, expected values mostly current, against seeded ``[S, W]``
+    words: every passing slot is contested and probes the whole cluster."""
+    pool = np.flatnonzero(kernel.hash_bucket(
+        np.arange(W), kernel.table_bits(B, K)[0]) == 0)
+    words_np = np.zeros((S, W), np.uint32)
+    words_np[:, pool] = rng.integers(0, 1 << 32, size=(S, len(pool)),
+                                     dtype=np.uint64).astype(np.uint32)
+    addr = rng.choice(pool[:B * K // 2], size=(S, B, K)).astype(np.int32)
+    addr[rng.random((S, B, K)) < 0.1] = -1
+    cur = np.take_along_axis(words_np, np.maximum(addr, 0).reshape(S, -1),
+                             1).reshape(S, B, K)
+    exp = np.where(rng.random((S, B, K)) < 0.05, cur + 1, cur)
+    des = rng.integers(0, 1 << 32, size=(S, B, K), dtype=np.uint64)
+    return words_np, addr, exp.astype(np.uint32), des.astype(np.uint32)
+
+
+def _held(pm, ref, kernel, dev, words_np, addr, exp, des, route,
+          what) -> int:
+    """One launch on ``route`` against the plain version on the same
+    inputs; returns the largest difference (must be 0)."""
+    args = [pm.words_to_tensor(a, dev) for a in (addr, exp, des)]
+    w_k = pm.words_to_tensor(words_np, dev)
+    w_p = w_k.clone()
+    s_k = kernel.pmwcas_apply_cuda(w_k, *args, route=route)
+    _, s_p = ref.pmwcas_apply_stacked(w_p, *args)
+    _sync(dev)
+    diff = max(int((s_k.int() - s_p.int()).abs().max()),
+               int((w_k.long() - w_p.long()).abs().max()))
+    check(diff == 0, f"kernel != plain on the {route} route at {what}")
+    B = addr.shape[1]
+    check(bool(s_k.all(dim=1).logical_not().any()) or B < 1024,
+          f"no loser on the {route} route at {what}")
+    check(bool(s_k.any(dim=1).all()) or B < 1024,
+          f"no winner on the {route} route at {what}")
+    return diff
+
+
+def kernel_vs_plain(pm, ref, kernel, seed: int, dev) -> int:
+    """Bit-for-bit comparisons on ``dev``, every case on both routes (the
+    smem route only where its hash fits); returns the largest absolute
     difference seen (must be 0)."""
     rng = np.random.default_rng(seed)
     worst = 0
-    n_cases = 0
-    for S in (1, 4):
-        for B in (1, 7, 1024):
-            for K in (1, 2, 8):
-                for hot in (False, True):
-                    W = 4096 if hot else 1 << 20
-                    words_np = rng.integers(0, 1 << 32, size=(S, W),
-                                            dtype=np.uint64).astype(np.uint32)
-                    addr, exp, des = _batch(rng, S, B, K, W, hot, words_np)
-                    args = [pm.words_to_tensor(a, dev)
-                            for a in (addr, exp, des)]
-                    w_k = pm.words_to_tensor(words_np, dev)
-                    w_p = w_k.clone()
-                    _, s_k = pm.pmwcas_apply_stacked(w_k, *args)
-                    _, s_p = ref.pmwcas_apply_stacked(w_p, *args)
-                    _sync(dev)
-                    diff = max(int((s_k.int() - s_p.int()).abs().max()),
-                               int((w_k.long() - w_p.long()).abs().max()))
-                    worst = max(worst, diff)
-                    check(diff == 0, f"kernel != plain at S={S} B={B} K={K} "
-                          f"hot={hot}")
-                    check(bool(s_k.all(dim=1).logical_not().any())
-                          or B < 1024,
-                          f"no loser at S={S} B={B} K={K} hot={hot}")
-                    check(bool(s_k.any(dim=1).all()) or B < 1024,
-                          f"no winner at S={S} B={B} K={K} hot={hot}")
-                    n_cases += 1
-    log(f"phase 2: kernel == plain bit for bit on {n_cases} [S, B, K] "
-        "batches (uniform + Zipf-hot)")
+    n_cases = dict.fromkeys(kernel.ROUTES, 0)
+    shapes = [(S, B, K) for S in (1, 4) for B in (1, 7, 1024)
+              for K in (1, 2, 8)] + [(1, 128, 9), (2, 512, 8), (1, 256, 16),
+                                     (2, 4500, 2)]
+    for S, B, K in shapes:
+        for hot in (False, True):
+            W = 4096 if hot else 1 << 20
+            words_np = rng.integers(0, 1 << 32, size=(S, W),
+                                    dtype=np.uint64).astype(np.uint32)
+            addr, exp, des = _batch(rng, S, B, K, W, hot, words_np)
+            for route in kernel.ROUTES:
+                if route == "smem" and kernel.plan(B, K)[0] != "smem":
+                    continue
+                worst = max(worst, _held(
+                    pm, ref, kernel, dev, words_np, addr, exp, des, route,
+                    f"S={S} B={B} K={K} hot={hot}"))
+                n_cases[route] += 1
+    for S, B, K in ((4, 1024, 2), (1, 128, 9), (1, 512, 8)):
+        batch = _colliding(kernel, rng, S, B, K, 1 << 25)
+        for route in kernel.ROUTES:
+            worst = max(worst, _held(pm, ref, kernel, dev, *batch, route,
+                                     f"S={S} B={B} K={K}, one home bucket"))
+            n_cases[route] += 1
+    log(f"phase 2: kernel == plain bit for bit on {json.dumps(n_cases)} "
+        "[S, B, K] batches by route (uniform, Zipf-hot, every address in "
+        "one home bucket of the smem hash)")
 
     # (a)-passing rows that lose still block: rows 0,1 pass, 1 loses to 0
     # on word 3, and row 2 (disjoint from 0) loses to row 1
-    words = pm.words_to_tensor(np.zeros((1, 16), np.uint32), dev)
     addr = np.asarray([[[0, 3], [3, 4], [4, 5], [6, 7]]], np.int32)
     exp = np.zeros_like(addr, dtype=np.uint32)
     exp[0, 3, 1] = 9                                      # row 3 fails (a)
     des = np.ones_like(addr, dtype=np.uint32)
-    _, s = pm.pmwcas_apply_stacked(words, *[pm.words_to_tensor(a, dev)
-                                            for a in (addr, exp, des)])
-    check(s.cpu().tolist() == [[True, False, False, False]],
-          f"blocking semantics broken: {s.cpu().tolist()}")
+    for route in kernel.ROUTES:
+        words = pm.words_to_tensor(np.zeros((1, 16), np.uint32), dev)
+        s = kernel.pmwcas_apply_cuda(
+            words, *[pm.words_to_tensor(a, dev) for a in (addr, exp, des)],
+            route=route)
+        check(s.cpu().tolist() == [[True, False, False, False]],
+              f"blocking semantics broken on {route}: {s.cpu().tolist()}")
 
     # reserve_slots' corner cases (tests/test_kernels.py), kernel == plain
     # == the expected verdicts
@@ -178,7 +227,8 @@ def kernel_vs_plain(pm, ref, seed: int, dev) -> int:
          [True, False, True, False]),                    # lower index wins
         ([[1, 2, -1]], 2, [False]),                       # already claimed
     ]
-    for reqs, taken, want in cases:
+    for (reqs, taken, want), route in itertools.product(cases,
+                                                        kernel.ROUTES):
         free = np.ones(16, np.uint32)
         if taken is not None:
             free[taken] = 0
@@ -186,14 +236,24 @@ def kernel_vs_plain(pm, ref, seed: int, dev) -> int:
         m_k = pm.words_to_tensor(free, dev)
         m_p = m_k.clone()
         r = pm.words_to_tensor(reqs, dev)
-        _, g_k = pm.reserve_slots(m_k, r)
+        g_k = kernel.pmwcas_apply_cuda(m_k[None], r[None],
+                                       torch.ones_like(r)[None],
+                                       torch.zeros_like(r)[None],
+                                       route=route)[0]
         _, g_p = ref.pmwcas_apply(m_p, r, torch.ones_like(r),
                                   torch.zeros_like(r))
         check(g_k.cpu().tolist() == g_p.cpu().tolist() == want,
-              f"reserve_slots {reqs.tolist()}: {g_k.cpu().tolist()}")
-        check(torch.equal(m_k, m_p), f"reserve_slots mask {reqs.tolist()}")
-    log("phase 2: reserve_slots corner cases agree (kernel == plain == "
-        "expected)")
+              f"reserve_slots {reqs.tolist()} on {route}: "
+              f"{g_k.cpu().tolist()}")
+        check(torch.equal(m_k, m_p),
+              f"reserve_slots mask {reqs.tolist()} on {route}")
+        if route == kernel.plan(*reqs.shape)[0]:    # the op on its route
+            m_r = pm.words_to_tensor(free, dev)
+            _, g_r = pm.reserve_slots(m_r, r)
+            check(torch.equal(g_r, g_k) and torch.equal(m_r, m_k),
+                  f"reserve_slots {reqs.tolist()} != its kernel launch")
+    log("phase 2: reserve_slots corner cases agree on both routes (kernel "
+        "== plain == expected)")
 
     # sequential_oracle containment at contention
     for seed2 in range(8):
@@ -310,6 +370,43 @@ class WaveSplit:
                 "wave": t["service.wave"]}
 
 
+def _table_storage(svc) -> int:
+    """The address of the one ``[S, W]`` storage whose rows are the
+    shards' word tables (checked), as the stacked dispatch binds them."""
+    tables = [b.word_table() for b in svc.backends]
+    base = tables[0].untyped_storage().data_ptr()
+    for i, t in enumerate(tables):
+        check(t.untyped_storage().data_ptr() == base
+              and t.data_ptr() == base + i * t.numel() * 4,
+              f"shard {i}'s table is not row {i} of one [S, W] tensor")
+    return base
+
+
+DISPATCH_OPS = {"kernel": ("pmwcas_apply",),
+                "upload": ("Memcpy HtoD",),
+                "verdict": ("Memcpy DtoH (Device -> Pinned)",)}
+
+
+def wave_device_split(by_name: dict, count: dict, waves: int) -> dict:
+    """Device µs per wave by op name over a profiled window of ``waves``
+    service waves: the dispatch's own ops (the PMwCAS kernel, the packed
+    upload, the verdict copy into pinned memory) and everything else
+    (the snapshot's table copies to pageable memory among it)."""
+    per = {k: 0.0 for k in (*DISPATCH_OPS, "rest")}
+    for name, us in by_name.items():
+        key = next((k for k, pats in DISPATCH_OPS.items()
+                    if any(p in name for p in pats)), "rest")
+        per[key] += us / max(waves, 1)
+    per["dispatch"] = sum(per[k] for k in DISPATCH_OPS)
+    log(f"phase 4: device us per wave over {waves} profiled waves "
+        "(profiler, by op name): " + json.dumps(
+            {k: round(v, 3) for k, v in per.items()}))
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"phase 4:   {us / max(waves, 1):12.3f} us/wave  "
+            f"{count[name] / max(waves, 1):6.2f}/wave  {name[:90]}")
+    return per
+
+
 def full_slice(pm, svc_mod, st, obs, kernel, dev, seed: int,
                records: int = RECORDS, ops: int = OPS):
     n_buckets = 2 * records // N_SHARDS
@@ -339,12 +436,14 @@ def full_slice(pm, svc_mod, st, obs, kernel, dev, seed: int,
     svc.reset_stats()
     # percentiles over every op of the run, not the default recent window
     svc.stats.latency_us.window = len(arrivals)
-    kernel.pmwcas_apply_cuda.launches = 0     # count the main path only
+    table = _table_storage(svc)
+    kernel.reset_counts()                     # count the main path only
     t0 = time.perf_counter()
     run_futs = drive(svc, arrivals, window)
     _sync(dev)
     run_s = time.perf_counter() - t0
     launches = kernel.pmwcas_apply_cuda.launches
+    routes = dict(kernel.pmwcas_apply_cuda.route_launches)
     stats = svc.stats
     dispatch = stats.dispatch
     log(f"phase 3: YCSB-A {len(arrivals)} ops from {N_CLIENTS} clients in "
@@ -367,9 +466,15 @@ def full_slice(pm, svc_mod, st, obs, kernel, dev, seed: int,
           + dispatch.serial_rounds,
           f"kernel launches {launches} != dispatches {dispatch.dispatches}"
           f" + serial rounds {dispatch.serial_rounds}")
+    check(routes == {"smem": launches, "global": 0},
+          f"PMwCAS routes {routes}: every wave must take the smem route")
+    check(_table_storage(svc) == table,
+          "the shard tables moved off their persistent [S, W] tensor")
     log("phase 3: integrity ok, acknowledged writes read back, "
-        "conflict_rate 0")
-    log("kernels: " + json.dumps({"pmwcas_apply": launches}))
+        "conflict_rate 0; every wave one smem launch on the shards' "
+        "persistent [S, W] table")
+    log("kernels: " + json.dumps({"pmwcas_apply": launches,
+                                  "pmwcas_apply routes": routes}))
 
     # a second, traced window on the loaded map for the per-wave split
     split = WaveSplit(obs.get_tracer())
@@ -388,16 +493,23 @@ def full_slice(pm, svc_mod, st, obs, kernel, dev, seed: int,
     profiled = _arrivals(st.client_streams(
         dataclasses.replace(spec, n_ops=ops // 8, seed=seed + 2),
         N_CLIENTS))
-    busy_us, wall_us = _device_us(lambda: drive(svc, profiled, window))
+    waves0 = svc.stats.steps
+    by_name, count, wall_us = _profile(lambda: drive(svc, profiled,
+                                                     window))
+    waves = svc.stats.steps - waves0
+    busy_us = sum(by_name.values()) or None
     log("phase 4: device busy " + ("not measured" if busy_us is None else
         f"{busy_us:.1f} us of {wall_us:.1f} us wall over {len(profiled)} "
         f"ops: idle share {1 - busy_us / wall_us:.4f} (profiler)"))
+    wave_split = wave_device_split(by_name, count, waves)
     log(f"phase 4: per-wave host split over {split.waves} traced waves "
         f"({len(traced)} ops, {traced_s:.3f} s, tracing on), us/wave: "
         + json.dumps({k: round(v, 1) for k, v in per_wave.items()}))
+    check(_table_storage(svc) == table, "the shard tables moved")
     svc.check_integrity()
-    return dict(launches=launches, ops_per_s=len(arrivals) / run_s,
-                load_s=load_s, run_s=run_s, stats=stats, svc=svc)
+    return dict(launches=launches, routes=routes,
+                ops_per_s=len(arrivals) / run_s, load_s=load_s, run_s=run_s,
+                stats=stats, svc=svc, wave_split=wave_split)
 
 
 # ---------------------------------------------------------------------------
@@ -447,12 +559,23 @@ def _device_us(fn, iters: int = 1):
     return (busy if busy > 0 else None), wall_us
 
 
+def _per_launch_us(fn, iters: int, match: str):
+    """Device µs per launch of the kernels whose name holds ``match``,
+    over ``iters`` calls of ``fn`` under the profiler (the mean over the
+    launches the trace shows), and how many it shows; None if none."""
+    by_name, count, _ = _profile(lambda: [fn() for _ in range(iters)])
+    us = sum(v for k, v in by_name.items() if match in k)
+    n = sum(v for k, v in count.items() if match in k)
+    return (us / n if n else None), n
+
+
 def kernel_timings(pm, ref, kernel, svc, seed: int, dev):
-    """Kernel and plain version per launch on an update wave of the
-    slice's shape: 4 shards x 1024 rows x 2 slots against the loaded
-    4 x 1,048,576-word tables (each row a live bucket's key guard + value
-    word, expected == current, desired == expected so every launch does
-    the same full work)."""
+    """Kernel (both routes) and plain version per launch on an update
+    wave of the slice's shape: 4 shards x 1024 rows x 2 slots against the
+    loaded 4 x 1,048,576-word tables (each row a live bucket's key guard
+    + value word, expected == current, desired == expected so every
+    launch does the same full work); and the latency floor, an empty
+    launch plus three dependent 4-byte loads."""
     rng = np.random.default_rng(seed + 7)
     words = torch.stack([b.word_table() for b in svc.backends]).clone()
     S, W = words.shape
@@ -466,46 +589,78 @@ def kernel_timings(pm, ref, kernel, svc, seed: int, dev):
     exp = np.take_along_axis(host, addr.reshape(S, -1), 1).reshape(addr.shape)
     a, e = (pm.words_to_tensor(x, dev) for x in (addr, exp))
     d = e.clone()
-    claim = pm.claim_scratch(words)
+    claim = kernel.claim_scratch(words)
     success = torch.empty((S, ROUND_CAP), dtype=torch.bool, device=dev)
     w_k, w_p = words.clone(), words.clone()
-    _, s_k = pm.pmwcas_apply_stacked(w_k, a, e, d, claim=claim)
+    check(kernel.plan(ROUND_CAP, 2)[0] == "smem", "the wave's plan")
     _, s_p = ref.pmwcas_apply_stacked(w_p, a, e, d)
-    torch.cuda.synchronize()
-    check(bool(s_k.all()) and torch.equal(s_k, s_p)
-          and torch.equal(w_k, w_p), "timing inputs: kernel != plain")
+    for route in kernel.ROUTES:
+        s_k = kernel.pmwcas_apply_cuda(w_k, a, e, d, route=route,
+                                       claim=claim)
+        torch.cuda.synchronize()
+        check(bool(s_k.all()) and torch.equal(s_k, s_p)
+              and torch.equal(w_k, w_p),
+              f"timing inputs: kernel != plain on the {route} route")
 
-    def run_kernel():
-        kernel.launch(w_k, a, e, d, claim, success)
+    def run(route):
+        return lambda: kernel.launch(w_k, a, e, d, success, route=route,
+                                     claim=claim)
 
     def run_plain():
         ref.pmwcas_apply_stacked(w_p, a, e, d)
 
     # stream time of back-to-back calls (CUDA events), in turns
-    plain_ms, kernel_ms, kernel_ms2, plain_ms2 = (
-        _event_ms(run_plain, 20), _event_ms(run_kernel, 500),
-        _event_ms(run_kernel, 500), _event_ms(run_plain, 20))
-    wrapper_ms = _event_ms(
-        lambda: pm.pmwcas_apply_stacked(w_k, a, e, d, claim=claim), 200)
-    # device time per call (profiler): what the card itself spends; the
+    plain_ms, smem_ms, global_ms, smem_ms2, global_ms2, plain_ms2 = (
+        _event_ms(run_plain, 20), _event_ms(run("smem"), 500),
+        _event_ms(run("global"), 500), _event_ms(run("smem"), 500),
+        _event_ms(run("global"), 500), _event_ms(run_plain, 20))
+    wrapper_ms = _event_ms(lambda: pm.pmwcas_apply_stacked(w_k, a, e, d),
+                           200)
+    # device time per launch (profiler): what the card itself spends; the
     # host's ctypes call would dominate the kernel's event time
-    k_dev, _ = _device_us(run_kernel, 200)
+    turns = [(r, _per_launch_us(run(r), 200, "pmwcas_apply")[0])
+             for r in ("smem", "global", "global", "smem")]
     p_dev, _ = _device_us(run_plain, 20)
-    ms = k_dev / 200 / 1e3 if k_dev else min(kernel_ms, kernel_ms2)
+    # the latency floor: one thread, an empty launch, then three
+    # dependent 4-byte loads through a random chain in a table's size
+    chain = torch.randint(0, W, (W,), dtype=torch.int32, device=dev,
+                          generator=torch.Generator(device=dev
+                                                    ).manual_seed(seed))
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    probe = {t: _per_launch_us(
+        lambda t=t: kernel.latency_probe(chain, out, t), 200, "latency")[0]
+        for t in (0, 3)}
+    smem_us = [u for r, u in turns if r == "smem" and u]
+    global_us = [u for r, u in turns if r == "global" and u]
+    ms = min(smem_us) / 1e3 if smem_us else min(smem_ms, smem_ms2)
+    g_ms = min(global_us) / 1e3 if global_us else min(global_ms, global_ms2)
     plain = p_dev / 20 / 1e3 if p_dev else min(plain_ms, plain_ms2)
-    src = "profiler device time" if k_dev and p_dev else "CUDA events"
+    src = "profiler device time" if smem_us and global_us and p_dev \
+        else "CUDA events"
+    floor_ms = probe[3] / 1e3 if probe[3] else None
     valid = int((addr >= 0).sum())
     winners = int((np.asarray(s_k.cpu())[..., None] & (addr >= 0)).sum())
     n_bytes = 3 * addr.size * 4 + valid * 4 + winners * 4 + S * ROUND_CAP
     bound_ms = n_bytes / H100_BYTES_PER_S * 1e3
-    log(f"phase 4: [S, B, K] = [{S}, {ROUND_CAP}, 2], W = {W}: kernel "
-        f"{ms * 1e3:.3f} us/launch, plain {plain * 1e3:.3f} us/call "
-        f"({src}); stream time back to back (CUDA events): kernel "
-        f"{kernel_ms * 1e3:.2f} / {kernel_ms2 * 1e3:.2f} us, checked "
-        f"wrapper {wrapper_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} / "
-        f"{plain_ms2 * 1e3:.2f} us; bound {bound_ms * 1e3:.4f} us "
-        f"({n_bytes} bytes at {H100_BYTES_PER_S:.3g} B/s)")
-    return dict(ms=ms, plain_ms=plain, bound_ms=bound_ms)
+    log(f"phase 4: [S, B, K] = [{S}, {ROUND_CAP}, 2], W = {W}: smem route "
+        f"{ms * 1e3:.3f} us/launch, global route {g_ms * 1e3:.3f} "
+        f"us/launch, plain {plain * 1e3:.3f} us/call ({src}; per launch "
+        f"in two profiled runs of 200, taken in turns: smem "
+        f"{[round(x, 3) for x in smem_us]}, global "
+        f"{[round(x, 3) for x in global_us]}); stream time back to back "
+        f"(CUDA events): smem {smem_ms * 1e3:.2f} / {smem_ms2 * 1e3:.2f} "
+        f"us, global {global_ms * 1e3:.2f} / {global_ms2 * 1e3:.2f} us, "
+        f"checked wrapper {wrapper_ms * 1e3:.2f} us, plain "
+        f"{plain_ms * 1e3:.2f} / {plain_ms2 * 1e3:.2f} us; bound "
+        f"{bound_ms * 1e3:.4f} us ({n_bytes} bytes at "
+        f"{H100_BYTES_PER_S:.3g} B/s); latency floor (profiler, one "
+        f"thread): empty launch "
+        + ("not measured" if probe[0] is None else f"{probe[0]:.3f} us")
+        + ", plus three dependent 4-byte loads "
+        + ("not measured" if probe[3] is None else f"{probe[3]:.3f} us"))
+    return dict(ms=ms, global_ms=g_ms, plain_ms=plain, bound_ms=bound_ms,
+                floor_ms=floor_ms,
+                empty_ms=probe[0] / 1e3 if probe[0] else None)
 
 
 # ---------------------------------------------------------------------------
@@ -833,7 +988,7 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
                                   torch.ones_like(r), torch.zeros_like(r))
 
     fa_kernel.reset_counts()                        # count this path only
-    pm_kernel.pmwcas_apply_cuda.launches = 0
+    pm_kernel.reset_counts()
     res = serve_mod.serve(cfg, requests=LM_REQUESTS, steps=LM_STEPS,
                           prompt_len=LM_PROMPT, page_size=LM_PAGE,
                           n_pages=LM_PAGES, device=dev, seed=seed,
@@ -841,6 +996,7 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
     fa_launches = fa_kernel.flash_attention_cuda.launches
     fa_routes = dict(fa_kernel.flash_attention_cuda.route_launches)
     pm_launches = pm_kernel.pmwcas_apply_cuda.launches
+    pm_routes = dict(pm_kernel.pmwcas_apply_cuda.route_launches)
     B = len(res.admitted)
     log(f"phase 5: admitted {B}/{LM_REQUESTS} requests ({pages_per_req} "
         f"pages each of {LM_PAGE} tokens, {LM_PAGES} pages)")
@@ -859,7 +1015,9 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
                        simt=0)
     check(fa_routes == want_routes, f"flash routes {fa_routes} != "
           f"{want_routes} (tc at every prefill, decode at every step)")
-    check(pm_launches == 1, f"page-grant launches {pm_launches} != 1")
+    check(pm_launches == 1 and pm_routes == {"smem": 1, "global": 0},
+          f"page-grant launches {pm_launches} by route {pm_routes} != 1 "
+          "on the smem route")
     kv_bytes = 2 * cfg.n_layers * B * cfg.n_kv_heads * (
         LM_PROMPT + LM_STEPS) * cfg.resolved_head_dim * 2
     t = res.timings
@@ -869,9 +1027,11 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
         f"({t['decode_tokens_per_s']:.1f} tokens/s decoding, "
         f"{t['tokens_per_s']:.1f} generated tokens/s with the prefill); "
         f"launches on this path: flash {fa_launches} (by route "
-        f"{json.dumps(fa_routes)}), pmwcas {pm_launches}")
+        f"{json.dumps(fa_routes)}), pmwcas {pm_launches} (by route "
+        f"{json.dumps(pm_routes)})")
     return dict(model=model, cfg=cfg, B=B, fa_launches=fa_launches,
-                fa_routes=fa_routes, pm_launches=pm_launches, timings=t)
+                fa_routes=fa_routes, pm_launches=pm_launches,
+                pm_routes=pm_routes, timings=t)
 
 
 def _visible_pairs(qp, kp) -> int:
@@ -1284,7 +1444,7 @@ def main(argv=None) -> int:
                                     for r in fa_kernel.ROUTES])
 
     dev = torch.device("cuda")
-    worst = kernel_vs_plain(pm, ref, args.seed, dev)
+    worst = kernel_vs_plain(pm, ref, kernel, args.seed, dev)
     small_service_matches_cpu(svc_mod, st, args.seed, dev)
     fa_worst = fa_kernel_vs_plain(fa_ops, fa_ref, fa_kernel, args.seed, dev)
     small_serve_matches_cpu(serve_mod, build_model, get_config, args.seed,
@@ -1317,10 +1477,14 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [{
         "name": "pmwcas_apply", "route": "cuda",
         "source": "src/repro_torch/csrc/pmwcas_apply.cu",
+        "route_launches": run["routes"],
         "replaces": "src/repro/kernels/pmwcas_apply/kernel.py:62",
         "launches": run["launches"], "max_abs_err": worst,
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}, {
+        "ms": t["ms"], "global_route_ms": t["global_ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": "bytes", "latency_floor_ms": t["floor_ms"],
+        "wave_dispatch_device_us": run["wave_split"]["dispatch"],
+        "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_tc.cu",
         "sources": [f"src/repro_torch/csrc/{p.name}"

@@ -1,7 +1,8 @@
 """Public op: batched MwCAS apply against word tables, dispatched by device.
 
 A CUDA tensor goes to the hand-written Hopper kernel
-(:func:`.kernel.pmwcas_apply_cuda`); a CPU tensor goes to the plain
+(:func:`.kernel.pmwcas_apply_cuda`, on the route its ``plan`` picks from
+the round's ``[B, K]``); a CPU tensor goes to the plain
 PyTorch version (:mod:`.ref`).  There is no switch between the two: the
 tensors' device decides, so the card never runs the plain version.
 
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from . import ref
-from .kernel import CLAIM_FREE, check_batch, pmwcas_apply_cuda
+from .kernel import check_batch, pmwcas_apply_cuda
 
 
 def words_to_tensor(values, device) -> torch.Tensor:
@@ -38,49 +39,37 @@ def tensor_to_words(t: torch.Tensor) -> np.ndarray:
     return t.to("cpu", copy=True).numpy().view(np.uint32)
 
 
-def claim_scratch(words: torch.Tensor) -> Optional[torch.Tensor]:
-    """The kernel's ``int32[S, W]`` claim table for ``words [S, W]``
-    (``None`` on the CPU, whose plain version needs none).  Callers that
-    launch repeatedly keep one and pass it back in."""
-    if not words.is_cuda:
-        return None
-    return torch.full(words.shape, CLAIM_FREE, dtype=torch.int32,
-                      device=words.device)
-
-
 def pmwcas_apply_stacked(words: torch.Tensor, addr: torch.Tensor,
                          exp: torch.Tensor, des: torch.Tensor, *,
-                         claim: Optional[torch.Tensor] = None):
+                         addr_max: Optional[int] = None):
     """``S`` shard rounds in ONE launch.
 
     ``words`` int32[S, W] stacked shard tables, updated in place;
     ``addr`` int32[S, B, K] (<0 pad); ``exp``/``des`` int32[S, B, K].
-    Returns ``(words, success bool[S, B])``.  ``claim`` is the kernel's
-    scratch from :func:`claim_scratch` (allocated per call if omitted).
+    Returns ``(words, success bool[S, B])``.  ``addr_max``: the batch's
+    largest address where the caller holds it on the host, so the range
+    check waits for nothing.
     """
     if words.is_cuda:
-        if claim is None:
-            claim = claim_scratch(words)
-        return words, pmwcas_apply_cuda(words, addr, exp, des, claim)
+        return words, pmwcas_apply_cuda(words, addr, exp, des,
+                                        addr_max=addr_max)
     if words.device.type != "cpu":
         raise ValueError(f"no pmwcas_apply for device {words.device}")
-    check_batch(words, addr, exp, des)
+    check_batch(words, addr, exp, des, addr_max)
     return ref.pmwcas_apply_stacked(words, addr, exp, des)
 
 
 def pmwcas_apply(words: torch.Tensor, addr: torch.Tensor, exp: torch.Tensor,
-                 des: torch.Tensor, *, claim: Optional[torch.Tensor] = None):
+                 des: torch.Tensor):
     """One round: ``words`` int32[W] (updated in place); ``addr`` int32
     [B, K] (<0 pad); ``exp``/``des`` int32[B, K].  Returns
-    ``(words, success bool[B])``.  ``claim`` is an ``int32[1, W]``
-    scratch (see :func:`claim_scratch`)."""
+    ``(words, success bool[B])``."""
     _, success = pmwcas_apply_stacked(words[None], addr[None], exp[None],
-                                      des[None], claim=claim)
+                                      des[None])
     return words, success[0]
 
 
-def reserve_slots(free_mask: torch.Tensor, requests: torch.Tensor, *,
-                  claim: Optional[torch.Tensor] = None):
+def reserve_slots(free_mask: torch.Tensor, requests: torch.Tensor):
     """KV-cache slot reservation: request i atomically claims
     ``requests[i]`` slots (a K-word MwCAS on a free-bitmap word table).
 
@@ -96,5 +85,4 @@ def reserve_slots(free_mask: torch.Tensor, requests: torch.Tensor, *,
     """
     exp = torch.ones_like(requests)      # expect free
     des = torch.zeros_like(requests)     # claim
-    return pmwcas_apply(free_mask, requests.contiguous(), exp, des,
-                        claim=claim)
+    return pmwcas_apply(free_mask, requests.contiguous(), exp, des)

@@ -25,7 +25,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Model, build_model
-from repro_torch.pmwcas import claim_scratch, reserve_slots, resolve_device
+from repro_torch.pmwcas import reserve_slots, resolve_device
 
 
 class PageAllocator:
@@ -37,14 +37,13 @@ class PageAllocator:
         self.free = torch.ones(n_pages, dtype=torch.int32,
                                device=self.device)
         self.n_pages = n_pages
-        self.claim = claim_scratch(self.free[None])
 
     def admit(self, page_requests: np.ndarray) -> np.ndarray:
         """page_requests: int32[B, K] candidate page ids (<0 pad).
         Returns granted: bool[B] -- atomically all-or-nothing per request."""
         reqs = torch.as_tensor(np.asarray(page_requests, np.int32),
                                device=self.device)
-        _, granted = reserve_slots(self.free, reqs, claim=self.claim)
+        _, granted = reserve_slots(self.free, reqs)
         return granted.cpu().numpy()
 
     def release(self, pages) -> None:

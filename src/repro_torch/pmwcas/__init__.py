@@ -16,8 +16,7 @@ differential runner come with later slices (ROADMAP Queue 1 #3, #7).
 from repro_torch.checkpoint.committer import DurabilityStats
 from repro_torch.core.model import zipf_probs
 from repro_torch.kernels.pmwcas_apply.kernel import pmwcas_apply_cuda
-from repro_torch.kernels.pmwcas_apply.ops import (claim_scratch,
-                                                  pmwcas_apply,
+from repro_torch.kernels.pmwcas_apply.ops import (pmwcas_apply,
                                                   pmwcas_apply_stacked,
                                                   reserve_slots,
                                                   tensor_to_words,
@@ -43,7 +42,7 @@ __all__ = [
     "resolve_device", "zipf_probs",
     # batched primitives
     "pmwcas_apply", "pmwcas_apply_stacked", "reserve_slots",
-    "pmwcas_apply_cuda", "claim_scratch", "words_to_tensor",
+    "pmwcas_apply_cuda", "words_to_tensor",
     "tensor_to_words",
     "pmwcas_apply_ref", "pmwcas_apply_stacked_ref", "pmwcas_success_ref",
     "sequential_oracle",

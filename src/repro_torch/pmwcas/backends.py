@@ -21,8 +21,7 @@ from typing import (Callable, Dict, List, Optional, Protocol, Sequence,
 import numpy as np
 import torch
 
-from repro_torch.kernels.pmwcas_apply.ops import (claim_scratch,
-                                                  pmwcas_apply,
+from repro_torch.kernels.pmwcas_apply.ops import (pmwcas_apply,
                                                   tensor_to_words,
                                                   words_to_tensor)
 from repro_torch.obs import span
@@ -84,7 +83,6 @@ class KernelBackend:
                                       device=self.device)
         else:
             raise ValueError("need n_words or values")
-        self._claim: Optional[torch.Tensor] = None
 
     # -- Backend protocol ------------------------------------------------------
     def execute(self, ops: Sequence[MwCASOp],
@@ -92,10 +90,7 @@ class KernelBackend:
         with span("mwcas.round", backend=self.name, ops=len(ops)):
             addr, exp, des = (words_to_tensor(a, self.device)
                               for a in ops_to_arrays(ops, k))
-            if self._claim is None:
-                self._claim = claim_scratch(self._words[None])
-            _, success = pmwcas_apply(self._words, addr, exp, des,
-                                      claim=self._claim)
+            _, success = pmwcas_apply(self._words, addr, exp, des)
             return results_from_mask(ops, success.cpu().numpy(), self.name)
 
     def read(self, addr: Addr) -> int:
@@ -113,23 +108,35 @@ class KernelBackend:
         return int(self._words.shape[0])
 
     def word_table(self) -> torch.Tensor:
-        """The live device word table (int32[W] bit patterns).  The
-        sharded service's stacked dispatch stacks the tables of several
-        kernel shards into one [S, W] tensor and resolves every shard
-        round in ONE kernel launch."""
+        """The live device word table (int32[W] bit patterns).  Under the
+        sharded service's stacked dispatch it is a view of this shard's
+        row of one persistent ``[S, W]`` tensor (:meth:`bind_row`), which
+        ONE kernel launch per wave updates in place for every shard."""
         return self._words
 
     def set_word_table(self, new: torch.Tensor) -> None:
-        """Install an updated table (the write-back half of the stacked
-        dispatch).  Must match :meth:`word_table` in shape, dtype and
-        device."""
-        if new.shape != self._words.shape or new.dtype != torch.int32 \
-                or new.device != self._words.device:
+        """Overwrite the table with ``new`` (copied into the live table,
+        so a view bound by :meth:`bind_row` stays bound).  Must match
+        :meth:`word_table` in shape, dtype and device."""
+        self._check_like(new)
+        self._words.copy_(new)
+
+    def bind_row(self, row: torch.Tensor) -> None:
+        """Move the table into ``row``, a view of a caller's persistent
+        stacked tensor: the current words are copied in once, and from
+        then on every read, round and :meth:`set_word_table` works on
+        the view."""
+        self._check_like(row)
+        row.copy_(self._words)
+        self._words = row
+
+    def _check_like(self, t: torch.Tensor) -> None:
+        if t.shape != self._words.shape or t.dtype != torch.int32 \
+                or t.device != self._words.device:
             raise ValueError(
-                f"word table {tuple(new.shape)} {new.dtype} on "
-                f"{new.device} != {tuple(self._words.shape)} int32 on "
+                f"word table {tuple(t.shape)} {t.dtype} on "
+                f"{t.device} != {tuple(self._words.shape)} int32 on "
                 f"{self._words.device}")
-        self._words = new
 
 
 # ===========================================================================

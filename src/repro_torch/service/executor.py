@@ -3,11 +3,12 @@
 One service step produces at most one CAS round per shard; the executor
 runs all of those rounds "concurrently".  For kernel shards concurrency
 is real data parallelism: every shard round is padded to a common
-``[B, K]`` shape, the shard word tables are stacked into ``[S, W]``, and
-ONE launch of the batched MwCAS kernel (``pmwcas_apply_stacked``)
-resolves every shard's round — the batched analogue of S cores retiring
-their CAS rounds in the same cycle, and the reason service throughput
-scales with shard count instead of paying one launch per shard.
+``[B, K]`` shape, the shard word tables are the rows of one persistent
+``[S, W]`` tensor, and ONE launch of the batched MwCAS kernel
+(``pmwcas_apply_stacked``) resolves every shard's round in place — the
+batched analogue of S cores retiring their CAS rounds in the same cycle,
+and the reason service throughput scales with shard count instead of
+paying one launch per shard.
 
 Shards whose backend is not stackable (custom backends, or kernel
 shards with mismatched table widths/devices) fall back to per-shard
@@ -19,9 +20,15 @@ along as all-padding rows), B is the scheduler's ``round_cap``, K is the
 next power of two.  PyTorch runs eagerly, so a new bucket costs no
 recompile here, but ``DispatchStats`` keeps the reference's accounting —
 ``traces`` counts the distinct ``[S, B, K, W]`` buckets seen — so the
-two packages' stats compare equal.  This slice stacks the shard tables
-into a fresh ``[S, W]`` tensor every wave and writes the rows back; the
-persistent stacked table is ROADMAP Queue 1 #5.
+two packages' stats compare equal.
+
+The persistent table is the port's answer to the reference's per-wave
+``jnp.stack`` (``donate_argnums``): at a group's first stacked dispatch
+the executor allocates one ``int32[S, W]`` tensor and binds every shard's
+backend to its row (:meth:`KernelBackend.bind_row`); from then on a wave
+stacks and writes back nothing.  A wave ships its ``[3, S, B, K]`` bucket
+(addr, exp, des) in one copy from pinned host staging, checks the address
+range on the host array, and waits for the device once: for the verdict.
 
 Round FORMATION also lives here (:func:`build_rounds`): the service's
 conflict-defer rule — an op whose targets collide with an op already in
@@ -40,10 +47,10 @@ from typing import Dict, Hashable, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.pmwcas_apply.kernel import check_addr_range
 from repro_torch.obs import span
 from repro_torch.pmwcas import (Backend, KernelBackend, MwCASOp,
-                                claim_scratch, ops_to_arrays,
-                                pmwcas_apply_stacked, words_to_tensor)
+                                ops_to_arrays, pmwcas_apply_stacked)
 
 
 @dataclasses.dataclass
@@ -178,9 +185,10 @@ class StackedKernelExecutor:
       else the next power of two of the widest round;
     - **K_bucket** is the next power of two of the widest op.
 
-    Padded rows/slots are ``addr = -1`` no-ops.  The kernel updates the
-    stacked word-table temporary in place and each shard takes its row
-    back; the kernel's claim scratch is kept per shard group.
+    Padded rows/slots are ``addr = -1`` no-ops.  The shard tables of a
+    group are the rows of one persistent ``[S, W]`` tensor, which the
+    kernel updates in place; each bucket keeps its pinned staging for
+    the packed upload and the verdict.
     ``stats``/:class:`DispatchStats` counts new buckets vs hits plus the
     padding bytes bucketing ships — steady-state waves must be all hits.
     """
@@ -194,7 +202,39 @@ class StackedKernelExecutor:
         self.stacked_dispatches = 0
         self.stats = DispatchStats()
         self._shapes: Set[Hashable] = set()     # buckets seen so far
-        self._claims: Dict[Hashable, torch.Tensor] = {}
+        self._tables: Dict[Hashable, torch.Tensor] = {}   # group -> [S, W]
+        self._staging: Dict[Hashable, tuple] = {}         # bucket -> buffers
+
+    def _table(self, key: Hashable, backends: Sequence[Backend],
+               shards: List[int]) -> torch.Tensor:
+        """The group's persistent ``[S, W]`` tensor, made (and every
+        shard bound to its row) at the group's first dispatch, or again
+        if a shard's table is no longer its row."""
+        table = self._tables.get(key)
+        if table is None or table.shape[0] != len(shards) or any(
+                backends[s].word_table().data_ptr() != table[i].data_ptr()
+                for i, s in enumerate(shards)):
+            n_words, device = key
+            table = torch.empty((len(shards), n_words), dtype=torch.int32,
+                                device=device)
+            for i, s in enumerate(shards):
+                backends[s].bind_row(table[i])
+            self._tables[key] = table
+        return table
+
+    def _buffers(self, shape: Hashable) -> tuple:
+        """``(host [3, S, B, K] int32, device copy of it, host verdict
+        [S, B] bool)`` for a bucket; pinned host memory on a card, and on
+        the CPU the host tensors are the device's."""
+        if shape not in self._staging:
+            S, B, K, _, device = shape
+            pin = device.type == "cuda"
+            host = torch.empty((3, S, B, K), dtype=torch.int32,
+                               pin_memory=pin)
+            dev = torch.empty_like(host, device=device) if pin else host
+            verdict = torch.empty((S, B), dtype=torch.bool, pin_memory=pin)
+            self._staging[shape] = (host, dev, verdict)
+        return self._staging[shape]
 
     @staticmethod
     def _group_key(backend: KernelBackend) -> Hashable:
@@ -238,34 +278,38 @@ class StackedKernelExecutor:
                 self._shapes.add(shape)
                 self.stats.traces += 1
                 traced = True
-            addr = np.full((len(shards), B, K), -1, np.int32)
-            exp = np.zeros((len(shards), B, K), np.uint32)
-            des = np.zeros((len(shards), B, K), np.uint32)
+            host, packed, verdict = self._buffers(shape)
+            cells = host.numpy()
+            cells[0].fill(-1)
+            cells[1:].fill(0)
             for i, s in enumerate(shards):
                 if s not in rounds:
                     continue
                 a, e, d = ops_to_arrays(rounds[s], K)
-                addr[i, :a.shape[0]] = a
-                exp[i, :a.shape[0]] = e
-                des[i, :a.shape[0]] = d
+                n = a.shape[0]
+                cells[0, i, :n] = a
+                cells[1, i, :n] = e.view(np.int32)
+                cells[2, i, :n] = d.view(np.int32)
             real_cells = sum(op.k for s in active for op in rounds[s])
             self.stats.bytes_padded += \
                 (len(shards) * B * K - real_cells) * 3 * 4
+            addr_max = int(cells[0].max())
+            check_addr_range(addr_max, n_words)
             with span("executor.stacked_dispatch", shards=len(shards),
                       B=B, K=K, traced=traced):
-                words = torch.stack([backends[s].word_table()
-                                     for s in shards])
-                claim_key = (key, len(shards))
-                if claim_key not in self._claims:
-                    self._claims[claim_key] = claim_scratch(words)
+                words = self._table(key, backends, shards)
+                on_card = device.type == "cuda"
+                if on_card:
+                    packed.copy_(host, non_blocking=True)
                 _, success = pmwcas_apply_stacked(
-                    words, words_to_tensor(addr, device),
-                    words_to_tensor(exp, device),
-                    words_to_tensor(des, device),
-                    claim=self._claims[claim_key])
-                success = success.cpu().numpy()
+                    words, packed[0], packed[1], packed[2],
+                    addr_max=addr_max)
+                if on_card:
+                    verdict.copy_(success, non_blocking=True)
+                    torch.cuda.current_stream(device).synchronize()
+                    success = verdict
+                success = success.numpy()
             for i, s in enumerate(shards):
-                backends[s].set_word_table(words[i])
                 if s in rounds:
                     out[s] = [bool(v)
                               for v in success[i, :len(rounds[s])]]

@@ -32,6 +32,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.pmwcas_apply import kernel as pm_kernel
 from repro_torch.kernels.pmwcas_apply import ref
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import build_model
@@ -70,23 +71,83 @@ def _random_case(rng, W, B, K, pad_frac=0.2, val_range=4):
     return words, addr, exp, des
 
 
+@pytest.mark.parametrize("route", pm_kernel.ROUTES)
 @pytest.mark.parametrize("S,B,K", [(1, 1, 1), (1, 7, 2), (4, 1024, 2),
                                    (4, 7, 8), (1, 1024, 8), (4, 1024, 1),
-                                   (2, 3000, 2)])
-def test_kernel_matches_plain(cuda, S, B, K):
+                                   (2, 3000, 2), (1, 128, 9), (2, 8193, 1),
+                                   (1, 5000, 2), (2, 512, 8), (1, 256, 16),
+                                   (4, 1024, 4), (1, 257, 9)])
+def test_kernel_matches_plain(cuda, S, B, K, route):
+    """Both routes against the plain version, bit for bit; the smem route
+    refuses a round whose hash does not fit its shared memory."""
     rng = np.random.default_rng(S * 1000 + B + K)
     W = max(64, B * K // 2)
     cases = [_random_case(rng, W, B, K) for _ in range(S)]
     words, addr, exp, des = (np.stack(x) for x in zip(*cases))
-    before = pmwcas_apply_cuda.launches
     w_k, w_p = _t(words, cuda), _t(words, cuda)
     args = [_t(x, cuda) for x in (addr, exp, des)]
-    _, s_k = pmwcas_apply_stacked(w_k, *args)
+    if route == "smem" and pm_kernel.plan(B, K)[0] == "global":
+        with pytest.raises(ValueError, match="shared memory"):
+            pmwcas_apply_cuda(w_k, *args, route=route)
+        return
+    pm_kernel.reset_counts()
+    s_k = pmwcas_apply_cuda(w_k, *args, route=route)
     _, s_p = ref.pmwcas_apply_stacked(w_p, *args)
     torch.cuda.synchronize()
-    assert pmwcas_apply_cuda.launches == before + 1
+    assert pmwcas_apply_cuda.launches == 1
+    assert pmwcas_apply_cuda.route_launches[route] == 1
     assert torch.equal(s_k, s_p)
     assert torch.equal(w_k, w_p)
+
+
+@pytest.mark.parametrize("B,K", [(1, 1), (1024, 2), (128, 9), (1024, 8),
+                                 (512, 8), (256, 16), (1025, 1), (4, 17),
+                                 (3000, 4)])
+def test_kernel_route_follows_plan(cuda, B, K):
+    route, nbytes = pm_kernel.plan(B, K)
+    if route == "smem":
+        assert pm_kernel.kernel_smem_bytes(B, K) == nbytes
+    w = torch.zeros(1, 64, dtype=torch.int32, device=cuda)
+    addr = torch.full((1, B, K), -1, dtype=torch.int32, device=cuda)
+    pm_kernel.reset_counts()
+    _, s = pmwcas_apply_stacked(w, addr, addr, addr)
+    assert bool(s.all()) and not w.any()          # pad rows win, write none
+    assert pmwcas_apply_cuda.route_launches == {
+        r: int(r == route) for r in pm_kernel.ROUTES}
+
+
+def _colliding(rng, W, B, K, bits):
+    """Addresses that the smem route's tag table (and so its hash too)
+    sends to bucket 0, shared between rows and duplicated within some,
+    and a batch over them."""
+    pool = np.flatnonzero(pm_kernel.hash_bucket(np.arange(W), bits) == 0)
+    assert len(pool) >= 256
+    words = np.zeros(W, np.uint32)
+    words[pool] = rng.integers(0, 2, len(pool))
+    addr = rng.choice(pool[:B * K // 2], (B, K)).astype(np.int32)
+    addr[rng.random((B, K)) < 0.1] = -1
+    exp = words[np.maximum(addr, 0)]
+    exp[rng.random((B, K)) < 0.05] ^= 1
+    des = rng.integers(0, 1 << 32, (B, K), dtype=np.uint64).astype(np.uint32)
+    return words, addr, exp, des
+
+
+@pytest.mark.parametrize("route", pm_kernel.ROUTES)
+def test_kernel_collisions_match_plain(cuda, route):
+    """Every address in one tag bucket and one home bucket: every passing
+    slot is contested, and probes run the length of the hash."""
+    rng = np.random.default_rng(17)
+    S, B, K, W = 2, 1024, 2, 1 << 25
+    bits = pm_kernel.table_bits(B, K)[0]
+    cases = [_colliding(rng, W, B, K, bits) for _ in range(S)]
+    words, addr, exp, des = (np.stack(x) for x in zip(*cases))
+    w_k, w_p = _t(words, cuda), _t(words, cuda)
+    args = [_t(x, cuda) for x in (addr, exp, des)]
+    s_k = pmwcas_apply_cuda(w_k, *args, route=route)
+    _, s_p = ref.pmwcas_apply_stacked(w_p, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(s_k, s_p) and torch.equal(w_k, w_p)
+    assert bool(s_k.any()) and not bool(s_k.all())
 
 
 def test_kernel_claim_scratch_is_clean_after_launch(cuda):
@@ -95,8 +156,8 @@ def test_kernel_claim_scratch_is_clean_after_launch(cuda):
     claim = torch.full((1, 128), (1 << 31) - 1, dtype=torch.int32,
                        device=cuda)
     w = _t(words, cuda)[None]
-    pmwcas_apply_stacked(w, _t(addr, cuda)[None], _t(exp, cuda)[None],
-                         _t(des, cuda)[None], claim=claim)
+    pmwcas_apply_cuda(w, _t(addr, cuda)[None], _t(exp, cuda)[None],
+                      _t(des, cuda)[None], route="global", claim=claim)
     assert bool((claim == (1 << 31) - 1).all())
 
 
@@ -117,18 +178,25 @@ def test_kernel_sequential_oracle_containment(cuda):
                 assert new[a] == seq_words[a]
 
 
-def test_kernel_reserve_slots_corner_cases(cuda):
+@pytest.mark.parametrize("route", pm_kernel.ROUTES)
+def test_kernel_reserve_slots_corner_cases(cuda, route):
     reqs = np.asarray([[3, 3, 5, -1], [-1, -1, -1, -1], [0, 1, 2, 3],
                        [3, 4, 5, 6], [4, 5, 11, 12], [7, 7, 7, 7],
                        [6, 13, -1, -1]], np.int32)
     free = np.ones(16, np.uint32)
     free[6] = 0
     m_k, m_p = _t(free, cuda), _t(free)
-    _, g_k = reserve_slots(m_k, _t(reqs, cuda))
+    r = _t(reqs, cuda)
+    g_k = pmwcas_apply_cuda(m_k[None], r[None], torch.ones_like(r)[None],
+                            torch.zeros_like(r)[None], route=route)[0]
     _, g_p = reserve_slots(m_p, _t(reqs))
     assert g_k.cpu().tolist() == g_p.tolist() == \
         [True, True, False, False, False, True, False]
     assert torch.equal(m_k.cpu(), m_p)
+    if route == pm_kernel.plan(*reqs.shape)[0]:      # the op on its route
+        m_r = _t(free, cuda)
+        _, g_r = reserve_slots(m_r, r)
+        assert torch.equal(g_r, g_k) and torch.equal(m_r, m_k)
 
 
 def test_kernel_out_of_range_address_raises(cuda):
@@ -141,20 +209,28 @@ def test_kernel_out_of_range_address_raises(cuda):
 
 
 def test_service_on_card_matches_cpu(cuda):
+    """The service on the card against the CPU's: the same verdicts and
+    tables; every wave one smem launch on the shards' persistent table."""
     spec = WorkloadSpec(n_ops=256, n_keys=96, read=0.5, update=0.5,
                         insert=0.0, delete=0.0, alpha=0.99, seed=21)
     outs = []
     for device in (cuda, "cpu"):
-        before = pmwcas_apply_cuda.launches
+        pm_kernel.reset_counts()
         svc = KVService(4, n_buckets=64, round_cap=8, device=device)
         futs = svc.submit_many(load_phase(spec, 1.0))
         for c, stream in enumerate(client_streams(spec, 8)):
             futs += [svc.submit(op, client=c) for op in stream]
         svc.drain()
-        launches = pmwcas_apply_cuda.launches - before
+        launches = pmwcas_apply_cuda.launches
         if device == cuda:
             assert launches == svc.stats.dispatch.dispatches \
                 + svc.stats.dispatch.serial_rounds > 0
+            assert pmwcas_apply_cuda.route_launches == {
+                "smem": launches, "global": 0}
+            tables = [b.word_table() for b in svc.backends]
+            base = tables[0].untyped_storage().data_ptr()
+            assert all(t.is_cuda and t.untyped_storage().data_ptr() == base
+                       for t in tables)
         else:
             assert launches == 0        # the CPU never reaches the kernel
         outs.append(([(f.status, f.result.value, f.done_step)

@@ -222,3 +222,99 @@ def test_service_defaults_to_cuda():
         pytest.skip("a card is present: the raise cannot be observed")
     with pytest.raises(RuntimeError, match="cuda"):
         svc_mod.KVService(2)
+
+
+# ---------------------------------------------------------------------------
+# the persistent [S, W] shard table of the stacked dispatch
+# ---------------------------------------------------------------------------
+
+def _storage(backend):
+    return backend.word_table().untyped_storage().data_ptr()
+
+
+def _rows_of_one_tensor(port):
+    """Every shard's table is row ``i`` of one ``[S, W]`` storage; returns
+    that storage's address."""
+    base = _storage(port.backends[0])
+    for i, b in enumerate(port.backends):
+        assert _storage(b) == base
+        assert b.word_table().data_ptr() == base + i * b.n_words * 4
+    return base
+
+
+def test_shard_tables_are_rows_of_one_persistent_tensor(monkeypatch):
+    """From the first stacked dispatch on, the shards' tables are views of
+    one storage, whose address stays put wave after wave; no wave stacks
+    or writes a table back, and the run still equals the reference's,
+    ``DispatchStats`` included."""
+    ref, port = _pair()
+    ref_futs = _drive(ref, *_streams(ref_st))
+    assert len({_storage(b) for b in port.backends}) == N_SHARDS
+    seen = []
+    step = port.step
+
+    def checked_step():
+        done = step()
+        seen.append(_rows_of_one_tensor(port))
+        return done
+
+    def refuse(*a, **kw):
+        raise AssertionError("a wave stacked or wrote back a table")
+
+    monkeypatch.setattr(port, "step", checked_step)
+    monkeypatch.setattr(torch, "stack", refuse)
+    monkeypatch.setattr(pm.KernelBackend, "set_word_table", refuse)
+    futs = _drive(port, *_streams(st))
+    monkeypatch.undo()
+    assert len(seen) > 3 and len(set(seen)) == 1
+    assert _outcome(port, futs) == _outcome(ref, ref_futs)
+    assert _int_stats(port.stats) == _int_stats(ref.stats)
+    assert port.stats.dispatch.dispatches > 3
+
+
+def test_load_word_tables_writes_through_the_bound_rows():
+    """``load_word_tables`` after the tables are bound copies into the
+    rows: the same storage, the new words, and the next waves match a
+    reference continued from the same tables."""
+    load, streams = _streams(st)
+    ref_load, ref_streams = _streams(ref_st)
+    ref, port = _pair()
+    _drive(ref, ref_load, [s[:len(s) // 2] for s in ref_streams])
+    _drive(port, load[:64], [[]])
+    base = _rows_of_one_tensor(port)
+    tables = [b.values() for b in ref.backends]
+    svc_mod.load_word_tables(port, tables)
+    assert _rows_of_one_tensor(port) == base
+    assert [b.values().tolist() for b in port.backends] == \
+        [t.tolist() for t in tables]
+    ref_futs = _drive(ref, [], [s[len(s) // 2:] for s in ref_streams])
+    futs = _drive(port, [], [s[len(s) // 2:] for s in streams])
+    assert [(f.status, f.result.value) for f in futs] == \
+        [(f.status, f.result.value) for f in ref_futs]
+    assert _outcome(port, [])["tables"] == _outcome(ref, [])["tables"]
+    assert _rows_of_one_tensor(port) == base
+
+
+def test_stacked_dispatch_checks_addresses_on_the_host(monkeypatch):
+    """The executor hands the kernel the batch's largest address from its
+    host array (so the range check waits for no device) and refuses an
+    out-of-range address before anything is dispatched."""
+    backends = [pm.KernelBackend(n_words=16, device="cpu") for _ in range(2)]
+    ex = svc_mod.StackedKernelExecutor(round_cap=4)
+    calls = []
+    real = svc_mod.executor.pmwcas_apply_stacked
+
+    def spy(words, addr, exp, des, **kw):
+        calls.append((int(addr.max()), kw))
+        return real(words, addr, exp, des, **kw)
+
+    monkeypatch.setattr(svc_mod.executor, "pmwcas_apply_stacked", spy)
+    out = ex.execute(backends, {0: [pm.MwCASOp([(3, 0, 5), (11, 0, 6)])],
+                                1: [pm.MwCASOp([(2, 0, 7)])]})
+    assert out == {0: [True], 1: [True]}
+    assert calls == [(11, {"addr_max": 11})]
+    assert backends[0].read(11) == 6 and backends[1].read(2) == 7
+    with pytest.raises(ValueError, match="out of range"):
+        ex.execute(backends, {1: [pm.MwCASOp([(16, 0, 1)])]})
+    assert len(calls) == 1 and ex.stats.dispatches == 1
+    assert backends[1].values().tolist() == [0, 0, 7] + [0] * 13
