@@ -58,7 +58,23 @@ Phases, in order; any failure exits non-zero:
    one prefill and a window of decode steps profiled: the device idle
    share, the device time by kernel group (flash, matrix products, the
    rest), and the flash time per prefill launch in the model against
-   alone.
+   alone;
+7. the durable slice (the paper's persistence; host code over a
+   ``PMemPool`` per shard in the temporary directory, on the machine's
+   disk; its filesystem is printed) — ``run_differential`` holds the
+   PMwCAS kernel against the durable committer on seeded increment
+   batches ``[B, K]`` of ``DIFF_SHAPES`` (both routes; counts zeroed
+   before, read after);
+   YCSB-A (50% read, 50% update, Zipfian 0.99) from 8 clients over 4
+   durable hash-map shards of 1,024 records with group commit, epochs of
+   4 rounds, a checkpoint every 4 epochs and a WAL prune every 16 waves:
+   integrity, the acknowledged writes read back, no held ack left,
+   ``redundant_fences == 0`` and the WAL under its cap, then again after
+   ``crash()``, and once more after a crash with an epoch open; ops/s,
+   p50/p99, the persist share, flushes and fences per commit, recovery
+   ms, the per-wave host split and the filesystem; last, the reference
+   bench's window for the per-op protocol, group commit and the marker
+   baseline (flushes per commit, fences).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``{"kernels": [...]}`` record, and the line before that the
@@ -72,8 +88,10 @@ import functools
 import itertools
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from typing import NamedTuple, Optional
 
@@ -1375,6 +1393,282 @@ def where_time_goes(lm, ft, dev, seed: int, steps: int = 8):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the durable slice (the paper's persistence, host code)
+# ---------------------------------------------------------------------------
+
+# kernel against durable: [B, K] increment batches and the route each takes
+DIFF_SHAPES = ((1024, 2, "smem"), (256, 16, "smem"), (512, 32, "global"))
+# durable YCSB-A: 4 hash-map shards; the record count is cut from the ycsb
+# cell's 1,048,576 because a durable snapshot reads every slot file of a
+# shard on every wave (see PERF.md §4)
+DUR_SHARDS, DUR_ROUND_CAP, DUR_RECORDS, DUR_OPS = 4, 64, 1024, 2048
+DUR_KW = dict(group_commit=True, epoch_rounds=4, checkpoint_every=4,
+              wal_prune_every=16)
+# the reference bench's workload (benchmarks/bench_durable.py): 96 ops
+# over 48 keys, 2 shards, round_cap 8, 8 clients
+LEDGER_SPEC = dict(n_ops=96, n_keys=48, read=0.1, update=0.55, insert=0.25,
+                   delete=0.1, alpha=0.9, seed=23)
+
+
+def durable_differential(pm, kernel, dev, seed: int) -> dict:
+    """``run_differential`` on the card: the Hopper kernel against the
+    durable committer on seeded increment batches, one per shape of
+    ``DIFF_SHAPES``; verdicts and final values must be equal and each
+    batch must take its route.  Counts are zeroed just before and read
+    just after."""
+    out = {}
+    kernel.reset_counts()
+    for B, K, route in DIFF_SHAPES:
+        init, ops = pm.increment_batch(B * K, K, B, seed=seed + K)
+        check(len(ops) == B, f"increment_batch gave {len(ops)} ops, not {B}")
+        before = dict(kernel.pmwcas_apply_cuda.route_launches)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_diff_") as root:
+            t0 = time.perf_counter()
+            report = pm.run_differential(ops, init, durable_root=root,
+                                         device=dev)
+            secs = time.perf_counter() - t0
+        check(report.agree, f"kernel != durable at [{B}, {K}]:\n"
+              + report.summary())
+        routes = kernel.pmwcas_apply_cuda.route_launches
+        check(routes[route] == before[route] + 1,
+              f"[{B}, {K}] did not launch on the {route} route: {routes}")
+        won = int(report.verdicts["kernel"].sum())
+        out[f"{B}x{K}"] = dict(route=route, ops=B, won=won, s=secs)
+        log(f"phase 7: run_differential [{B}, {K}] on the {route} route: "
+            f"kernel == durable ({won}/{B} won, {B * K} words, "
+            f"{secs:.3f} s with the committer's seeding)")
+    launches = kernel.pmwcas_apply_cuda.launches
+    routes = dict(kernel.pmwcas_apply_cuda.route_launches)
+    check(launches == len(DIFF_SHAPES) and all(routes.values()),
+          f"differential launches {launches}, routes {routes}: both "
+          "routes must run")
+    log("kernels: " + json.dumps({"pmwcas_apply differential": launches,
+                                  "routes": routes}))
+    return dict(launches=launches, routes=routes, shapes=out)
+
+
+def fs_type(path) -> str:
+    """The filesystem under ``path``, from ``/proc/mounts`` (the longest
+    mount point that holds it)."""
+    path = str(pathlib.Path(path).resolve())
+    best, kind = "", "unknown"
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                dev, mnt, typ = line.split()[:3]
+                if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                        and len(mnt) > len(best):
+                    best, kind = mnt, f"{typ} on {mnt} ({dev})"
+    except OSError:
+        pass
+    return kind
+
+
+def last_op_reads_back(st, items, futures) -> None:
+    """Every key whose LAST submitted op was acknowledged holds that op's
+    effect (nothing later can have changed it)."""
+    last = {f.op.key: f for f in futures}
+    for key, f in last.items():
+        if not (f.done and f.status == st.OK):
+            continue
+        if f.op.kind in (st.INSERT, st.UPDATE):
+            check(items.get(key) == f.op.value,
+                  f"acknowledged write of key {key} lost: {items.get(key)}"
+                  f" != {f.op.value}")
+        elif f.op.kind == st.DELETE:
+            check(key not in items, f"acknowledged delete of {key} lost")
+
+
+def durable_slice(svc_mod, st, obs, dev, seed: int,
+                  records: int = DUR_RECORDS, ops: int = DUR_OPS,
+                  parent=None) -> dict:
+    """YCSB-A over ``DUR_SHARDS`` durable hash-map shards (group commit,
+    epochs of 4 rounds, a checkpoint every 4 epochs, WAL prune every 16
+    waves): load, run, drain, crash and recover, crash again with an
+    epoch open; integrity and the acknowledged writes are checked after
+    each."""
+    n_buckets = 2 * records // DUR_SHARDS
+    window = DUR_ROUND_CAP * DUR_SHARDS
+    spec = st.WorkloadSpec(n_ops=ops, n_keys=records, read=0.5,
+                           update=0.5, insert=0.0, delete=0.0, alpha=0.99,
+                           seed=seed)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_durable_",
+                                         dir=parent))
+    try:
+        svc = svc_mod.KVService(DUR_SHARDS, backend="durable",
+                                n_buckets=n_buckets,
+                                round_cap=DUR_ROUND_CAP, durable_root=root,
+                                device=dev, **DUR_KW)
+        log(f"phase 7: durable KVService(n_shards={DUR_SHARDS}, round_cap="
+            f"{DUR_ROUND_CAP}, n_buckets={n_buckets}, "
+            + ", ".join(f"{k}={v}" for k, v in DUR_KW.items())
+            + f") over {fs_type(root)}")
+        t0 = time.perf_counter()
+        load_futs = drive(svc, [(0, op) for op in st.load_phase(spec, 1.0)],
+                          window)
+        load_s = time.perf_counter() - t0
+        check(all(f.status == st.OK for f in load_futs),
+              "a durable load insert failed")
+        log(f"phase 7: loaded {records} records in {load_s:.3f} s "
+            f"({svc.stats.steps} waves)")
+
+        arrivals = _arrivals(st.client_streams(spec, N_CLIENTS))
+        svc.reset_stats()
+        svc.stats.latency_us.window = len(arrivals)
+        d0 = svc.durability_stats()
+        persists0 = sum(b.pool.persist_count for b in svc.backends)
+        split = WaveSplit(obs.get_tracer())
+        obs.enable_tracing()
+        try:
+            t0 = time.perf_counter()
+            run_futs = drive(svc, arrivals, window, on_step=split)
+            run_s = time.perf_counter() - t0
+        finally:
+            obs.disable_tracing()
+            obs.get_tracer().clear()
+        stats = svc.stats
+        d1 = svc.durability_stats()
+        reg = obs.get_registry()
+        delta = {k: d1.as_row()[k] - d0.as_row()[k] for k in d1.as_row()}
+        committed = max(1, delta["ops_committed"])
+        redundant = {dict(s.labels).get("reason"): int(s.value)
+                     for s in reg.series("redundant_fences") if s.value}
+        wal = sum(len(b.pool.listdir("wal")) for b in svc.backends)
+        wal_cap = 2 * svc.wal_prune_every * DUR_SHARDS
+        row = dict(
+            ops=len(arrivals), s=run_s, ops_per_s=len(arrivals) / run_s,
+            waves=stats.steps, p50_us=stats.p50_latency_us,
+            p99_us=stats.p99_latency_us,
+            persist_us_mean=stats.persist_us.mean_us,
+            latency_us_mean=stats.latency_us.mean_us,
+            flushes_per_commit=delta["flushes_issued"] / committed,
+            fences_per_commit=delta["fences"] / committed,
+            persists=sum(b.pool.persist_count for b in svc.backends)
+            - persists0, durability=delta, acks_held=stats.acks_held,
+            epoch_syncs=stats.epoch_syncs, wal_pruned=stats.wal_pruned,
+            wal_records=wal, wal_cap=wal_cap, redundant_fences=redundant,
+            wave_split_us=split.per_wave_us())
+        log(f"phase 7: durable YCSB-A {len(arrivals)} ops from {N_CLIENTS} "
+            f"clients in {run_s:.3f} s: {row['ops_per_s']:.1f} ops/s, "
+            f"{stats.steps} waves, p50 {row['p50_us']:.1f} us, p99 "
+            f"{row['p99_us']:.1f} us, persist share {row['persist_us_mean']:.1f}"
+            f" us of a mean {row['latency_us_mean']:.1f} us latency")
+        log(f"phase 7: flushes per commit {row['flushes_per_commit']:.4f}, "
+            f"fences per commit {row['fences_per_commit']:.4f}, persists "
+            f"{row['persists']}, WAL {wal} records (cap {wal_cap}), "
+            f"acks held {stats.acks_held}, epoch syncs {stats.epoch_syncs}, "
+            f"WAL pruned {stats.wal_pruned}, redundant fences {redundant}")
+        log("phase 7: durability " + json.dumps(delta))
+        log(f"phase 7: per-wave host split over {split.waves} traced waves "
+            "(tracing on), us/wave: " + json.dumps(
+                {k: round(v, 1) for k, v in row["wave_split_us"].items()}))
+
+        check(all(f.done for f in run_futs), "a durable future is pending")
+        check(svc.pending_count == 0 and not svc._held,
+              "held acks left after the drain")
+        check(stats.by_status.get(st.EXHAUSTED, 0) == 0, "ops exhausted")
+        items = svc.check_integrity()
+        acked = acked_state(st, acked_state(st, {}, load_futs), run_futs)
+        check(items == acked, "acknowledged durable writes do not read back")
+        check(sum(redundant.values()) == 0,
+              f"redundant fences on the durable path: {redundant}")
+        check(wal <= wal_cap, f"WAL holds {wal} records, cap {wal_cap}")
+
+        t0 = time.perf_counter()
+        svc = svc.crash()
+        row["recover_ms"] = (time.perf_counter() - t0) * 1e3
+        check(svc.check_integrity() == acked,
+              "acknowledged writes lost across crash()/recover")
+        log(f"phase 7: crash() + recover in {row['recover_ms']:.1f} ms: "
+            "integrity ok, every acknowledged write reads back")
+
+        # crash again with an epoch open: acks are held until it closes,
+        # so no acknowledged op may be lost
+        more = _arrivals(st.client_streams(
+            dataclasses.replace(spec, n_ops=ops // 4, seed=seed + 1),
+            N_CLIENTS))
+        futs = [svc.submit(op, client=c) for c, op in more]
+        open_epochs = held = 0
+        while svc.pending_count and not (open_epochs and held):
+            svc.step()
+            open_epochs = sum(b.epoch_pending for b in svc.backends)
+            held = len(svc._held)
+        check(open_epochs > 0 and held > 0,
+              f"no epoch open ({open_epochs} rounds) or no ack held "
+              f"({held}) at the second crash")
+        svc = svc.crash()
+        items = svc.check_integrity()
+        last_op_reads_back(st, items, load_futs + run_futs + futs)
+        row.update(open_epoch_rounds=open_epochs, held_at_crash=held)
+        log(f"phase 7: crash with {open_epochs} rounds in open epochs and "
+            f"{held} acks held: integrity ok, no acknowledged op lost")
+        return row
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def durable_ledger(svc_mod, st, pm, obs, svc_kw: dict, root) -> dict:
+    """The reference bench's window (``LEDGER_SPEC``) on 2 durable shards
+    for the per-op protocol, group commit and the dirty-flag baseline:
+    flushes per commit, fences and redundant fences, from the registry.
+    Takes the package's modules, so the CPU tests run it on both."""
+    root = pathlib.Path(root)
+    spec = st.WorkloadSpec(**LEDGER_SPEC)
+    load = st.load_phase(spec, fraction=1.0)
+    streams = st.client_streams(spec, 8)
+    out = {}
+    for mode in ("per_op", "group", "marker"):
+        common = dict(structure="hashmap", n_buckets=2 * spec.n_keys,
+                      round_cap=8, **svc_kw)
+        if mode == "marker":
+            svc = svc_mod.KVService(2, backend=[
+                pm.DurableBackend(root / mode / f"shard{s}",
+                                  committer="marker") for s in range(2)],
+                **common)
+        else:
+            svc = svc_mod.KVService(2, backend="durable",
+                                    durable_root=root / mode,
+                                    group_commit=mode == "group", **common)
+        svc.apply(load)
+        svc.reset_stats()
+        for i in range(max(len(s) for s in streams)):
+            for client, stream in enumerate(streams):
+                if i < len(stream):
+                    svc.submit(stream[i], client=client)
+        svc.drain()
+        svc.check_integrity()
+        reg = obs.get_registry()
+        committed = int(reg.value("ops_committed", component="committer"))
+        issued = int(reg.value("flushes_issued", component="committer"))
+        out[mode] = dict(
+            flushes_issued=issued, ops_committed=committed,
+            flushes_per_commit=issued / max(1, committed),
+            fences=int(reg.value("fences", component="committer")),
+            flush_fences=int(reg.total("flush_fences")),
+            redundant_fences=int(reg.total("redundant_fences")))
+    return out
+
+
+def durable_phase(pm, svc_mod, st, obs, kernel, dev, seed: int) -> dict:
+    t0 = time.perf_counter()
+    diff = durable_differential(pm, kernel, dev, seed)
+    ycsb = durable_slice(svc_mod, st, obs, dev, seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ledger_") as root:
+        ledger = durable_ledger(svc_mod, st, pm, obs, dict(device=dev), root)
+    for mode, row in ledger.items():
+        log(f"phase 7: ledger {mode}: flushes per commit "
+            f"{row['flushes_per_commit']:.4f} ({row['flushes_issued']} / "
+            f"{row['ops_committed']}), fences {row['fences']}, flush fences "
+            f"{row['flush_fences']}, redundant {row['redundant_fences']}")
+    check(ledger["group"]["redundant_fences"] == 0,
+          "group commit paid redundant fences")
+    check(ledger["per_op"]["redundant_fences"] > 0,
+          "the per-op read barrier flagged no redundant fence")
+    log(f"phase 7 took {time.perf_counter() - t0:.1f} s")
+    return dict(differential=diff, ycsb=ycsb, ledger=ledger)
+
+
+# ---------------------------------------------------------------------------
 
 def build_kernels(builders) -> None:
     """Build every kernel's source at once (``builders``: one zero-argument
@@ -1459,6 +1753,11 @@ def main(argv=None) -> int:
                   args.seed, dev)
     ft = flash_timings(fa_ops, fa_ref, fa_kernel, lm, dev, args.seed)
     where_time_goes(lm, ft, dev, args.seed)
+    durable = durable_phase(pm, svc_mod, st, obs, kernel, dev, args.seed)
+    log("durable: " + json.dumps({
+        "differential": durable["differential"],
+        "ycsb": durable["ycsb"],
+        "ledger": durable["ledger"]}))
     log(f"the whole smoke took {time.perf_counter() - t_start:.1f} s")
 
     pre, dec = ft["prefill"], ft["decode"]
@@ -1479,7 +1778,10 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/pmwcas_apply.cu",
         "route_launches": run["routes"],
         "replaces": "src/repro/kernels/pmwcas_apply/kernel.py:62",
-        "launches": run["launches"], "max_abs_err": worst,
+        "launches": run["launches"],
+        "differential_launches": durable["differential"]["launches"],
+        "differential_route_launches": durable["differential"]["routes"],
+        "max_abs_err": worst,
         "ms": t["ms"], "global_route_ms": t["global_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "bytes", "latency_floor_ms": t["floor_ms"],

@@ -8,14 +8,20 @@ path.  It imports ``torch``, numpy and the standard library, never
 Public surface (import from here or from the subpackages):
 
 - ``repro_torch.pmwcas`` — operation model (``Target``/``MwCASOp``/
-  ``OpResult``), ``KernelBackend`` and the backend registry, and the
+  ``OpResult``), ``KernelBackend``, ``DurableBackend`` and the backend
+  registry, ``run_differential`` (kernel against durable), and the
   batched primitives ``pmwcas_apply``/``pmwcas_apply_stacked``/
   ``reserve_slots``: a CUDA tensor runs the hand-written Hopper kernel,
   a CPU tensor its plain PyTorch version.
 - ``repro_torch.structures`` — ``HashMap`` (directory doubling
-  included) and the YCSB-style workload compiler.
-- ``repro_torch.service`` — ``KVService`` on sharded kernel backends,
-  the stacked executor, router, migration log and ``ServiceStats``.
+  included), the YCSB-style workload compiler and the durable
+  crash-at-every-persist sweeps.
+- ``repro_torch.service`` — ``KVService`` on sharded kernel or durable
+  backends (group commit, epochs, WAL pruning, crash/recover), the
+  stacked executor, router, migration log and ``ServiceStats``.
+- checkpoint layer: ``Committer`` (the descriptor-WAL committer),
+  ``MarkerCommitter`` (the dirty-flag baseline), ``CommitError``,
+  ``PMemPool``, ``SimulatedCrash``.
 - ``repro_torch.obs`` — metrics registry, span tracer, flush provenance.
 - ``repro_torch.configs`` / ``repro_torch.models`` — the architecture
   registry and the dense attention model stack (forward, bf16 KV
@@ -38,13 +44,19 @@ __version__ = "0.1.0"
 _SUBPACKAGES = ("checkpoint", "configs", "core", "kernels", "launch",
                 "models", "obs", "pmwcas", "service", "structures")
 _LAZY = {name: "repro_torch.pmwcas" for name in (
-    "Target", "MwCASOp", "OpResult", "KernelBackend", "make_backend",
+    "Target", "MwCASOp", "OpResult", "KernelBackend", "DurableBackend",
+    "DurabilityStats", "make_backend", "run_differential",
+    "increment_batch", "DifferentialReport",
     "pmwcas_apply", "pmwcas_apply_stacked", "reserve_slots")}
 _LAZY.update({name: "repro_torch.structures" for name in (
-    "HashMap", "KVOp", "StructResult", "WorkloadSpec")})
+    "HashMap", "KVOp", "StructResult", "WorkloadSpec",
+    "check_durable_crash_sweep", "check_hashmap_resize_sweep",
+    "CrashCheckError")})
 _LAZY.update({name: "repro_torch.service" for name in (
     "KVService", "KVFuture", "ServiceStats", "load_word_tables")})
-_LAZY.update({"PMemPool": "repro_torch.checkpoint"})
+_LAZY.update({name: "repro_torch.checkpoint" for name in (
+    "Committer", "MarkerCommitter", "CommitError", "PMemPool",
+    "SimulatedCrash", "data_rel")})
 
 __all__ = sorted(_LAZY) + list(_SUBPACKAGES)
 

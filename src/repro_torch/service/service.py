@@ -12,14 +12,17 @@ that shard's snapshot, forms ONE conflict-free round per shard (the
 conflict-defer rule: duplicate-target ops wait a round instead of
 executing to certain failure), and runs all shard rounds in a single
 wave — kernel shards through the stacked dispatch, so S rounds cost
-one kernel launch.  CAS losers recompile against the next snapshot.
+one kernel launch; durable shards one committer round each, on the
+host.  CAS losers recompile against the next snapshot.
 
-What this slice of the port leaves out, each raising
-``NotImplementedError`` that names its ROADMAP item: BzTree shards and
-durable shards (with them the epoch ack gate, WAL pruning and
-crash/recover).  The raw-op ``BatchScheduler`` is a later slice too.
-Online key-range migration is ported, its decision log on a
-``PMemPool``.
+Durable shards (``backend="durable"``) keep their state in a
+:class:`repro_torch.checkpoint.PMemPool` each and put nothing on the
+device: group commit, epochs with the ack gate (acks withheld until the
+epoch that holds them closes), checkpoints, WAL pruning on a wave
+cadence, and :meth:`KVService.crash`.  Online key-range migration is
+ported, its decision log on a ``PMemPool``.  BzTree shards raise
+``NotImplementedError`` naming ROADMAP Queue 1 #4; the raw-op
+``BatchScheduler`` is Queue 1 #5.
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ from repro_torch.checkpoint import PMemPool
 from repro_torch.obs import (flush_reason, instant, reset_metrics, span,
                              tracing_enabled)
 from repro_torch.pmwcas import (Backend, KernelBackend, MwCASOp,
-                                make_backend, words_to_tensor)
+                                make_backend, resolve_device,
+                                words_to_tensor)
 from repro_torch.structures import (DELETE, EXHAUSTED, FULL, HashMap, INSERT,
                                     KVOp, NeedsResize, OK, SCAN,
                                     StructResult)
@@ -43,17 +47,11 @@ from .executor import DispatchStats, execute_wave, schedule_wave, \
     select_executor
 from .journal import MIG_MIGRATING, MIG_ROUTED, MigrationLog
 from .router import ShardRouter
-from .stats import ServiceStats, fresh_stats
+from .stats import ServiceStats, collect_durability, fresh_stats
 
-# KVService options of the reference that later slices of the port bring
-_DURABLE = "ROADMAP Queue 1 #3 (durable shards)"
+# KVService options of the reference that a later slice of the port brings
 _TREE = "ROADMAP Queue 1 #4 (BzTree shards)"
-_LATER_OPTIONS = {
-    "durable_root": _DURABLE, "group_commit": _DURABLE,
-    "epoch_rounds": _DURABLE, "checkpoint_every": _DURABLE,
-    "wal_prune_every": _DURABLE,
-    "leaf_cap": _TREE, "root_cap": _TREE, "n_regions": _TREE,
-}
+_LATER_OPTIONS = {"leaf_cap": _TREE, "root_cap": _TREE, "n_regions": _TREE}
 
 
 class KVFuture:
@@ -129,12 +127,17 @@ class _Migration:
 class KVService:
     """Sharded, batched KV execution service (see module docstring).
 
-    ``backend`` is a registered backend kind (``"kernel"``/custom), a
-    factory callable, or a list of pre-built per-shard backends.
-    ``structure`` selects the per-shard partition type: ``"hashmap"``
-    (sized by ``n_buckets`` per shard).  ``device`` places the kernel
-    shards' word tables (default ``"cuda"``; ``"cpu"`` runs the plain
-    PyTorch version of the kernel).
+    ``backend`` is a registered backend kind (``"kernel"``/``"durable"``/
+    custom), a factory callable, or a list of pre-built per-shard
+    backends.  ``structure`` selects the per-shard partition type:
+    ``"hashmap"`` (sized by ``n_buckets`` per shard).  ``device`` places
+    the kernel shards' word tables (default ``"cuda"``; ``"cpu"`` runs
+    the plain PyTorch version of the kernel); it is checked for every
+    backend kind, and durable shards put nothing on it.  Durable shards
+    live under ``durable_root/shard{s}`` (a temporary directory each
+    without a root) and take ``group_commit``, ``epoch_rounds`` and
+    ``checkpoint_every``; ``wal_prune_every`` prunes their WALs on a wave
+    cadence.
     """
 
     def __init__(self, n_shards: int, *,
@@ -143,6 +146,10 @@ class KVService:
                                 Sequence[Backend]] = "kernel",
                  n_buckets: int = 64, max_doublings: int = 0,
                  round_cap: int = 16, max_op_rounds: Optional[int] = None,
+                 durable_root: Union[str, pathlib.Path, None] = None,
+                 group_commit: bool = True,
+                 epoch_rounds: int = 1, checkpoint_every: int = 0,
+                 wal_prune_every: int = 0,
                  migration_pool=None, migration_chunk: int = 8,
                  device: Union[str, torch.device] = "cuda",
                  executor=None, **later):
@@ -168,11 +175,27 @@ class KVService:
         self.words_per_shard = words
         self.router = ShardRouter(n_shards, words_per_shard=words,
                                   policy="range")
-        self.backends = self._build_backends(backend, n_shards, words,
-                                             device)
+        # checked whatever the backend kind: an entry point asked for
+        # the card raises without one, and never falls back
+        self.device = resolve_device(device)
+        self.epoch_rounds = max(1, int(epoch_rounds))
+        self.checkpoint_every = max(0, int(checkpoint_every))
+        self.backends = self._build_backends(
+            backend, n_shards, words, durable_root, group_commit,
+            self.epoch_rounds, self.checkpoint_every, self.device)
         self.structs = [HashMap(b, self.n_buckets,
                                 max_doublings=self.max_doublings)
                         for b in self.backends]
+        # epoch ack gate (DESIGN.md Sec. 14): decisions made while ANY
+        # durable shard has an open epoch are withheld here, in decide
+        # order, until the global durability frontier passes them
+        self._held: List[tuple] = []
+        self._epoch_open_since: Dict[int, int] = {}
+        self._epochs_closed_seen: Dict[int, int] = {}
+        # the shards that can hold an epoch open; the gate checks only
+        # these on every completion (none on a kernel deployment)
+        self._epoch_backends = [b for b in self.backends
+                                if hasattr(b, "epoch_pending")]
         self.round_cap = round_cap
         self.max_op_rounds = (2 * round_cap + 8 if max_op_rounds is None
                               else max_op_rounds)
@@ -181,13 +204,18 @@ class KVService:
         self.stats: ServiceStats = fresh_stats(n_shards, round_cap)
         self._queues: List[List[_PendingKV]] = [[] for _ in range(n_shards)]
         self._seq = 0
+        if wal_prune_every < 0:
+            raise ValueError("wal_prune_every must be >= 0")
+        self.wal_prune_every = wal_prune_every
         # online key-range migration (decide -> copy -> swing; DESIGN.md
         # Sec. 12): the durable decision log lives in its own pool so
         # its persists are crash-sweepable like any shard's
         if migration_chunk < 1:
             raise ValueError("migration_chunk must be >= 1")
         self.migration_chunk = migration_chunk
-        if isinstance(migration_pool, (str, pathlib.Path)):
+        if migration_pool is None and durable_root is not None:
+            migration_pool = PMemPool(pathlib.Path(durable_root) / "miglog")
+        elif isinstance(migration_pool, (str, pathlib.Path)):
             migration_pool = PMemPool(migration_pool)
         self.mig_pool = migration_pool
         self.mig_log = (MigrationLog(migration_pool)
@@ -198,16 +226,28 @@ class KVService:
 
     # -- construction ----------------------------------------------------------
     @staticmethod
-    def _build_backends(spec, n_shards, words, device) -> List[Backend]:
+    def _build_backends(spec, n_shards, words, durable_root, group_commit,
+                        epoch_rounds, checkpoint_every,
+                        device) -> List[Backend]:
         if isinstance(spec, (list, tuple)):
             if len(spec) != n_shards:
                 raise ValueError(f"{len(spec)} backends for {n_shards} "
                                  "shards")
             return list(spec)
-        kw = dict(n_words=words)
-        if spec == "kernel":
-            kw["device"] = device
-        return [make_backend(spec, **kw) for _ in range(n_shards)]
+        out = []
+        for s in range(n_shards):
+            if spec == "kernel":
+                kw = dict(n_words=words, device=device)
+            elif spec == "durable":
+                root = (None if durable_root is None
+                        else pathlib.Path(durable_root) / f"shard{s}")
+                kw = dict(root=root, group_commit=group_commit,
+                          epoch_rounds=epoch_rounds,
+                          checkpoint_every=checkpoint_every)
+            else:                       # custom kind / factory
+                kw = dict(n_words=words)
+            out.append(make_backend(spec, **kw))
+        return out
 
     # -- submission ------------------------------------------------------------
     def submit(self, op: KVOp, client=0) -> KVFuture:
@@ -231,8 +271,11 @@ class KVService:
 
     @property
     def pending_count(self) -> int:
+        # held acks count as pending: the client has no verdict yet, and
+        # drain() must not return while an epoch still owes them a fence
         return sum(len(q) for q in self._queues) \
-            + sum(len(m.held) for m in self._migrations)
+            + sum(len(m.held) for m in self._migrations) \
+            + len(self._held)
 
     # -- execution -------------------------------------------------------------
     def step(self) -> int:
@@ -247,6 +290,19 @@ class KVService:
             completed = self._execute_step()
             if self._migrations:
                 self._advance_migrations()
+            if (self.wal_prune_every and
+                    self.stats.steps % self.wal_prune_every == 0):
+                # per-shard WAL hygiene on a wave cadence: without it a
+                # long-running durable service grows wal/ one record per
+                # committed round, forever
+                self.prune_wal()
+            if self._held and not any(self._queues) \
+                    and not self._migrations:
+                # only withheld acks remain: no further round will close
+                # the epochs naturally, so pay the barrier now (this is
+                # what makes drain() a durability barrier)
+                self.sync_epochs()
+            self._settle_epochs()
             sp.set(completed=completed)
         return completed
 
@@ -272,16 +328,26 @@ class KVService:
                 self._requeue(s, later)
         with span("wave.dispatch", shards=len(rounds)):
             dispatch_start_ns = time.perf_counter_ns()
+            persist_ns0 = self._persist_ns_total()
             wave = execute_wave(self.executor, self.backends, rounds,
                                 self.stats)
         with span("wave.complete"):
+            # this op's persist share: the wave's fence wall-clock is a
+            # group property (one round record covers every winner), so
+            # it splits evenly across the winners it made durable
+            persist_wave_ns = self._persist_ns_total() - persist_ns0
+            winners = sum(1 for pairs in wave.values()
+                          for _p, ok in pairs if ok)
+            persist_share_us = (persist_wave_ns / 1e3 / winners
+                                if winners else 0.0)
             for s, pairs in wave.items():
                 losers = []
                 for pending, ok in pairs:
                     if ok:
-                        self._complete(pending.future, OK,
-                                       dispatch_start_ns=dispatch_start_ns,
-                                       retry_waves=pending.attempts)
+                        self._finish(pending.future, OK,
+                                     dispatch_start_ns=dispatch_start_ns,
+                                     persist_share_us=persist_share_us,
+                                     retry_waves=pending.attempts)
                         completed += 1
                     else:
                         pending.attempts += 1
@@ -311,6 +377,28 @@ class KVService:
         self.drain()
         return [f.result for f in futs]
 
+    def _persist_ns_total(self) -> int:
+        """Wall-clock the durable shards have spent inside persist
+        fences, summed (0 for kernel deployments)."""
+        total = 0
+        for b in self.backends:
+            pool = getattr(b, "pool", None)
+            if pool is not None:
+                total += pool.persist_ns
+        return total
+
+    def prune_wal(self) -> int:
+        """Durably drop spent descriptor records on every shard whose
+        backend supports it; returns records pruned (also accumulated in
+        ``stats.wal_pruned``)."""
+        pruned = 0
+        for b in self.backends:
+            prune = getattr(b, "prune_completed", None)
+            if prune is not None:
+                pruned += prune()
+        self.stats.wal_pruned += pruned
+        return pruned
+
     # -- wave internals --------------------------------------------------------
     def _compile_shard(self, s: int):
         """Compile shard ``s``'s queue against one snapshot.  Immediate
@@ -331,8 +419,8 @@ class KVService:
         for pending in self._queues[s]:
             fut = pending.future
             if pending.attempts > self.max_op_rounds:
-                self._complete(fut, EXHAUSTED,
-                               retry_waves=pending.attempts)
+                self._finish(fut, EXHAUSTED,
+                             retry_waves=pending.attempts)
                 done += 1
                 continue
             compiled = struct.compile_op(fut.op, snap)
@@ -348,11 +436,11 @@ class KVService:
                          or 0)
                         for s2, other in enumerate(self.structs)
                         if s2 != s)
-                    self._complete(fut, OK, value,
-                                   retry_waves=pending.attempts)
+                    self._finish(fut, OK, value,
+                                 retry_waves=pending.attempts)
                 else:
-                    self._complete(fut, compiled.status, compiled.value,
-                                   retry_waves=pending.attempts)
+                    self._finish(fut, compiled.status, compiled.value,
+                                 retry_waves=pending.attempts)
                 done += 1
             else:
                 pending.local = compiled
@@ -370,12 +458,11 @@ class KVService:
                 later.extend(resizes)
             else:
                 for pending in resizes:
-                    self._complete(pending.future, FULL,
-                                   retry_waves=pending.attempts)
+                    self._finish(pending.future, FULL,
+                                 retry_waves=pending.attempts)
                     done += 1
         self._requeue(s, later)
         return ready, done
-
 
     def _requeue(self, s: int, entries: List[_PendingKV]) -> None:
         """Merge entries back into the shard queue in submission order
@@ -389,29 +476,116 @@ class KVService:
             self._queues[s].extend(entries)
             self._queues[s].sort(key=lambda p: p.future.seq)
 
+    # -- epoch ack gate (DESIGN.md Sec. 14) ------------------------------------
+    def _finish(self, fut: KVFuture, status: str, value=None, *,
+                dispatch_start_ns: Optional[int] = None,
+                persist_share_us: float = 0.0,
+                retry_waves: int = 0) -> None:
+        """Completion gate for the epoch window.  The decision (status/
+        value) is final here, but while ANY durable shard has an open
+        epoch the ack is withheld GLOBALLY — released in decide order
+        once every shard has durably passed the deciding step.  A
+        global gate (not per-shard) because cross-shard reads (scans)
+        observe every shard's visible state: acking a scan before a
+        slower shard's epoch closes could expose a round a crash then
+        revokes.  Outside epoch mode the gate is always open and this
+        is exactly :meth:`_complete`."""
+        if any(b.epoch_pending for b in self._epoch_backends):
+            self._held.append((self.stats.steps, fut, status, value, dict(
+                dispatch_start_ns=dispatch_start_ns,
+                persist_share_us=persist_share_us,
+                retry_waves=retry_waves)))
+            self.stats.acks_held += 1
+            if tracing_enabled():
+                instant("op.ack_held", op_id=fut.op_id, status=status,
+                        step=self.stats.steps)
+        else:
+            self._complete(fut, status, value,
+                           dispatch_start_ns=dispatch_start_ns,
+                           persist_share_us=persist_share_us,
+                           retry_waves=retry_waves)
+
+    def _settle_epochs(self) -> None:
+        """End-of-wave epoch bookkeeping: note which shards hold an open
+        epoch (and since when), then release held acks up to the global
+        durability frontier — the last step EVERY durable shard has
+        durably passed.  A shard that paid a fence this wave restarts
+        its open-since mark: whatever epoch is open now only holds
+        rounds from this wave."""
+        open_since = self._epoch_open_since
+        for s, b in enumerate(self.backends):
+            pending = getattr(b, "epoch_pending", 0)
+            stats = getattr(getattr(b, "committer", None), "stats", None)
+            closed = getattr(stats, "epochs_closed", 0)
+            fenced = closed > self._epochs_closed_seen.get(s, closed)
+            self._epochs_closed_seen[s] = closed
+            if not pending:
+                open_since.pop(s, None)
+            elif fenced:
+                open_since[s] = self.stats.steps
+            else:
+                open_since.setdefault(s, self.stats.steps)
+        if self._held:
+            frontier = (min(open_since.values()) - 1 if open_since
+                        else None)
+            self._release_held(frontier)
+
+    def _release_held(self, frontier: Optional[int]) -> None:
+        """Ack held completions whose deciding step the frontier has
+        passed (``None`` = everything), in decide order."""
+        if not self._held:
+            return
+        keep: List[tuple] = []
+        for item in self._held:
+            step, fut, status, value, kw = item
+            if frontier is None or step <= frontier:
+                self._complete(fut, status, value, decided_step=step, **kw)
+            else:
+                keep.append(item)
+        self._held = keep
+
+    def sync_epochs(self) -> int:
+        """Explicit durability barrier: close every shard's open epoch
+        (one fence each) and release every withheld ack.  Returns rounds
+        made durable across shards."""
+        synced = 0
+        for b in self.backends:
+            sync = getattr(b, "sync", None)
+            if sync is not None:
+                synced += sync()
+        if synced:
+            self.stats.epoch_syncs += 1
+        self._epoch_open_since.clear()
+        self._release_held(None)
+        return synced
+
     # -- completion ------------------------------------------------------------
     def _complete(self, fut: KVFuture, status: str, value=None, *,
                   dispatch_start_ns: Optional[int] = None,
-                  retry_waves: int = 0) -> None:
+                  persist_share_us: float = 0.0,
+                  retry_waves: int = 0,
+                  decided_step: Optional[int] = None) -> None:
         fut.done = True
-        fut.done_step = self.stats.steps
+        fut.done_step = (self.stats.steps if decided_step is None
+                         else decided_step)
         latency = max(1, self.stats.steps - fut.submit_step)
         fut.result = StructResult(fut.op, status, value=value,
                                   rounds=latency)
         now_ns = time.perf_counter_ns()
         latency_us = (now_ns - fut.submit_ns) / 1e3
-        # decompose: queue (submit -> this wave's dispatch start) and
-        # dispatch (the rest); persist is 0 without durable shards.  The
-        # three sum to latency_us exactly — compile-time completions
-        # (reads, EXHAUSTED, FULL) never reach a dispatch, so their whole
-        # latency is queueing.
-        persist_us = 0.0
+        # decompose: queue (submit -> this wave's dispatch start),
+        # persist (the op's share of the wave's fence wall-clock),
+        # dispatch (the rest).  The three sum to latency_us exactly —
+        # compile-time completions (reads, EXHAUSTED, FULL) never reach
+        # a dispatch, so their whole latency is queueing.
         if dispatch_start_ns is None:
-            queue_us, dispatch_us = latency_us, 0.0
+            queue_us, dispatch_us, persist_us = latency_us, 0.0, 0.0
         else:
             queue_us = min(max(
                 (dispatch_start_ns - fut.submit_ns) / 1e3, 0.0), latency_us)
-            dispatch_us = latency_us - queue_us
+            persist_us = min(max(persist_share_us, 0.0),
+                             latency_us - queue_us)
+            dispatch_us = latency_us - queue_us - persist_us
         self.stats.record_completion(
             latency, status, latency_us=latency_us, queue_us=queue_us,
             dispatch_us=dispatch_us, persist_us=persist_us,
@@ -448,6 +622,14 @@ class KVService:
                 raise RuntimeError(
                     f"range [{lo}, {hi}) overlaps in-flight migration "
                     f"{m.mig_id}")
+        if self.mig_log is None and any(
+                getattr(b, "pool", None) is not None for b in self.backends):
+            # crash-capable shards without a decision log would lose the
+            # route table on crash while keeping the moved keys — silent
+            # misrouting; make it a loud configuration error instead
+            raise ValueError(
+                "durable shards need a migration decision log: pass "
+                "migration_pool= or durable_root= to KVService")
         mig_id = f"mig{self._mig_seq:04d}"
         self._mig_seq += 1
         if self.mig_log is not None:
@@ -523,6 +705,12 @@ class KVService:
         the route table, then cleanup + release.  A crash after the
         first persist rolls forward; before it, back."""
         with span("service.migration_swing", mig=m.mig_id):
+            # the ROUTED record redirects reads to the destination, so
+            # every copied key must be durable there FIRST — close the
+            # destination's open epoch before the linearization point
+            sync = getattr(self.backends[m.dst], "sync", None)
+            if sync is not None:
+                sync()
             if self.mig_log is not None:
                 self.mig_log.mark_routed(m.mig_id)
             self.router.set_range(m.lo, m.hi, m.dst)
@@ -656,10 +844,47 @@ class KVService:
             self.executor.stats = DispatchStats()
         reset_metrics()
 
+    def durability_stats(self):
+        """Merged committer flush accounting over the durable shards
+        (None when no shard is durable)."""
+        return collect_durability(self.backends)
+
+    # -- durability ------------------------------------------------------------
     def crash(self) -> "KVService":
-        """Crash/recover needs durable shards: ROADMAP Queue 1 #3."""
-        raise NotImplementedError(
-            f"crash/recover is not ported yet: {_DURABLE}")
+        """Durable services only: crash every shard (drop unpersisted
+        writes), recover each from its own WAL, and re-attach the
+        structure partitions.  Returns the recovered service.
+
+        The measurement window SURVIVES the crash: the recovered service
+        keeps this service's ``ServiceStats`` (steps, completions,
+        latency windows — all monotone across the cycle; the backends
+        likewise carry their ``DurabilityStats`` through
+        ``DurableBackend.crash``) and its executor, whose trace cache a
+        crash has no reason to invalidate."""
+        with span("service.crash_recover", shards=len(self.backends)):
+            recovered = []
+            for b in self.backends:
+                crash = getattr(b, "crash", None)
+                if crash is None:
+                    raise TypeError(
+                        f"backend {b.name} cannot crash/recover")
+                recovered.append(crash())
+            new = KVService(len(recovered), structure=self.structure,
+                            backend=recovered, n_buckets=self.n_buckets,
+                            max_doublings=self.max_doublings,
+                            round_cap=self.round_cap,
+                            max_op_rounds=self.max_op_rounds,
+                            wal_prune_every=self.wal_prune_every,
+                            epoch_rounds=self.epoch_rounds,
+                            checkpoint_every=self.checkpoint_every,
+                            migration_pool=(self.mig_pool.crash()
+                                            if self.mig_pool is not None
+                                            else None),
+                            migration_chunk=self.migration_chunk,
+                            device=self.device)
+            new.stats = self.stats
+            new.executor = self.executor
+        return new
 
 
 def load_word_tables(svc: KVService, tables: Sequence) -> None:

@@ -8,10 +8,17 @@ The port's first structure, built only on the public
   value word), 3-5 words while a doubling is in flight.
 - workload compiler — YCSB-style mixes with Zipfian key popularity,
   compiled to the logical-op vocabulary the service consumes.
+- checkers — the durable crash-at-every-persist sweeps of the map
+  (:func:`check_durable_crash_sweep`, :func:`check_hashmap_resize_sweep`
+  through directory doubling).
 
-The BzTree node and index, the free-list allocator, the crash checkers
-and the structure differential are ROADMAP Queue 1 #4.
+The BzTree node and index with its tree sweep, the free-list allocator
+and the structure differential are ROADMAP Queue 1 #4; the simulator
+sweep is Queue 1 #7.
 """
+from .checkers import (CrashCheckError, check_durable_crash_sweep,
+                       check_hashmap_resize_sweep, check_sim_crash_sweep,
+                       check_tree_crash_sweep, replay_effects)
 from .hashmap import (DELETE, EMPTY, EXHAUSTED, EXISTS, FULL, HashMap,
                       INSERT, KVOp, MIG_BIT, NOT_FOUND, NeedsResize, OK,
                       READ, RoundTrace, SCAN, StructResult, TOMBSTONE,
@@ -33,4 +40,8 @@ __all__ = [
     "compile_workload", "load_phase", "batches", "run_workload",
     "kernel_round_arrays", "client_streams", "interleave", "key_shard",
     "partition_ops",
+    # checkers
+    "check_durable_crash_sweep", "check_hashmap_resize_sweep",
+    "check_tree_crash_sweep", "check_sim_crash_sweep", "replay_effects",
+    "CrashCheckError",
 ]

@@ -1,0 +1,223 @@
+"""Structure-level crash-consistency checkers: the durable sweeps.
+
+One invariant — *no torn multi-word effect, no lost committed effect*:
+
+- **Durable sweep** (:func:`check_durable_crash_sweep`): replay a logical
+  hash-map workload against a :class:`repro_torch.pmwcas.DurableBackend`
+  whose pmem pool crashes on the N-th persist, for every N until a run
+  completes.  After each crash + recovery the rebuilt map must contain
+  exactly the effects of the ops the client saw commit — plus at most
+  the one in-flight op (committed iff its SUCCEEDED record was
+  persisted before the crash; the client just never saw the verdict).
+- **Resize sweep** (:func:`check_hashmap_resize_sweep`): the durable
+  sweep through directory doubling — every persist of decide / pump /
+  split-brain client ops / finalize swing (DESIGN.md Sec. 12).
+
+Both sweeps also exercise WAL hygiene in their teardown: after each
+recovery check the COMPLETED descriptor records are pruned
+(:meth:`DurableBackend.prune_completed`) and a second crash/recover
+cycle must reproduce the identical structure state.
+
+The sweeps take ``group_commit`` (which flush protocol is under sweep —
+the coalesced one-fence-per-round path is the default, matching
+:class:`repro_torch.pmwcas.DurableBackend`) and ``batch`` (ops applied
+per round, so the coalesced path commits real multi-op rounds); the
+acceptable recovered states are computed from an oracle run's ROUND
+composition — a crash inside a batch may recover any round prefix,
+each round atomic at its commit fence (DESIGN.md Sec. 9.1).
+
+The reference's tree sweep and simulator sweep come with the BzTree and
+the simulator (ROADMAP Queue 1 #4 and #7); here they raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import pathlib
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+from repro_torch.checkpoint import PMemPool, SimulatedCrash
+from repro_torch.pmwcas import DurableBackend
+
+from .hashmap import DELETE, HashMap, INSERT, KVOp, OK, UPDATE
+
+
+class CrashCheckError(AssertionError):
+    """Recovered structure state the committed history cannot explain."""
+
+
+def replay_effects(ops_with_status: Iterable[Tuple[KVOp, str]]
+                   ) -> Dict[int, int]:
+    """Client-side model: the live map after a sequence of (op, status)."""
+    model: Dict[int, int] = {}
+    for op, status in ops_with_status:
+        if status != OK:
+            continue
+        if op.kind == INSERT or op.kind == UPDATE:
+            model[op.key] = op.value
+        elif op.kind == DELETE:
+            model.pop(op.key, None)
+    return model
+
+
+def _durable_crash_sweep(kvops: Sequence[KVOp], root, attach, *,
+                         committer: str, max_crash_points: int,
+                         what: str, group_commit: bool = True,
+                         batch: int = 1) -> int:
+    """The shared sweep engine: ``attach(backend)`` builds/attaches the
+    structure under test (it may itself persist — a crashing bootstrap
+    is part of the sweep) and must expose ``apply`` +
+    ``check_integrity``.
+
+    ``group_commit`` selects the flush protocol under sweep (the
+    coalesced one-fence-per-round path vs the per-op 3k+2-persist
+    protocol); ``batch`` applies ops ``batch`` at a time so the
+    coalesced path commits real multi-op rounds — the in-flight window
+    is then the whole torn round (atomic at the round-record fence:
+    either every round winner's effect recovers, or none does)."""
+    root = pathlib.Path(root)
+    batches = [list(kvops[i:i + batch])
+               for i in range(0, len(kvops), batch)]
+    # oracle pass on a clean pool: per-op statuses plus the per-batch
+    # ROUND composition, so a crash inside batch j has exactly the
+    # acceptable states {committed + first r rounds of batch j} — each
+    # round is atomic at its (group or per-op) commit fence
+    oracle = attach(DurableBackend(pool=PMemPool(root / "oracle"),
+                                   committer=committer,
+                                   group_commit=group_commit))
+    oracle_rounds: List[List[List[Tuple[KVOp, str]]]] = []
+    for b in batches:
+        res = oracle.apply(b)
+        hist = getattr(oracle, "last_history", None)
+        if hist is None:
+            # no round trace: treat the whole batch as one in-flight unit
+            oracle_rounds.append([list(zip(b, [r.status for r in res]))])
+        else:
+            oracle_rounds.append(
+                [[(b[idx], OK) for pos, idx in enumerate(tr.owners)
+                  if tr.success[pos]] for tr in hist])
+    for crash_at in range(max_crash_points + 1):
+        pool = PMemPool(root / f"crash{crash_at}",
+                        crash_after_persists=crash_at)
+        backend = DurableBackend(pool=pool, committer=committer,
+                                 group_commit=group_commit)
+        committed: List[Tuple[KVOp, str]] = []
+        inflight: Optional[int] = None
+        crashed = False
+        struct = None
+        try:
+            struct = attach(backend)
+        except SimulatedCrash:
+            crashed = True
+        if struct is not None:
+            for j, b in enumerate(batches):
+                try:
+                    res = struct.apply(b)
+                except SimulatedCrash:
+                    inflight = j
+                    crashed = True
+                    break
+                committed.extend(zip(b, (r.status for r in res)))
+        # crash (drop unpersisted writes), reopen, recover, re-attach
+        recovered = backend.crash()
+        items = attach(recovered).check_integrity()   # nothing torn
+        base = replay_effects(committed)
+        acceptable = [base]
+        if inflight is not None:
+            rounds = oracle_rounds[inflight]
+            for r in range(1, len(rounds) + 1):
+                eff = [e for rnd in rounds[:r] for e in rnd]
+                acceptable.append(replay_effects(committed + eff))
+        if items not in acceptable:
+            raise CrashCheckError(
+                f"crash_at={crash_at}: recovered {what} {items}, expected "
+                f"one of {acceptable} (committed={len(committed)} ops, "
+                f"inflight batch={inflight})")
+        # teardown WAL hygiene: pruning spent descriptors must not
+        # change what a further crash/recover cycle reconstructs
+        recovered.prune_completed()
+        re2 = recovered.crash()
+        struct2 = attach(re2)
+        if struct2.check_integrity() != items:
+            raise CrashCheckError(
+                f"crash_at={crash_at}: prune_completed changed recovery")
+        # teardown region hygiene (the word-side analogue): GC-ing
+        # unreferenced pair regions must not change the live items,
+        # at any crash point — including mid-split residue
+        gc = getattr(struct2, "gc_regions", None)
+        if gc is not None:
+            gc()
+            if struct2.check_integrity() != items:
+                raise CrashCheckError(
+                    f"crash_at={crash_at}: region GC changed live items")
+            if attach(re2.crash()).check_integrity() != items:
+                raise CrashCheckError(
+                    f"crash_at={crash_at}: region GC does not survive a "
+                    "further crash/recover cycle")
+        if not crashed:
+            return crash_at
+    raise CrashCheckError(
+        f"{what} sweep never completed within {max_crash_points} persists")
+
+
+def check_durable_crash_sweep(kvops: Sequence[KVOp], n_buckets: int,
+                              root, *, committer: str = "wal",
+                              max_crash_points: int = 400,
+                              group_commit: bool = True,
+                              batch: int = 1) -> int:
+    """Crash-at-every-persist sweep over a whole logical workload.
+
+    Returns the number of crash points swept (== persists of a clean
+    run).  Raises :class:`CrashCheckError` (or
+    :class:`repro_torch.structures.TornStructure`) on any torn or lost state.
+    ``group_commit``/``batch`` select the flush protocol and the round
+    width under sweep (see :func:`_durable_crash_sweep`): with group
+    commit and ``batch > 1`` the sweep crosses every persist of the
+    COALESCED path, including the torn-round window.
+    """
+    return _durable_crash_sweep(
+        kvops, root, lambda backend: HashMap(backend, n_buckets),
+        committer=committer, max_crash_points=max_crash_points,
+        what="map", group_commit=group_commit, batch=batch)
+
+
+def check_hashmap_resize_sweep(kvops: Sequence[KVOp], n_buckets: int,
+                               root, *, max_doublings: int = 2,
+                               committer: str = "wal",
+                               max_crash_points: int = 1200,
+                               group_commit: bool = True,
+                               batch: int = 1) -> int:
+    """Crash-at-every-persist sweep through directory doubling.
+
+    The workload is expected to overflow generation 0 (size it with more
+    inserts than ``n_buckets``), so the sweep crosses every persist of
+    the decide (MIG_BIT CAS), the pump (4-word moves), the guarded
+    split-brain client ops and the finalize swing.  After every crash +
+    recovery the re-attached map must pass
+    :meth:`HashMap.check_integrity` (pairs untorn in every generation,
+    retired generations drained, no key live twice, future arrays
+    all-zero — i.e. the table is pre-growth, mid-growth or post-growth,
+    never torn) and hold exactly the committed effects; the live items
+    are growth-invariant, so the engine's acceptable-state computation
+    needs no growth awareness at all.  Returns crash points swept.
+    """
+    return _durable_crash_sweep(
+        kvops, root,
+        lambda backend: HashMap(backend, n_buckets,
+                                max_doublings=max_doublings),
+        committer=committer, max_crash_points=max_crash_points,
+        what="elastic map", group_commit=group_commit, batch=batch)
+
+
+def check_tree_crash_sweep(*args, **kwargs) -> int:
+    """The BzTree's crash sweep comes with the tree: ROADMAP Queue 1 #4."""
+    raise NotImplementedError(
+        "check_tree_crash_sweep is not ported yet: ROADMAP Queue 1 #4 "
+        "(BzTree)")
+
+
+def check_sim_crash_sweep(*args, **kwargs) -> int:
+    """The simulator's micro-op crash sweep comes with the simulator:
+    ROADMAP Queue 1 #7."""
+    raise NotImplementedError(
+        "check_sim_crash_sweep is not ported yet: ROADMAP Queue 1 #7 "
+        "(the simulator)")

@@ -36,8 +36,9 @@ from repro_torch.kernels.pmwcas_apply import kernel as pm_kernel
 from repro_torch.kernels.pmwcas_apply import ref
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import build_model
-from repro_torch.pmwcas import (pmwcas_apply_cuda, pmwcas_apply_stacked,
-                                reserve_slots, sequential_oracle,
+from repro_torch.pmwcas import (increment_batch, pmwcas_apply_cuda,
+                                pmwcas_apply_stacked, reserve_slots,
+                                run_differential, sequential_oracle,
                                 tensor_to_words, words_to_tensor)
 from repro_torch.service import KVService
 from repro_torch.structures import WorkloadSpec, client_streams, load_phase
@@ -237,6 +238,70 @@ def test_service_on_card_matches_cpu(cuda):
                       for f in futs],
                      [b.values().tolist() for b in svc.backends]))
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("B,K,route", [(1024, 2, "smem"),
+                                       (256, 16, "smem"),
+                                       (512, 32, "global")])
+def test_run_differential_kernel_against_durable(cuda, tmp_path, B, K,
+                                                 route):
+    """The Hopper kernel against the durable committer on one seeded
+    increment batch: equal verdicts and final values, on the route the
+    plan gives ``[B, K]``."""
+    init, ops = increment_batch(B * K, K, B, seed=K)
+    assert len(ops) == B
+    pm_kernel.reset_counts()
+    report = run_differential(ops, init, durable_root=tmp_path,
+                              device=cuda)
+    assert report.agree, report.summary()
+    v = report.verdicts["kernel"]
+    assert v.any() and not v.all()
+    assert pmwcas_apply_cuda.route_launches[route] == 1
+    assert pmwcas_apply_cuda.launches == 1
+
+
+_US = ("latency_us", "queue_us", "dispatch_us", "persist_us", "retry_waves",
+       "mig_pause_us")
+
+
+def _int_stats(stats):
+    out = {f.name: getattr(stats, f.name)
+           for f in dataclasses.fields(stats) if f.name not in _US}
+    out["shards"] = [dataclasses.asdict(s) for s in stats.shards]
+    out["dispatch"] = dataclasses.asdict(stats.dispatch)
+    return out
+
+
+def test_durable_service_on_card_matches_cpu(cuda, tmp_path):
+    """Durable shards are host code: ``device="cuda"`` gives the same
+    futures, items, integer stats and flush ledger as ``"cpu"``, and
+    launches no kernel."""
+    spec = WorkloadSpec(n_ops=192, n_keys=96, read=0.3, update=0.4,
+                        insert=0.2, delete=0.1, alpha=0.99, seed=21)
+    outs = []
+    for i, device in enumerate((cuda, "cpu")):
+        pm_kernel.reset_counts()
+        svc = KVService(4, backend="durable", n_buckets=64, round_cap=8,
+                        epoch_rounds=4, checkpoint_every=2,
+                        durable_root=tmp_path / f"run{i}", device=device)
+        futs = svc.submit_many(load_phase(spec, 1.0))
+        for c, stream in enumerate(client_streams(spec, 8)):
+            futs += [svc.submit(op, client=c) for op in stream]
+        svc.drain()
+        assert pmwcas_apply_cuda.launches == 0
+        items = svc.check_integrity()
+        rec = svc.crash()
+        assert rec.check_integrity() == items
+        outs.append(([(f.status, f.result.value, f.done_step)
+                      for f in futs], items, _int_stats(svc.stats),
+                     svc.durability_stats().as_row()))
+    assert outs[0] == outs[1]
+
+
+def test_kernel_shard_service_cannot_crash(cuda):
+    svc = KVService(2, n_buckets=16, device=cuda)
+    with pytest.raises(TypeError, match="backend kernel cannot crash"):
+        svc.crash()
 
 
 # ---------------------------------------------------------------------------

@@ -207,14 +207,33 @@ def test_migration_matches_reference(tmp_path):
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="bztree"):
         svc_mod.KVService(2, structure="bztree", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #3"):
-        svc_mod.KVService(2, backend="durable", device="cpu")
-    with pytest.raises(NotImplementedError, match="durable_root"):
-        svc_mod.KVService(2, durable_root="x", device="cpu")
+    with pytest.raises(NotImplementedError, match="leaf_cap.*Queue 1 #4"):
+        svc_mod.KVService(2, leaf_cap=4, device="cpu")
     with pytest.raises(TypeError, match="use_kernel"):
         svc_mod.KVService(2, use_kernel=False, device="cpu")
-    with pytest.raises(NotImplementedError):
+    # a kernel shard's table has no durable copy: as in the reference
+    with pytest.raises(TypeError, match="backend kernel cannot crash"):
         svc_mod.KVService(2, device="cpu").crash()
+    with pytest.raises(TypeError, match="backend kernel cannot crash"):
+        ref_svc.KVService(2, use_kernel=False).crash()
+
+
+def test_durable_options_accepted_and_crash_round_trips(tmp_path):
+    """The durable options the first slices refused now build durable
+    shards, and ``crash()`` gives back a service with the same items."""
+    svc = svc_mod.KVService(2, backend="durable", device="cpu",
+                            durable_root=tmp_path, group_commit=True,
+                            epoch_rounds=2, checkpoint_every=2,
+                            wal_prune_every=3, n_buckets=16)
+    assert all(isinstance(b, pm.DurableBackend) for b in svc.backends)
+    assert (svc.epoch_rounds, svc.checkpoint_every,
+            svc.wal_prune_every) == (2, 2, 3)
+    svc.apply([st.KVOp(st.INSERT, k, 10 * k) for k in range(1, 20)])
+    before = svc.check_integrity()
+    assert len(before) == 19
+    rec = svc.crash()
+    assert rec.check_integrity() == before
+    assert rec.stats is svc.stats and rec.executor is svc.executor
 
 
 def test_service_defaults_to_cuda():
