@@ -18,8 +18,11 @@ Phases, in order; any failure exits non-zero:
    batches (S in {1, 4}, B in {1, 7, 1024}, K in {1, 2, 8}, serve's
    ``[1, 128, 9]`` and a ``global``-sized ``[2, 4500, 2]``; uniform and
    Zipf-hot addresses; all-padded rows, duplicate ids, (a)-passing rows
-   that lose and still block) and over batches whose every address the
-   smem hash sends to one home bucket; ``reserve_slots``' corner cases
+   that lose and still block), over batches whose every address the
+   smem hash sends to one home bucket, and over ``global`` rounds at the
+   range index's widths (``WIDE_CASES``: split and GC ops of 132-390
+   words among narrow ones, up to 65 rows, rows sharing words, repeated
+   ids within a row, random desired values); ``reserve_slots``' corner cases
    on both routes and ``sequential_oracle`` containment, and the service
    on the card against the service on the CPU; then the flash op against
    its plain version over ``FA_CHECK_CASES`` in f32 (2e-5) and bf16
@@ -74,7 +77,24 @@ Phases, in order; any failure exits non-zero:
    p50/p99, the persist share, flushes and fences per commit, recovery
    ms, the per-wave host split and the filesystem; last, the reference
    bench's window for the per-op protocol, group commit and the marker
-   baseline (flushes per commit, fences).
+   baseline (flushes per commit, fences);
+8. the range index — ``KVService(n_shards=4, structure="bztree",
+   leaf_cap=64, root_cap=64, round_cap=1024)`` on kernel shards
+   (``TREE_RECORDS`` records, ``n_regions`` a sixteenth of a shard's),
+   loaded and then driven by YCSB core workload E (95% scan, 5% insert,
+   Zipfian 0.99) from 8 closed-loop clients with 4,096 ops outstanding;
+   integrity, the acknowledged inserts read back, scans equal to a
+   sorted count of the acknowledged keys, ``conflict_rate == 0``, height
+   3 on every shard, launches by route equal to what the code issues
+   (every wave ``smem``; every split one ``global`` wide op and three
+   ``smem`` launches), then ``gc_regions`` (one ``global`` and one
+   ``smem`` launch a freed region) and integrity again; ops/s, p50/p99,
+   splits, the per-wave host split and the device idle share of the load
+   and the run; the ``global`` route at the tree's widths (132, 390)
+   against the plain version with its time; ``run_struct_differential``
+   (bztree) on the card against durable shards, its rounds replayed on a
+   CPU ``KernelBackend`` and its table equal to a CPU tree's; and the
+   raw-op ``BatchScheduler`` on 4 card shards against 4 CPU shards.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``{"kernels": [...]}`` record, and the line before that the
@@ -83,6 +103,7 @@ decode shape's numbers.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import functools
 import itertools
@@ -168,6 +189,56 @@ def _colliding(kernel, rng, S, B, K, W):
     return words_np, addr, exp.astype(np.uint32), des.astype(np.uint32)
 
 
+# [1, B, K] rounds of the range index's widths, padded to the widest: a
+# leaf split's materialization (132-135 words at node caps of 64) and a
+# GC op over a full region (390) among 1-3-word ops; up to 32 rows take
+# the global route's one-thread-a-slot kernel, 65 rows its per-row one
+WIDE_CASES = ((132, 3, 3, 390, 2), (390, 390, 135, 1), (132,) * 32,
+              (3,) * 64 + (260,))
+
+
+def _wide_batch(rng, W, widths, stale=0.2, share=0.3, dup=0.3):
+    """One seeded ``[1, B, K]`` round of rows of ``widths`` against
+    ``[1, W]`` words: live words, expected mostly current (a ``stale``
+    share of rows fails (a)), desired random, a ``share`` of rows taking
+    two words of earlier rows (so (a)-passing rows contend), and a
+    ``dup`` share of rows repeating one id within the row (its
+    expected value the same, its desired value its own)."""
+    words = rng.integers(1, 1 << 32, W, dtype=np.uint64).astype(np.uint32)
+    K = max(widths)
+    addr = np.full((len(widths), K), -1, np.int32)
+    taken = []
+    for i, k in enumerate(widths):
+        row = rng.choice(W, k, replace=False)
+        if taken and rng.random() < share:
+            row[:2] = rng.choice(np.concatenate(taken), 2, replace=False)
+            row = np.unique(row)
+            k = len(row)
+        row = np.sort(row)
+        if k > 1 and rng.random() < dup:
+            row[-1] = row[0]
+        addr[i, :k] = row
+        taken.append(addr[i, :k])
+    exp = words[np.maximum(addr, 0)]
+    stale_rows = rng.random(len(widths)) < stale
+    exp[stale_rows, 0] += 1
+    des = rng.integers(0, 1 << 32, addr.shape,
+                       dtype=np.uint64).astype(np.uint32)
+    return words[None], addr[None], exp[None], des[None]
+
+
+def _b_losers(pm, ref, dev, words_np, addr, exp, des) -> int:
+    """Rows of one ``[1, B, K]`` round that pass (a) (every live slot's
+    expected value current) and still lose, by the plain version."""
+    live = addr[0] >= 0
+    cur = words_np[0][np.maximum(addr[0], 0)]
+    passes = ((cur == exp[0]) | ~live).all(1) & live.any(1)
+    w = pm.words_to_tensor(words_np, dev)
+    _, s = ref.pmwcas_apply_stacked(
+        w, *[pm.words_to_tensor(a, dev) for a in (addr, exp, des)])
+    return int((passes & ~s[0].cpu().numpy()).sum())
+
+
 def _held(pm, ref, kernel, dev, words_np, addr, exp, des, route,
           what) -> int:
     """One launch on ``route`` against the plain version on the same
@@ -218,9 +289,22 @@ def kernel_vs_plain(pm, ref, kernel, seed: int, dev) -> int:
             worst = max(worst, _held(pm, ref, kernel, dev, *batch, route,
                                      f"S={S} B={B} K={K}, one home bucket"))
             n_cases[route] += 1
+    b_losers = 0
+    for widths in WIDE_CASES:
+        words_np, addr, exp, des = _wide_batch(rng, 1 << 16, widths)
+        check(kernel.plan(*addr.shape[1:])[0] == "global",
+              f"{len(widths)} rows of up to {max(widths)} words: plan")
+        worst = max(worst, _held(pm, ref, kernel, dev, words_np, addr, exp,
+                                 des, "global",
+                                 f"{len(widths)} rows of up to "
+                                 f"{max(widths)} words"))
+        n_cases["global"] += 1
+        b_losers += _b_losers(pm, ref, dev, words_np, addr, exp, des)
+    check(b_losers > 0, "no (a)-passing row lost a claim in the wide cases")
     log(f"phase 2: kernel == plain bit for bit on {json.dumps(n_cases)} "
         "[S, B, K] batches by route (uniform, Zipf-hot, every address in "
-        "one home bucket of the smem hash)")
+        "one home bucket of the smem hash, the range index's wide rounds: "
+        f"{b_losers} (a)-passing rows lost a claim there)")
 
     # (a)-passing rows that lose still block: rows 0,1 pass, 1 loses to 0
     # on word 3, and row 2 (disjoint from 0) loses to row 1
@@ -363,7 +447,7 @@ def acked_state(st, state, futures):
 class WaveSplit:
     """Per-wave host time by phase, read from the span tracer after each
     wave (the buffer is cleared every wave, so it never drops)."""
-    NAMES = ("wave.snapshot", "wave.compile", "wave.schedule",
+    NAMES = ("wave.snapshot", "wave.grow", "wave.compile", "wave.schedule",
              "wave.dispatch", "wave.complete", "service.wave")
 
     def __init__(self, tracer):
@@ -381,7 +465,9 @@ class WaveSplit:
     def per_wave_us(self):
         t = {k: v / max(self.waves, 1) for k, v in self.total_us.items()}
         return {"snapshot": t["wave.snapshot"],
-                "compile": t["wave.compile"] - t["wave.snapshot"],
+                "grow": t["wave.grow"],
+                "compile": t["wave.compile"] - t["wave.snapshot"]
+                - t["wave.grow"],
                 "schedule": t["wave.schedule"],
                 "dispatch": t["wave.dispatch"],
                 "complete": t["wave.complete"],
@@ -1669,6 +1755,454 @@ def durable_phase(pm, svc_mod, st, obs, kernel, dev, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the range index — BzTree shards under YCSB-E
+# ---------------------------------------------------------------------------
+
+# leaf_cap = root_cap = 64: a leaf of 129 words, an inner node of 130, a
+# region of 390 (a root split's two halves and new root); a split's wide
+# MwCAS is 132-135 words and a GC zeroing op up to 390, so both take the
+# kernel's global route, while the waves' 3-word inserts take smem
+TREE_CAP = 64
+# YCSB-E at the ycsb cell's operation count; the record count is cut from
+# its 1,048,576 as PERF.md §4 "Reduced" sets out
+TREE_RECORDS, TREE_OPS = 1 << 18, 1 << 16
+TREE_SAMPLE = 16                     # every 16th load wave is traced
+TREE_WIDTHS = (132, 390)             # a leaf split's wide op; a full GC op
+
+
+class BoundedClients:
+    """Closed-loop clients: before each wave, ops are submitted in
+    arrival order until ``window`` are outstanding (a client issues its
+    next op once one of its own completes; ``window`` in flight in all),
+    then the wave runs."""
+
+    def __init__(self, svc, arrivals, window: int):
+        self.svc, self.arrivals, self.window = svc, arrivals, window
+        self.next = 0
+        self.futures = []
+        self.waves = 0
+
+    @property
+    def done(self) -> bool:
+        return self.next >= len(self.arrivals) and not self.svc.pending_count
+
+    def wave(self) -> None:
+        room = self.window - self.svc.pending_count
+        if room > 0 and self.next < len(self.arrivals):
+            self.futures += [self.svc.submit(op, client=c) for c, op in
+                             self.arrivals[self.next:self.next + room]]
+            self.next += room
+        self.svc.step()
+        self.waves += 1
+
+    def run(self, waves: Optional[int] = None, on_step=None) -> int:
+        n = 0
+        while not self.done and (waves is None or n < waves):
+            self.wave()
+            n += 1
+            if on_step:
+                on_step()
+        return n
+
+
+def tree_spec(st, records: int, ops: int, seed: int):
+    """YCSB core workload E (95% scan, 5% insert, Zipfian 0.99) over a
+    key universe of twice ``records``; the load inserts half of it, so an
+    insert of a key not loaded is a real insert, as E's inserts of new
+    records are."""
+    spec = dataclasses.replace(st.YCSB_E, n_ops=ops, n_keys=2 * records,
+                               alpha=0.99, seed=seed)
+    check((spec.scan, spec.insert) == (0.95, 0.05), f"YCSB-E mix {spec}")
+    return spec
+
+
+def tree_expected_launches(svc, dispatches: int) -> dict:
+    """The launches by route the tree path issues, worked out from the
+    code: a stacked wave is one smem launch; every split (leaf, inner or
+    root; ``splits`` counts them at their install) is a freeze, a region
+    reserve and an install or swing (3 smem launches) plus ONE wide
+    materialization of at least 132 words (global); a consolidation is a
+    reserve, a freeze, a compacted image of at most 5 words and a swing
+    (4 smem)."""
+    splits = sum(t.splits for t in svc.structs)
+    cons = sum(t.consolidations for t in svc.structs)
+    return {"smem": dispatches + 3 * splits + 4 * cons, "global": splits}
+
+
+def tree_slice(pm, svc_mod, st, obs, kernel, dev, seed: int,
+               records: int = TREE_RECORDS, ops: int = TREE_OPS) -> dict:
+    n_regions = records // N_SHARDS // 16
+    window = ROUND_CAP * N_SHARDS
+    spec = tree_spec(st, records, ops, seed)
+    svc = svc_mod.KVService(N_SHARDS, structure="bztree", leaf_cap=TREE_CAP,
+                            root_cap=TREE_CAP, n_regions=n_regions,
+                            round_cap=ROUND_CAP, device=dev)
+    W = svc.words_per_shard
+    region = svc.structs[0].region_words
+    check(all(b.word_table().device.type == dev.type and b.n_words == W
+              for b in svc.backends) and all(
+                  t.allocator.device.type == dev.type for t in svc.structs),
+          "tree tables or free lists are not on the card")
+    log(f"phase 8: KVService(n_shards={N_SHARDS}, structure='bztree', "
+        f"leaf_cap={TREE_CAP}, root_cap={TREE_CAP}, n_regions={n_regions}, "
+        f"round_cap={ROUND_CAP}) -> {N_SHARDS} x {W} words "
+        f"({N_SHARDS * W * 4 / 2**20:.1f} MiB) on the card, regions of "
+        f"{region} words")
+
+    tracer = obs.get_tracer()
+    load_split = WaveSplit(tracer)
+    kernel.reset_counts()                     # count the main path only
+    loader = BoundedClients(svc, [(0, op) for op in st.load_phase(spec, 0.5)],
+                            window)
+    load_prof = None
+    t0 = time.perf_counter()
+    while not loader.done:
+        if loader.waves == 64 and load_prof is None and dev.type == "cuda":
+            w0 = loader.waves
+            by_name, count, wall_us = _profile(lambda: loader.run(8))
+            load_prof = (by_name, count, wall_us, loader.waves - w0)
+            continue
+        traced = loader.waves % TREE_SAMPLE == TREE_SAMPLE - 1
+        if traced:
+            obs.enable_tracing()
+        loader.wave()
+        if traced:
+            obs.disable_tracing()
+            load_split()
+    _sync(dev)
+    load_s = time.perf_counter() - t0
+    tracer.clear()
+    load_futs = loader.futures
+    check(all(f.status == st.OK for f in load_futs), "a tree load insert "
+          "failed: " + json.dumps(collections.Counter(
+              f.status for f in load_futs)))
+    load_waves = svc.stats.steps
+    dispatches = svc.executor.stats.dispatches + \
+        svc.executor.stats.serial_rounds
+    log(f"phase 8: loaded {len(load_futs)} records in {load_s:.3f} s "
+        f"({load_waves} waves, {load_split.waves} traced, 8 profiled); "
+        f"splits {[t.splits for t in svc.structs]}, root splits "
+        f"{[t.root_splits for t in svc.structs]}, heights "
+        f"{[t.height() for t in svc.structs]}")
+
+    arrivals = _arrivals(st.client_streams(spec, N_CLIENTS))
+    svc.reset_stats()
+    svc.stats.latency_us.window = len(arrivals)
+    runner = BoundedClients(svc, arrivals, window)
+    t0 = time.perf_counter()
+    runner.run()
+    _sync(dev)
+    run_s = time.perf_counter() - t0
+    dispatches += svc.executor.stats.dispatches + \
+        svc.executor.stats.serial_rounds
+    launches = kernel.pmwcas_apply_cuda.launches
+    routes = dict(kernel.pmwcas_apply_cuda.route_launches)
+    stats = svc.stats
+    run_futs = runner.futures
+    # the YCSB-E window's numbers, taken before the GC, traced and
+    # profiled windows below run on the same service
+    run_waves, run_p50_us, run_p99_us = (
+        stats.steps, stats.p50_latency_us, stats.p99_latency_us)
+    run_splits = [t.splits for t in svc.structs]
+    run_root_splits = [t.root_splits for t in svc.structs]
+    kinds = collections.Counter(f"{f.op.kind} {f.status}" for f in run_futs)
+    log(f"phase 8: YCSB-E {len(arrivals)} ops from {N_CLIENTS} clients in "
+        f"{run_s:.3f} s: {len(arrivals) / run_s:.1f} ops/s, {run_waves} "
+        f"waves, p50 {run_p50_us:.1f} us, p99 {run_p99_us:.1f} us; splits "
+        f"{run_splits}, root splits {run_root_splits}; "
+        f"{json.dumps(kinds)}")
+    log("phase 8: stats " + json.dumps(stats.as_row()))
+
+    check(all(f.done for f in run_futs), "a tree future is still pending")
+    check(stats.by_status.get(st.EXHAUSTED, 0) == 0, "tree ops exhausted")
+    check(stats.conflict_rate == 0.0,
+          f"tree conflict_rate {stats.conflict_rate} != 0")
+    check(all(sh.out_of_regions == 0 for sh in stats.shards),
+          "a tree shard ran out of regions")
+    items = svc.check_integrity()
+    acked = acked_state(st, acked_state(st, {}, load_futs), run_futs)
+    check(items == acked, "acknowledged tree inserts do not read back")
+    heights = [t.height() for t in svc.structs]
+    check(min(heights) >= 3 and all(t.root_splits >= 2 for t in svc.structs),
+          f"tree heights {heights}: every shard must reach 3 (root splits)")
+    keys = np.sort(np.fromiter(acked, np.int64, len(acked)))
+    rng = np.random.default_rng(seed + 8)
+    probes = [int(k) for k in rng.integers(1, 2 * records, 6)] + [1]
+    got = [r.value for r in svc.apply([st.KVOp(st.SCAN, k) for k in probes])]
+    want = [len(keys) - int(np.searchsorted(keys, k)) for k in probes]
+    check(got == want, f"scans {got} != the sorted count {want}")
+    expected = tree_expected_launches(svc, dispatches)
+    splits = sum(t.splits for t in svc.structs)
+    check(routes == expected and launches == sum(expected.values()),
+          f"tree launches by route {routes} != worked out {expected} "
+          f"({dispatches} waves, {splits} splits)")
+    log(f"phase 8: integrity ok, every acknowledged insert reads back, "
+        f"scans {got} == the sorted count, conflict_rate 0, heights "
+        f"{heights}; launches by route {routes} == worked out from "
+        f"{dispatches} waves and {splits} splits")
+
+    # GC: every frozen split original is a full node, so each freed
+    # region is one global zeroing op and one smem free
+    before = dict(kernel.pmwcas_apply_cuda.route_launches)
+    t0 = time.perf_counter()
+    freed = svc.gc_regions()
+    gc_ms = (time.perf_counter() - t0) * 1e3
+    gc_routes = {r: kernel.pmwcas_apply_cuda.route_launches[r] - before[r]
+                 for r in before}
+    check(freed > 0 and gc_routes == {"smem": freed, "global": freed},
+          f"GC freed {freed} regions with launches {gc_routes}")
+    check(svc.check_integrity() == items, "GC changed the tree's items")
+    log(f"phase 8: gc_regions freed {freed} regions in {gc_ms:.1f} ms "
+        f"(launches {gc_routes}); integrity holds after it")
+
+    # a traced window (host split) and a profiled one (device idle share)
+    run_split = WaveSplit(tracer)
+    obs.enable_tracing()
+    try:
+        traced = _arrivals(st.client_streams(
+            dataclasses.replace(spec, n_ops=ops // 4, seed=seed + 1),
+            N_CLIENTS))
+        BoundedClients(svc, traced, window).run(on_step=run_split)
+    finally:
+        obs.disable_tracing()
+        tracer.clear()
+    profiled = _arrivals(st.client_streams(
+        dataclasses.replace(spec, n_ops=ops // 8, seed=seed + 2), N_CLIENTS))
+    prof_driver = BoundedClients(svc, profiled, window)
+    run_prof = (_profile(lambda: prof_driver.run()) + (prof_driver.waves,)
+                if dev.type == "cuda" else None)
+    svc.check_integrity()
+    idle = {}
+    for what, prof in (("load", load_prof), ("run", run_prof)):
+        if prof is None:
+            idle[what] = None
+            log(f"phase 8: {what} device busy not measured (no profiled "
+                "window)")
+            continue
+        by_name, count, wall_us, waves = prof
+        busy = sum(by_name.values()) or None
+        idle[what] = None if busy is None else 1 - busy / wall_us
+        log(f"phase 8: {what} device busy " + (
+            "not measured" if busy is None else
+            f"{busy:.1f} us of {wall_us:.1f} us wall over {waves} waves: "
+            f"idle share {idle[what]:.4f} (profiler)"))
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"phase 8:   {us / max(waves, 1):12.3f} us/wave  "
+                f"{count[name] / max(waves, 1):6.2f}/wave  {name[:80]}")
+    host = {"load": load_split.per_wave_us(), "run": run_split.per_wave_us()}
+    for what, per in host.items():
+        log(f"phase 8: {what} per-wave host split over "
+            f"{(load_split if what == 'load' else run_split).waves} traced "
+            "waves (tracing on), us/wave: "
+            + json.dumps({k: round(v, 1) for k, v in per.items()}))
+    return dict(records=records, ops=len(arrivals), n_regions=n_regions,
+                words_per_shard=W, load_s=load_s, load_waves=load_waves,
+                run_s=run_s, ops_per_s=len(arrivals) / run_s,
+                waves=run_waves, p50_us=run_p50_us, p99_us=run_p99_us,
+                launches=launches, routes=routes, splits=run_splits,
+                root_splits=run_root_splits,
+                heights=heights, freed=freed, gc_ms=gc_ms,
+                gc_routes=gc_routes, idle=idle, host_split_us=host,
+                svc=svc)
+
+
+def tree_kernel_timings(pm, ref, kernel, svc, seed: int, dev) -> dict:
+    """The global route at the tree's wide widths (``TREE_WIDTHS``: a
+    leaf split's materialization, a GC op over a full region) on a copy
+    of shard 0's table: one ``[1, 1, K]`` row of live words.  Kernel ==
+    plain bit for bit first, twice: expected == current with random
+    desired values and one id repeated (the row wins and stores), and
+    with one expected value stale (the row loses and stores nothing).
+    Then, with desired == expected so that every launch does the same
+    full work, device µs per launch (profiler), the plain version's, and
+    the bound."""
+    rng = np.random.default_rng(seed + 9)
+    words = svc.backends[0].word_table()[None].clone()
+    host = pm.tensor_to_words(words)[0]
+    live = np.flatnonzero(host)
+    out = {}
+    for K in TREE_WIDTHS:
+        check(kernel.plan(1, K)[0] == "global", f"[1, 1, {K}] plan")
+        addr = np.sort(rng.choice(live, K, replace=False)).astype(
+            np.int32)[None, None]
+        exp = host[addr]
+        claim = kernel.claim_scratch(words)
+        dup = addr.copy()
+        dup[..., -1] = dup[..., 0]                 # one id twice in the row
+        stale = exp.copy()
+        stale[..., K // 2] += 1
+        des = rng.integers(0, 1 << 32, addr.shape,
+                           dtype=np.uint64).astype(np.uint32)
+        for ad, ex, win in ((dup, host[dup], True), (addr, stale, False)):
+            a, e, d = (pm.words_to_tensor(x, dev) for x in (ad, ex, des))
+            w_k, w_p = words.clone(), words.clone()
+            s_k = kernel.pmwcas_apply_cuda(w_k, a, e, d, claim=claim)
+            _, s_p = ref.pmwcas_apply_stacked(w_p, a, e, d)
+            torch.cuda.synchronize()
+            check(bool(s_k.all()) == win and torch.equal(s_k, s_p)
+                  and torch.equal(w_k, w_p) and
+                  torch.equal(w_k, words) != win,
+                  f"[1, 1, {K}] (the row {'wins' if win else 'loses'}): "
+                  "kernel != plain")
+        a, e = (pm.words_to_tensor(x, dev) for x in (addr, exp))
+        d = e.clone()
+        success = torch.empty((1, 1), dtype=torch.bool, device=dev)
+        w_k, w_p = words.clone(), words.clone()
+        run = (lambda: kernel.launch(w_k, a, e, d, success, route="global",
+                                     claim=claim))
+        us, n = _per_launch_us(run, 200, "pmwcas_apply")
+        plain_dev, _ = _device_us(lambda: ref.pmwcas_apply_stacked(
+            w_p, a, e, d), 20)
+        ev_ms = _event_ms(run, 200)
+        ms = us / 1e3 if us else ev_ms
+        plain_ms = plain_dev / 20 / 1e3 if plain_dev else \
+            _event_ms(lambda: ref.pmwcas_apply_stacked(w_p, a, e, d), 20)
+        n_bytes = 3 * K * 4 + K * 4 + K * 4 + 1
+        bound_ms = n_bytes / H100_BYTES_PER_S * 1e3
+        out[K] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      event_ms=ev_ms)
+        log(f"phase 8: global route at [1, 1, {K}] on a {words.shape[1]}-"
+            f"word table: kernel == plain (random desired values and a "
+            f"repeated id: the row wins; a stale value: it loses); "
+            f"{ms * 1e3:.3f} us/launch "
+            f"({'profiler' if us else 'CUDA events'}, {n} launches seen), "
+            f"stream time {ev_ms * 1e3:.3f} us back to back (CUDA events), "
+            f"plain {plain_ms * 1e3:.3f} us; bound {bound_ms * 1e3:.5f} us "
+            f"({n_bytes} bytes)")
+    return out
+
+
+def tree_differential(st, pm, dev, seed: int) -> dict:
+    """``run_struct_differential(structure="bztree")``: the tree on the
+    card's kernel shard against the tree on durable shards, on a seeded
+    workload that splits (leaf_cap 8, so a split's wide op takes the
+    global route); then the card tree's rounds replayed on a CPU
+    ``KernelBackend`` (verdicts and post-round words), and the same
+    stream on a CPU tree: its word table must equal the card's bit for
+    bit."""
+    spec = st.WorkloadSpec(n_ops=96, n_keys=96, read=0.2, update=0.2,
+                           insert=0.45, delete=0.1, scan=0.05, alpha=0.5,
+                           seed=seed + 4, batch=8)
+    kvops = st.load_phase(spec, 0.5) + st.compile_workload(spec)
+    shape = dict(leaf_cap=8, root_cap=4, n_regions=40)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tree_diff_") as root:
+        t0 = time.perf_counter()
+        rep = st.run_struct_differential(kvops, structure="bztree",
+                                         durable_root=root, device=dev,
+                                         **shape)
+        secs = time.perf_counter() - t0
+    check(rep.agree, "tree kernel != durable:\n" + rep.summary())
+    card = rep.structs["kernel"]
+    check(card.splits >= 3 and card.root_splits >= 1,
+          f"the differential's tree split {card.splits} times")
+    replayed, ok = st.replay_rounds(card.last_history, device="cpu")
+    check(ok, "the card tree's rounds replayed on the CPU disagree")
+    cpu = st.BzTreeIndex(pm.KernelBackend(n_words=card.backend.n_words,
+                                          device="cpu"), device="cpu",
+                         **shape)
+    cpu_res = cpu.apply(kvops)
+    check([r.status for r in cpu_res] == rep.statuses["kernel"]
+          and np.array_equal(cpu.backend.values(), card.backend.values())
+          and np.array_equal(cpu.allocator.mask(), card.allocator.mask()),
+          "the tree on the card != the same stream on the CPU")
+    log(f"phase 8: run_struct_differential(bztree) kernel on the card == "
+        f"durable ({len(kvops)} ops, {rep.rounds['kernel']} rounds, "
+        f"{card.splits} splits, {card.root_splits} root splits, {secs:.2f} "
+        f"s); {replayed} rounds replayed on the CPU match; word table == "
+        f"the CPU tree's bit for bit")
+    return dict(ops=len(kvops), rounds=rep.rounds["kernel"],
+                splits=card.splits, s=secs)
+
+
+def raw_stream(seed: int, n_shards: int, words: int, n_ops: int,
+               cross: float = 0.1):
+    """Seeded raw increment-style ops over ``n_shards`` x ``words``: a
+    few hot words a shard (shared targets, so rounds defer), expected
+    values from a running model (80% current, so some fail (a)), and a
+    ``cross`` share spanning two shards."""
+    rng = np.random.default_rng(seed)
+    model = np.zeros(n_shards * words, np.int64)
+    out = []
+    for _ in range(n_ops):
+        k = int(rng.integers(1, 4))
+        if rng.random() < cross:
+            shards = rng.choice(n_shards, 2, replace=False)
+            addrs = sorted({int(s) * words + int(rng.integers(words))
+                            for s in shards})
+        else:
+            s = int(rng.integers(n_shards))
+            addrs = sorted({s * words + int(rng.integers(words // 8))
+                            for _ in range(k)})
+        targets = []
+        for a in addrs:
+            exp = int(model[a]) + (0 if rng.random() < 0.8 else 1)
+            targets.append((a, exp, exp + 1))
+        for a, _e, d in targets:
+            model[a] = d
+        out.append(targets)
+    return out
+
+
+def scheduler_matches_cpu(pm, svc_mod, dev, seed: int) -> dict:
+    """``BatchScheduler`` over 4 kernel shards on the card against the
+    same over 4 CPU shards: one seeded raw stream (cross-shard ops among
+    it) from 8 clients in windows; verdicts, latencies in rounds, the
+    round/defer/cross counts and the tables must be equal."""
+    stream = raw_stream(seed + 5, N_SHARDS, 1024, 8192)
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        backends = [pm.KernelBackend(n_words=1024, device=device)
+                    for _ in range(N_SHARDS)]
+        sched = svc_mod.BatchScheduler(
+            backends, svc_mod.ShardRouter(N_SHARDS, words_per_shard=1024),
+            round_cap=ROUND_CAP)
+        futs = []
+        t0 = time.perf_counter()
+        for start in range(0, len(stream), 2048):
+            futs += [sched.submit(pm.MwCASOp(t), client=i % N_CLIENTS)
+                     for i, t in enumerate(stream[start:start + 2048])]
+            sched.step()
+        sched.drain()
+        secs = time.perf_counter() - t0
+        st_ = sched.stats
+        outs.append(dict(
+            verdicts=[(f.success, f.latency_rounds) for f in futs],
+            tables=[b.values().tolist() for b in backends],
+            counts=dict(steps=st_.steps, cross_rounds=st_.cross_rounds,
+                        cross_ops=st_.cross_ops,
+                        rounds=[s.rounds for s in st_.shards],
+                        defers=[s.defers for s in st_.shards]),
+            s=secs))
+    card, cpu = outs
+    check(card["verdicts"] == cpu["verdicts"] and card["tables"] ==
+          cpu["tables"] and card["counts"] == cpu["counts"],
+          "BatchScheduler on the card != on the CPU")
+    won = sum(v for v, _r in card["verdicts"])
+    check(card["counts"]["cross_ops"] > 0 and 0 < won < len(stream)
+          and sum(card["counts"]["defers"]) > 0,
+          f"the raw stream exercised too little: {card['counts']}")
+    log(f"phase 8: BatchScheduler card == CPU on {len(stream)} raw ops "
+        f"({won} won, {card['counts']['cross_ops']} cross-shard in "
+        f"{card['counts']['cross_rounds']} global rounds, "
+        f"{sum(card['counts']['defers'])} defers, {card['counts']['steps']}"
+        f" waves; {card['s']:.2f} s on the card, {cpu['s']:.2f} s on the "
+        "CPU)")
+    return card["counts"]
+
+
+def tree_phase(pm, ref, svc_mod, st, obs, kernel, dev, seed: int,
+               records: int = TREE_RECORDS) -> dict:
+    t0 = time.perf_counter()
+    run = tree_slice(pm, svc_mod, st, obs, kernel, dev, seed, records)
+    timings = tree_kernel_timings(pm, ref, kernel, run.pop("svc"), seed, dev)
+    diff = tree_differential(st, pm, dev, seed)
+    sched = scheduler_matches_cpu(pm, svc_mod, dev, seed)
+    log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+    return dict(run=run, timings=timings, differential=diff,
+                scheduler=sched)
+
+
+# ---------------------------------------------------------------------------
 
 def build_kernels(builders) -> None:
     """Build every kernel's source at once (``builders``: one zero-argument
@@ -1758,6 +2292,8 @@ def main(argv=None) -> int:
         "differential": durable["differential"],
         "ycsb": durable["ycsb"],
         "ledger": durable["ledger"]}))
+    tree = tree_phase(pm, ref, svc_mod, st, obs, kernel, dev, args.seed)
+    log("tree: " + json.dumps(tree, default=str))
     log(f"the whole smoke took {time.perf_counter() - t_start:.1f} s")
 
     pre, dec = ft["prefill"], ft["decode"]
@@ -1786,6 +2322,15 @@ def main(argv=None) -> int:
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "bytes", "latency_floor_ms": t["floor_ms"],
         "wave_dispatch_device_us": run["wave_split"]["dispatch"],
+        "tree_launches": tree["run"]["launches"],
+        "tree_route_launches": tree["run"]["routes"],
+        "tree_gc_route_launches": tree["run"]["gc_routes"],
+        "tree_global_ms": {str(K): t["ms"]
+                           for K, t in tree["timings"].items()},
+        "tree_global_plain_ms": {str(K): t["plain_ms"]
+                                 for K, t in tree["timings"].items()},
+        "tree_global_bound_ms": {str(K): t["bound_ms"]
+                                 for K, t in tree["timings"].items()},
         "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_tc.cu",

@@ -14,11 +14,15 @@ Public surface (import from here or from the subpackages):
   ``reserve_slots``: a CUDA tensor runs the hand-written Hopper kernel,
   a CPU tensor its plain PyTorch version.
 - ``repro_torch.structures`` — ``HashMap`` (directory doubling
-  included), the YCSB-style workload compiler and the durable
-  crash-at-every-persist sweeps.
+  included), the BzTree node and multi-node ``BzTreeIndex``, the
+  ``FreeListAllocator``, the YCSB-style workload compiler, the durable
+  crash-at-every-persist sweeps (map, elastic map, tree) and
+  ``run_struct_differential`` (kernel against durable).
 - ``repro_torch.service`` — ``KVService`` on sharded kernel or durable
-  backends (group commit, epochs, WAL pruning, crash/recover), the
-  stacked executor, router, migration log and ``ServiceStats``.
+  backends with hash-map or BzTree shards (group commit, epochs, WAL
+  pruning, crash/recover, region GC), the raw-op ``BatchScheduler`` with
+  its journaled cross-shard rounds, the stacked executor, router,
+  migration log and ``ServiceStats``.
 - checkpoint layer: ``Committer`` (the descriptor-WAL committer),
   ``MarkerCommitter`` (the dirty-flag baseline), ``CommitError``,
   ``PMemPool``, ``SimulatedCrash``.
@@ -50,10 +54,13 @@ _LAZY = {name: "repro_torch.pmwcas" for name in (
     "pmwcas_apply", "pmwcas_apply_stacked", "reserve_slots")}
 _LAZY.update({name: "repro_torch.structures" for name in (
     "HashMap", "KVOp", "StructResult", "WorkloadSpec",
+    "BzTreeIndex", "SortedNode", "FreeListAllocator",
     "check_durable_crash_sweep", "check_hashmap_resize_sweep",
+    "check_tree_crash_sweep", "run_struct_differential",
     "CrashCheckError")})
 _LAZY.update({name: "repro_torch.service" for name in (
-    "KVService", "KVFuture", "ServiceStats", "load_word_tables")})
+    "KVService", "KVFuture", "ServiceStats", "load_word_tables",
+    "BatchScheduler", "OpFuture")})
 _LAZY.update({name: "repro_torch.checkpoint" for name in (
     "Committer", "MarkerCommitter", "CommitError", "PMemPool",
     "SimulatedCrash", "data_rel")})

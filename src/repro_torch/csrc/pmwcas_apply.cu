@@ -54,7 +54,9 @@
 
 // global (pmwcas_apply_kernel, the kernel's first design) -- larger rounds:
 // the claims are a caller-owned int32[S, W] table in device memory, all
-// INT_MAX on entry and on exit (every valid slot resets its claim).
+// INT_MAX on entry and on exit (every valid slot resets its claim).  A
+// round of at most 32 rows wider than 16 slots (pmwcas_apply_slots_kernel)
+// takes one thread per slot instead of one per row.
 //
 // What bounds it on an H100: latency.  The bytes (a round's slots, its
 // gathered words and the verdict: 0.17 MB at [4, 1024, 2]) take 0.05 us at
@@ -86,6 +88,13 @@ long long smem_layout_bytes(int tag_bits, int cap_bits) {
 }
 
 constexpr unsigned short kContested = 0xFFFF;   // a tag no slot id takes
+// The global route goes one thread per slot for rounds of at most kFewRows
+// rows wider than kWideK slots (a tree's [1, 1, K] split and GC ops): one
+// thread per row would leave all but a few threads idle while each walks
+// its K slots.  With more rows the per-row kernel fills the CTA and is the
+// faster one ([1, 512, 32]: 97.8 against 114.0 us on an H100, PERF.md).
+constexpr int kWideK = 16;
+constexpr int kFewRows = 32;
 
 __device__ __forceinline__ int bucket(int a, int bits) {
   return static_cast<int>((static_cast<unsigned>(a) * kHashMult) >>
@@ -292,6 +301,72 @@ __global__ void pmwcas_apply_kernel(int32_t* __restrict__ words,
   }
 }
 
+// The global route for a few wide rows (B <= kFewRows, K > kWideK: a tree
+// split's materialization, 132-135 words; a region GC's zeroing op, up to
+// 390): the same claims as pmwcas_apply_kernel, but one thread per SLOT
+// instead of per row, so a [1, 1, 390] round takes a few dependent trips
+// instead of one thread walking 390 slots.  A row's verdict lives in its success byte: set, then
+// cleared by any slot that fails (a), then by any slot that finds a lower
+// passing row's claim (b); racing stores all store 0.  A winning row's
+// duplicate ids keep the LAST slot's des, as the row loop does: a slot
+// stores only if no later slot of its row names the same word.
+__global__ void pmwcas_apply_slots_kernel(int32_t* __restrict__ words,
+                                          const int32_t* __restrict__ addr,
+                                          const int32_t* __restrict__ exp,
+                                          const int32_t* __restrict__ des,
+                                          int32_t* __restrict__ claim,
+                                          uint8_t* __restrict__ success,
+                                          int B, int K, long long W) {
+  const long long s = blockIdx.x;
+  int32_t* w = words + s * W;
+  int32_t* c = claim + s * W;
+  const long long row0 = s * static_cast<long long>(B);
+  const long long n = static_cast<long long>(B) * K;
+  const int32_t* a_s = addr + row0 * K;
+
+  for (int i = threadIdx.x; i < B; i += blockDim.x) success[row0 + i] = 1;
+  __syncthreads();
+  // (a): a slot whose word differs clears its row
+  for (long long j = threadIdx.x; j < n; j += blockDim.x) {
+    const int a = a_s[j];
+    if (a >= 0 && w[a] != exp[row0 * K + j]) success[row0 + j / K] = 0;
+  }
+  __syncthreads();
+  // every (a)-passing row claims its words
+  for (long long j = threadIdx.x; j < n; j += blockDim.x) {
+    const int i = static_cast<int>(j / K);
+    const int a = a_s[j];
+    if (a >= 0 && success[row0 + i]) atomicMin(&c[a], i);
+  }
+  __syncthreads();
+  // (b): a lower passing row claimed one of our words
+  for (long long j = threadIdx.x; j < n; j += blockDim.x) {
+    const int i = static_cast<int>(j / K);
+    const int a = a_s[j];
+    if (a >= 0 && success[row0 + i] && __ldcg(&c[a]) < i)
+      success[row0 + i] = 0;
+  }
+  __syncthreads();
+  // winners store des (the last slot of a repeated word); every valid
+  // slot clears its claim
+  for (long long j = threadIdx.x; j < n; j += blockDim.x) {
+    const int a = a_s[j];
+    if (a < 0) continue;
+    const long long i = j / K;
+    if (success[row0 + i]) {
+      bool last = true;
+      for (long long j2 = j + 1; j2 < (i + 1) * K; ++j2) {
+        if (a_s[j2] == a) {
+          last = false;
+          break;
+        }
+      }
+      if (last) w[a] = des[row0 * K + j];
+    }
+    c[a] = INT_MAX;
+  }
+}
+
 // One thread follows `trips` dependent 4-byte loads through `chain`: the
 // device time of an empty launch (trips = 0) and of the smem route's three
 // dependent trips to memory with nothing else (trips = 3).
@@ -358,11 +433,22 @@ extern "C" int pmwcas_apply_launch(void* words, const void* addr,
                                    void* claim, void* success, int S, int B,
                                    int K, long long W, void* stream) {
   if (S <= 0 || B <= 0) return 0;
-  pmwcas_apply_kernel<<<S, threads_for(B), 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int32_t*>(words), static_cast<const int32_t*>(addr),
-      static_cast<const int32_t*>(exp), static_cast<const int32_t*>(des),
-      static_cast<int32_t*>(claim), static_cast<uint8_t*>(success), B, K, W);
+  auto* w = static_cast<int32_t*>(words);
+  auto* a = static_cast<const int32_t*>(addr);
+  auto* e = static_cast<const int32_t*>(exp);
+  auto* d = static_cast<const int32_t*>(des);
+  auto* c = static_cast<int32_t*>(claim);
+  auto* ok = static_cast<uint8_t*>(success);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (K > kWideK && B <= kFewRows) {
+    const long long n = static_cast<long long>(B) * K;
+    pmwcas_apply_slots_kernel<<<S, threads_for(
+        n > kMaxThreads ? kMaxThreads : static_cast<int>(n)), 0, st>>>(
+        w, a, e, d, c, ok, B, K, W);
+  } else {
+    pmwcas_apply_kernel<<<S, threads_for(B), 0, st>>>(w, a, e, d, c, ok, B,
+                                                      K, W);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

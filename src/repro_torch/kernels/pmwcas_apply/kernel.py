@@ -18,7 +18,9 @@ pairwise compare.  :func:`plan` picks one of two routes from ``[B, K]``:
   words, store verdicts and winners) and no scratch;
 - ``global``: the first design of the kernel, for larger rounds, with
   the claims in a caller-owned ``int32[S, W]`` scratch that is all
-  ``CLAIM_FREE`` before and after a launch.
+  ``CLAIM_FREE`` before and after a launch; one thread per row, or one
+  per slot in a round of at most 32 rows wider than 16 slots (a tree
+  split's or GC's ``[1, 1, K]`` op, K = 132-390).
 
 What bounds it on the card: latency (a launch and dependent trips to
 memory); the bytes take 0.05 µs at the service's shape.

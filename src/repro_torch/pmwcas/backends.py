@@ -119,6 +119,11 @@ class KernelBackend:
         """A host copy of the table as uint32 words."""
         return tensor_to_words(self._words)
 
+    def read_words(self, lo: int, hi: int) -> np.ndarray:
+        """Words ``lo:hi`` (clipped to the table) as uint32, in one copy
+        to the host."""
+        return tensor_to_words(self._words[lo:hi])
+
     # -- sharded-service surface ----------------------------------------------
     @property
     def n_words(self) -> int:

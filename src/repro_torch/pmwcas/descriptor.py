@@ -74,6 +74,15 @@ class MwCASOp:
             raise ValueError(f"duplicate target addresses in {addrs}")
         object.__setattr__(self, "targets", tgts)
 
+    @classmethod
+    def of_distinct(cls, targets: Tuple[Target, ...]) -> "MwCASOp":
+        """``MwCASOp(targets)`` for ready :class:`Target` objects whose
+        addresses the caller guarantees distinct, without checking them
+        again (a structure's batch compiler builds thousands a wave)."""
+        op = object.__new__(cls)
+        object.__setattr__(op, "targets", targets)
+        return op
+
     # -- views ---------------------------------------------------------------
     @property
     def k(self) -> int:

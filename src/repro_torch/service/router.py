@@ -2,7 +2,8 @@
 
 The service owns S backend instances ("shards"); every submitted op must
 land on exactly one of them — or be flagged cross-shard and serialized
-(the raw-op scheduler, a later slice of the port).  Two address partitions are supported:
+(``repro_torch.service.scheduler``).  Two address partitions are
+supported:
 
 - ``range``:  shard ``addr // words_per_shard`` — contiguous blocks,
   the natural fit for structures occupying contiguous word ranges;

@@ -2,9 +2,13 @@
 
 The service front for the structures layer: S shards, each owning its
 own backend instance (built through the ``repro_torch.pmwcas`` factory
-hooks) and its own :class:`repro_torch.structures.HashMap` partition.
-Keys are routed by multiplicative hash, so every logical op is
-shard-local by construction.
+hooks) and its own structure partition
+(:class:`repro_torch.structures.HashMap` or
+:class:`repro_torch.structures.BzTreeIndex`).  Keys are routed by
+multiplicative hash, so every logical op is shard-local by construction
+— cross-shard atomicity only arises at the raw-op layer
+(:class:`repro_torch.service.BatchScheduler`), never for single-key KV
+ops.
 
 Execution is the structures' snapshot-compile/round-execute loop lifted
 across shards: each ``step`` compiles every shard's pending ops against
@@ -13,16 +17,17 @@ conflict-defer rule: duplicate-target ops wait a round instead of
 executing to certain failure), and runs all shard rounds in a single
 wave — kernel shards through the stacked dispatch, so S rounds cost
 one kernel launch; durable shards one committer round each, on the
-host.  CAS losers recompile against the next snapshot.
+host.  CAS losers recompile against the next snapshot; tree shards run
+the split protocol between waves, exactly like ``BzTreeIndex.apply``
+does between rounds (a split's wide MwCAS is its own launch, on the
+route the kernel's plan picks for its width).
 
 Durable shards (``backend="durable"``) keep their state in a
 :class:`repro_torch.checkpoint.PMemPool` each and put nothing on the
 device: group commit, epochs with the ack gate (acks withheld until the
 epoch that holds them closes), checkpoints, WAL pruning on a wave
 cadence, and :meth:`KVService.crash`.  Online key-range migration is
-ported, its decision log on a ``PMemPool``.  BzTree shards raise
-``NotImplementedError`` naming ROADMAP Queue 1 #4; the raw-op
-``BatchScheduler`` is Queue 1 #5.
+ported, its decision log on a ``PMemPool``.
 """
 from __future__ import annotations
 
@@ -39,19 +44,17 @@ from repro_torch.obs import (flush_reason, instant, reset_metrics, span,
 from repro_torch.pmwcas import (Backend, KernelBackend, MwCASOp,
                                 make_backend, resolve_device,
                                 words_to_tensor)
-from repro_torch.structures import (DELETE, EXHAUSTED, FULL, HashMap, INSERT,
-                                    KVOp, NeedsResize, OK, SCAN,
-                                    StructResult)
+from repro_torch.structures import (BzTreeIndex, DELETE, EXHAUSTED,
+                                    FROZEN_BIT, FULL, HashMap, INSERT, KVOp,
+                                    NeedsResize, NeedsSplit, OK,
+                                    OutOfRegions, SCAN, StructResult)
+from repro_torch.structures.bztree_index import count_ge
 
 from .executor import DispatchStats, execute_wave, schedule_wave, \
     select_executor
 from .journal import MIG_MIGRATING, MIG_ROUTED, MigrationLog
 from .router import ShardRouter
 from .stats import ServiceStats, collect_durability, fresh_stats
-
-# KVService options of the reference that a later slice of the port brings
-_TREE = "ROADMAP Queue 1 #4 (BzTree shards)"
-_LATER_OPTIONS = {"leaf_cap": _TREE, "root_cap": _TREE, "n_regions": _TREE}
 
 
 class KVFuture:
@@ -130,12 +133,14 @@ class KVService:
     ``backend`` is a registered backend kind (``"kernel"``/``"durable"``/
     custom), a factory callable, or a list of pre-built per-shard
     backends.  ``structure`` selects the per-shard partition type:
-    ``"hashmap"`` (sized by ``n_buckets`` per shard).  ``device`` places
-    the kernel shards' word tables (default ``"cuda"``; ``"cpu"`` runs
-    the plain PyTorch version of the kernel); it is checked for every
-    backend kind, and durable shards put nothing on it.  Durable shards
-    live under ``durable_root/shard{s}`` (a temporary directory each
-    without a root) and take ``group_commit``, ``epoch_rounds`` and
+    ``"hashmap"`` (sized by ``n_buckets`` per shard) or ``"bztree"``
+    (sized by ``leaf_cap``/``root_cap``/``n_regions`` per shard).
+    ``device`` places the kernel shards' word tables (default
+    ``"cuda"``; ``"cpu"`` runs the plain PyTorch version of the kernel)
+    and every tree shard's region allocator; it is checked for every
+    backend kind.  Durable shards put no word table on it; they live
+    under ``durable_root/shard{s}`` (a temporary directory each without
+    a root) and take ``group_commit``, ``epoch_rounds`` and
     ``checkpoint_every``; ``wal_prune_every`` prunes their WALs on a wave
     cadence.
     """
@@ -145,6 +150,7 @@ class KVService:
                  backend: Union[str, Callable[..., Backend],
                                 Sequence[Backend]] = "kernel",
                  n_buckets: int = 64, max_doublings: int = 0,
+                 leaf_cap: int = 4, root_cap: int = 8, n_regions: int = 8,
                  round_cap: int = 16, max_op_rounds: Optional[int] = None,
                  durable_root: Union[str, pathlib.Path, None] = None,
                  group_commit: bool = True,
@@ -152,26 +158,20 @@ class KVService:
                  wal_prune_every: int = 0,
                  migration_pool=None, migration_chunk: int = 8,
                  device: Union[str, torch.device] = "cuda",
-                 executor=None, **later):
-        for name in later:
-            if name not in _LATER_OPTIONS:
-                raise TypeError(f"KVService got an unexpected keyword "
-                                f"argument {name!r}")
-        if later:
-            raise NotImplementedError(
-                "KVService options not ported yet: " + ", ".join(
-                    f"{n} ({_LATER_OPTIONS[n]})" for n in sorted(later)))
+                 executor=None):
         if n_shards < 1:
             raise ValueError("need at least one shard")
-        if structure == "bztree":
-            raise NotImplementedError(
-                f"structure 'bztree' is not ported yet: {_TREE}")
-        if structure != "hashmap":
+        if structure not in ("hashmap", "bztree"):
             raise ValueError(f"unknown structure {structure!r}")
         self.structure = structure
         self.n_buckets = n_buckets
         self.max_doublings = max_doublings
-        words = HashMap.words_needed(n_buckets, max_doublings)
+        self.tree_shape = dict(leaf_cap=leaf_cap, root_cap=root_cap,
+                               n_regions=n_regions)
+        if structure == "hashmap":
+            words = HashMap.words_needed(n_buckets, max_doublings)
+        else:
+            words = BzTreeIndex.words_needed(leaf_cap, root_cap, n_regions)
         self.words_per_shard = words
         self.router = ShardRouter(n_shards, words_per_shard=words,
                                   policy="range")
@@ -183,9 +183,7 @@ class KVService:
         self.backends = self._build_backends(
             backend, n_shards, words, durable_root, group_commit,
             self.epoch_rounds, self.checkpoint_every, self.device)
-        self.structs = [HashMap(b, self.n_buckets,
-                                max_doublings=self.max_doublings)
-                        for b in self.backends]
+        self.structs = [self._attach(b) for b in self.backends]
         # epoch ack gate (DESIGN.md Sec. 14): decisions made while ANY
         # durable shard has an open epoch are withheld here, in decide
         # order, until the global durability frontier passes them
@@ -204,6 +202,9 @@ class KVService:
         self.stats: ServiceStats = fresh_stats(n_shards, round_cap)
         self._queues: List[List[_PendingKV]] = [[] for _ in range(n_shards)]
         self._seq = 0
+        # per-wave compile-phase state: each shard's sorted live keys,
+        # which the wave's scans count (see _scan_counts)
+        self._scan_keys: Dict[int, np.ndarray] = {}
         if wal_prune_every < 0:
             raise ValueError("wal_prune_every must be >= 0")
         self.wal_prune_every = wal_prune_every
@@ -248,6 +249,12 @@ class KVService:
                 kw = dict(n_words=words)
             out.append(make_backend(spec, **kw))
         return out
+
+    def _attach(self, backend: Backend):
+        if self.structure == "hashmap":
+            return HashMap(backend, self.n_buckets,
+                           max_doublings=self.max_doublings)
+        return BzTreeIndex(backend, device=self.device, **self.tree_shape)
 
     # -- submission ------------------------------------------------------------
     def submit(self, op: KVOp, client=0) -> KVFuture:
@@ -317,6 +324,8 @@ class KVService:
                 completed += done
                 if ready:
                     compiled_queues[s] = ready
+            # the compile phase's scan keys die with it
+            self._scan_keys.clear()
         if not compiled_queues:
             return completed
         with span("wave.schedule"):
@@ -402,9 +411,9 @@ class KVService:
     # -- wave internals --------------------------------------------------------
     def _compile_shard(self, s: int):
         """Compile shard ``s``'s queue against one snapshot.  Immediate
-        results complete; resize requests run the map's doubling protocol
-        (ops recompile next wave); CAS-compiled ops return for round
-        formation."""
+        results complete; split/resize requests run the structure's grow
+        protocol (ops recompile next wave); CAS-compiled ops return for
+        round formation."""
         struct = self.structs[s]
         if getattr(struct, "hdr", 0) and struct.migrating:
             # an in-flight directory doubling pumps a chunk per wave
@@ -416,31 +425,47 @@ class KVService:
         later: List[_PendingKV] = []
         done = 0
         resizes: List[_PendingKV] = []
-        for pending in self._queues[s]:
+        splits: Dict[int, List[_PendingKV]] = {}
+        queue = self._queues[s]
+        max_rounds = self.max_op_rounds
+        # a tree compiles its whole queue in one batch (numpy gathers),
+        # read in queue order; a hash map compiles op by op
+        compile_ops = getattr(struct, "compile_ops", None)
+        compiled_ops = None if compile_ops is None else compile_ops(
+            [p.future.op for p in queue if p.attempts <= max_rounds
+             and p.future.op.kind != SCAN], snap, defer_same_leaf=True)
+        scan_counts = None
+        for i, pending in enumerate(queue):
             fut = pending.future
-            if pending.attempts > self.max_op_rounds:
+            if pending.attempts > max_rounds:
                 self._finish(fut, EXHAUSTED,
                              retry_waves=pending.attempts)
                 done += 1
                 continue
-            compiled = struct.compile_op(fut.op, snap)
+            if fut.op.kind == SCAN:
+                # scans cover the whole keyspace: sum the count over
+                # every shard partition (disjoint key sets, so a plain
+                # sum); a scan always answers OK.  The queue's scans
+                # are counted together at the first of them.
+                if scan_counts is None:
+                    self._scan_keys_of(s, snap)
+                    scan_counts = self._scan_counts([
+                        p.future.op for p in queue[i:]
+                        if p.attempts <= max_rounds
+                        and p.future.op.kind == SCAN])
+                self._finish(fut, OK, next(scan_counts),
+                             retry_waves=pending.attempts)
+                done += 1
+                continue
+            compiled = (struct.compile_op(fut.op, snap) if compiled_ops is None
+                        else next(compiled_ops))
             if isinstance(compiled, NeedsResize):
                 resizes.append(pending)
+            elif isinstance(compiled, NeedsSplit):
+                splits.setdefault(compiled.leaf_base, []).append(pending)
             elif isinstance(compiled, StructResult):
-                if fut.op.kind == SCAN and compiled.status == OK:
-                    # scans cover the whole keyspace: sum the count over
-                    # every shard partition (each against its own wave
-                    # snapshot — disjoint key sets, so a plain sum)
-                    value = (compiled.value or 0) + sum(
-                        (other.compile_op(fut.op, other.snapshot()).value
-                         or 0)
-                        for s2, other in enumerate(self.structs)
-                        if s2 != s)
-                    self._finish(fut, OK, value,
-                                 retry_waves=pending.attempts)
-                else:
-                    self._finish(fut, compiled.status, compiled.value,
-                                 retry_waves=pending.attempts)
+                self._finish(fut, compiled.status, compiled.value,
+                             retry_waves=pending.attempts)
                 done += 1
             else:
                 pending.local = compiled
@@ -461,8 +486,68 @@ class KVService:
                     self._finish(pending.future, FULL,
                                  retry_waves=pending.attempts)
                     done += 1
+        if splits:
+            # grow first; this wave's compiled ops would mostly lose
+            # (the split freezes their leaf's meta), so everything on
+            # this shard recompiles next wave — BzTreeIndex.apply's rule
+            for leaf_base, waiters in sorted(splits.items()):
+                try:
+                    with span("wave.grow", shard=s):
+                        grew = struct.ensure_room(leaf_base)
+                except OutOfRegions:
+                    grew = False
+                    self.stats.shards[s].out_of_regions += 1
+                if grew:
+                    for pending in waiters:
+                        pending.attempts += 1
+                    later.extend(waiters)
+                else:
+                    for pending in waiters:
+                        self._finish(pending.future, FULL,
+                                     retry_waves=pending.attempts)
+                        done += 1
+            self._requeue(s, ready + later)
+            return [], done
         self._requeue(s, later)
         return ready, done
+
+    def _scan_counts(self, ops: Sequence[KVOp]):
+        """Each scan's value in order: the live keys ``>= op.key`` over
+        every shard (what each structure's SCAN compiles to; disjoint key
+        sets, so a plain sum), counted by :func:`count_ge` over one
+        sorted key array per shard and wave (:meth:`_scan_keys_of`).  A
+        tree shard refuses a key outside (0, 2^31) at that scan, as its
+        ``compile_op`` does."""
+        bad = len(ops)
+        if self.structure == "bztree":
+            bad = next((i for i, op in enumerate(ops)
+                        if not 0 < op.key < FROZEN_BIT), bad)
+        keys = np.fromiter((op.key for op in ops[:bad]), np.int64, bad)
+        counts = np.zeros(bad, np.int64)
+        if bad:
+            for s in range(len(self.structs)):
+                counts += count_ge(self._scan_keys_of(s), keys)
+        yield from counts.tolist()
+        if bad < len(ops):
+            raise ValueError(f"key {ops[bad].key} outside (0, 2^31)")
+
+    def _scan_keys_of(self, s: int,
+                      snap: Optional[np.ndarray] = None) -> np.ndarray:
+        """Shard ``s``'s live keys, sorted, once per wave: from ``snap``
+        (the shard's compile snapshot) if given, else from a snapshot
+        taken now.
+
+        Exact: nothing a wave's compile phase writes (tree splits and
+        GC, hash-map doubling pumps) adds, removes or changes a live key,
+        so every snapshot taken during the phase holds the same keys."""
+        keys = self._scan_keys.get(s)
+        if keys is None:
+            struct = self.structs[s]
+            snap = struct.snapshot() if snap is None else snap
+            keys = self._scan_keys[s] = (
+                struct.scan_keys(snap) if isinstance(struct, BzTreeIndex)
+                else np.sort(np.fromiter(struct.items(snap), np.int64)))
+        return keys
 
     def _requeue(self, s: int, entries: List[_PendingKV]) -> None:
         """Merge entries back into the shard queue in submission order
@@ -830,6 +915,11 @@ class KVService:
                     f"{out[k]}, destination copy holds {v}")
         return out
 
+    def gc_regions(self) -> int:
+        """Region GC across every tree shard (no-op for hash maps)."""
+        return sum(getattr(s, "gc_regions", lambda: 0)()
+                   for s in self.structs)
+
     def reset_stats(self) -> None:
         """Start a fresh measurement window (e.g. after a load phase).
 
@@ -872,6 +962,7 @@ class KVService:
             new = KVService(len(recovered), structure=self.structure,
                             backend=recovered, n_buckets=self.n_buckets,
                             max_doublings=self.max_doublings,
+                            **self.tree_shape,
                             round_cap=self.round_cap,
                             max_op_rounds=self.max_op_rounds,
                             wal_prune_every=self.wal_prune_every,

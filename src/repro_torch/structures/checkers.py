@@ -9,31 +9,43 @@ One invariant — *no torn multi-word effect, no lost committed effect*:
   exactly the effects of the ops the client saw commit — plus at most
   the one in-flight op (committed iff its SUCCEEDED record was
   persisted before the crash; the client just never saw the verdict).
+- **Tree sweep** (:func:`check_tree_crash_sweep`): the durable sweep
+  lifted to the multi-node :class:`repro_torch.structures.BzTreeIndex` —
+  crashing at every persist point *through a leaf split* (and, when the
+  workload overflows the root, through a root split's pending-word
+  handoff) must leave either the pre-split or the fully-linked
+  post-split tree (DESIGN.md Sec. 7/12), never a torn node image or a
+  half-installed parent entry.
 - **Resize sweep** (:func:`check_hashmap_resize_sweep`): the durable
   sweep through directory doubling — every persist of decide / pump /
   split-brain client ops / finalize swing (DESIGN.md Sec. 12).
+- **Migration sweep** (``repro_torch.service.check_migration_crash_sweep``):
+  the same sweep lifted to the service's online key-range shard
+  migration — it needs a whole ``KVService``, so it lives one layer up
+  (DESIGN.md Sec. 12).
 
-Both sweeps also exercise WAL hygiene in their teardown: after each
+The durable sweeps also exercise WAL hygiene in their teardown: after each
 recovery check the COMPLETED descriptor records are pruned
 (:meth:`DurableBackend.prune_completed`) and a second crash/recover
 cycle must reproduce the identical structure state.
 
-The sweeps take ``group_commit`` (which flush protocol is under sweep —
-the coalesced one-fence-per-round path is the default, matching
+The durable sweeps take ``group_commit`` (which flush protocol is under
+sweep — the coalesced one-fence-per-round path is the default, matching
 :class:`repro_torch.pmwcas.DurableBackend`) and ``batch`` (ops applied
 per round, so the coalesced path commits real multi-op rounds); the
 acceptable recovered states are computed from an oracle run's ROUND
 composition — a crash inside a batch may recover any round prefix,
 each round atomic at its commit fence (DESIGN.md Sec. 9.1).
 
-The reference's tree sweep and simulator sweep come with the BzTree and
-the simulator (ROADMAP Queue 1 #4 and #7); here they raise
-``NotImplementedError``.
+The reference's simulator sweep comes with the simulator (ROADMAP
+Queue 1 #7); here it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import pathlib
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
+
+import torch
 
 from repro_torch.checkpoint import PMemPool, SimulatedCrash
 from repro_torch.pmwcas import DurableBackend
@@ -208,11 +220,37 @@ def check_hashmap_resize_sweep(kvops: Sequence[KVOp], n_buckets: int,
         what="elastic map", group_commit=group_commit, batch=batch)
 
 
-def check_tree_crash_sweep(*args, **kwargs) -> int:
-    """The BzTree's crash sweep comes with the tree: ROADMAP Queue 1 #4."""
-    raise NotImplementedError(
-        "check_tree_crash_sweep is not ported yet: ROADMAP Queue 1 #4 "
-        "(BzTree)")
+def check_tree_crash_sweep(kvops: Sequence[KVOp], root, *,
+                           leaf_cap: int = 2, root_cap: int = 4,
+                           n_regions: int = 4, committer: str = "wal",
+                           max_crash_points: int = 1200,
+                           group_commit: bool = True,
+                           device: Union[str, torch.device] = "cuda"
+                           ) -> int:
+    """Crash-at-every-persist sweep over a multi-node tree workload.
+
+    The workload is expected to drive :class:`BzTreeIndex` through at
+    least one leaf split (size it so a leaf overflows), so the sweep
+    crosses every persist of freeze, the wide half-materialization and
+    the 2-word parent install.  After every crash + recovery the
+    re-attached tree must pass :meth:`BzTreeIndex.check_integrity` (no
+    torn node, no half-installed parent entry — i.e. the tree is the
+    pre-split or the fully-linked post-split one) and hold exactly the
+    effects the client saw commit, plus at most the one in-flight op.
+    ``device`` holds the trees' region allocators (the durable backend
+    itself holds no tensors).  Returns the number of crash points
+    swept.
+    """
+    from .bztree_index import BzTreeIndex
+
+    def _attach(backend):
+        return BzTreeIndex(backend, leaf_cap=leaf_cap, root_cap=root_cap,
+                           n_regions=n_regions, device=device)
+
+    return _durable_crash_sweep(
+        kvops, root, _attach, committer=committer,
+        max_crash_points=max_crash_points, what="tree",
+        group_commit=group_commit)
 
 
 def check_sim_crash_sweep(*args, **kwargs) -> int:

@@ -36,12 +36,16 @@ from repro_torch.kernels.pmwcas_apply import kernel as pm_kernel
 from repro_torch.kernels.pmwcas_apply import ref
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import build_model
-from repro_torch.pmwcas import (increment_batch, pmwcas_apply_cuda,
-                                pmwcas_apply_stacked, reserve_slots,
-                                run_differential, sequential_oracle,
-                                tensor_to_words, words_to_tensor)
-from repro_torch.service import KVService
-from repro_torch.structures import WorkloadSpec, client_streams, load_phase
+from repro_torch.pmwcas import (KernelBackend, MwCASOp, increment_batch,
+                                pmwcas_apply_cuda, pmwcas_apply_stacked,
+                                reserve_slots, run_differential,
+                                sequential_oracle, tensor_to_words,
+                                words_to_tensor)
+from repro_torch.service import BatchScheduler, KVService, ShardRouter
+from repro_torch.structures import (BzTreeIndex, FreeListAllocator,
+                                    OutOfRegions, WorkloadSpec,
+                                    client_streams, compile_workload,
+                                    load_phase)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -392,3 +396,166 @@ def test_serve_runs_the_kernel_whatever_attn_impl(cuda, impl):
                           page_size=16, n_pages=64, device=cuda)
     assert len(res.admitted) > 0 and res.logits_finite
     assert flash_attention_cuda.launches - before == cfg.n_layers * (1 + 4)
+
+
+# ---------------------------------------------------------------------------
+# the range index: the global route at tree widths, the tree, the free
+# list and the raw-op scheduler on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _wide_case(rng, W, widths, stale=0.2, share=0.3):
+    """One round of rows of the given widths (a split's wide op, a GC
+    zeroing op, 3-word inserts), padded to the widest: live words,
+    expected mostly current, some rows sharing words with earlier ones."""
+    words = rng.integers(1, 1 << 32, W, dtype=np.uint64).astype(np.uint32)
+    K = max(widths)
+    addr = np.full((len(widths), K), -1, np.int32)
+    taken = []
+    for i, k in enumerate(widths):
+        row = rng.choice(W, k, replace=False)
+        if taken and rng.random() < share:
+            row[:2] = rng.choice(np.concatenate(taken), 2, replace=False)
+            row = np.unique(row)
+            k = len(row)
+        addr[i, :k] = np.sort(row)
+        taken.append(addr[i, :k])
+    exp = words[np.maximum(addr, 0)]
+    exp[rng.random(addr.shape) < stale / K] += 1
+    des = rng.integers(0, 1 << 32, addr.shape,
+                       dtype=np.uint64).astype(np.uint32)
+    return words, addr, exp, des
+
+
+@pytest.mark.parametrize("widths", [(260,), (390,), (132, 3, 3, 390, 2),
+                                    (390, 390, 135, 1), (132,) * 32,
+                                    (3,) * 64 + (260,)])
+def test_global_route_at_tree_widths(cuda, widths):
+    """``[1, B, K]`` rounds at a tree's wide widths on the global route
+    (its plan), bit for bit against the plain version: one thread per
+    slot up to 32 rows, one per row above."""
+    rng = np.random.default_rng(sum(widths))
+    words, addr, exp, des = _wide_case(rng, 6000, widths)
+    assert pm_kernel.plan(*addr.shape)[0] == "global"
+    w_k, w_p = _t(words, cuda)[None], _t(words, cuda)[None]
+    args = [_t(x, cuda)[None] for x in (addr, exp, des)]
+    pm_kernel.reset_counts()
+    _, s_k = pmwcas_apply_stacked(w_k, *args)
+    _, s_p = ref.pmwcas_apply_stacked(w_p, *args)
+    torch.cuda.synchronize()
+    assert pmwcas_apply_cuda.route_launches == {"smem": 0, "global": 1}
+    assert torch.equal(s_k, s_p) and torch.equal(w_k, w_p)
+
+
+def _tree_run(device, shape, kvops, batch=16):
+    n = BzTreeIndex.words_needed(**shape)
+    tree = BzTreeIndex(KernelBackend(n_words=n, device=device),
+                       device=device, **shape)
+    results = []
+    for i in range(0, len(kvops), batch):
+        results += [(r.status, r.value, r.rounds)
+                    for r in tree.apply(kvops[i:i + batch])]
+    return tree, results
+
+
+@pytest.mark.parametrize("shape", [
+    dict(leaf_cap=8, root_cap=4, n_regions=128),
+    dict(leaf_cap=64, root_cap=64, n_regions=16)])
+def test_bztree_on_the_card_matches_cpu(cuda, shape):
+    """A splitting seeded stream on a card tree and a CPU tree: results,
+    word tables, allocator masks and counters equal.  The card's wide
+    split ops took the global route: every split at node caps of 64 (a
+    132-word op), the leaf splits at leaf_cap 8 (20 words; an inner split
+    at root_cap 4 is 12 words and takes smem)."""
+    spec = WorkloadSpec(n_ops=256, n_keys=600, read=0.1, update=0.15,
+                        insert=0.6, delete=0.1, scan=0.05, seed=3)
+    kvops = load_phase(spec, 0.5) + compile_workload(spec)
+    pm_kernel.reset_counts()
+    card, res_k = _tree_run(cuda, shape, kvops)
+    routes = dict(pmwcas_apply_cuda.route_launches)
+    cpu, res_p = _tree_run("cpu", shape, kvops)
+    assert res_k == res_p
+    assert np.array_equal(card.backend.values(), cpu.backend.values())
+    assert np.array_equal(card.allocator.mask(), cpu.allocator.mask())
+    counters = ("splits", "root_splits", "consolidations", "rounds_run",
+                "mwcas_submitted", "mwcas_won")
+    assert [getattr(card, c) for c in counters] == \
+        [getattr(cpu, c) for c in counters]
+    assert card.splits >= 2 and routes["global"] >= 1
+    if shape["leaf_cap"] == shape["root_cap"] == 64:
+        assert routes["global"] == card.splits
+    assert card.gc_regions() == cpu.gc_regions() >= 1
+    assert np.array_equal(card.backend.values(), cpu.backend.values())
+    assert card.check_integrity() == cpu.check_integrity()
+
+
+def test_freelist_on_the_card_matches_cpu(cuda):
+    rng = np.random.default_rng(11)
+    fls = [FreeListAllocator(300, region_base=2, region_words=390,
+                             device=d) for d in (cuda, "cpu")]
+    assert fls[0]._mask.is_cuda
+    owned = []
+    for _ in range(24):
+        if owned and rng.random() < 0.3:
+            slots = owned.pop(int(rng.integers(len(owned))))
+            for fl in fls:
+                fl.free(slots)
+            continue
+        counts = rng.integers(0, 40, 3).tolist()
+        got = []
+        for fl in fls:
+            try:
+                got.append(fl.alloc(counts))
+            except OutOfRegions as e:
+                got.append(("full", e.requests, e.grants))
+        assert got[0] == got[1]
+        grants = got[0] if got[0][0] != "full" else got[0][2]
+        owned += [g for g in grants if g]
+        assert np.array_equal(fls[0].mask(), fls[1].mask())
+    cands = [sorted(rng.choice(300, 3, replace=False).tolist())
+             for _ in range(2000)]           # [2000, 3]: the global route
+    pm_kernel.reset_counts()
+    assert fls[0].reserve(cands) == fls[1].reserve(cands)
+    assert pmwcas_apply_cuda.route_launches["global"] == 1
+    assert np.array_equal(fls[0].mask(), fls[1].mask())
+
+
+def test_bztree_service_on_the_card_matches_cpu(cuda):
+    """Small BzTree KVService shards on the card and on the CPU: the same
+    futures, items and tables."""
+    spec = WorkloadSpec(n_ops=512, n_keys=800, read=0.0, update=0.0,
+                        insert=0.05, delete=0.0, scan=0.95, alpha=0.99,
+                        seed=2)
+    outs = []
+    for device in (cuda, "cpu"):
+        svc = KVService(4, structure="bztree", leaf_cap=8, root_cap=4,
+                        n_regions=64, round_cap=64, device=device)
+        futs = svc.submit_many(load_phase(spec, 0.5))
+        for c, stream in enumerate(client_streams(spec, 8)):
+            futs += [svc.submit(op, client=c) for op in stream]
+        svc.drain()
+        outs.append(([(f.status, f.result.value, f.done_step) for f in futs],
+                     [b.values().tolist() for b in svc.backends],
+                     svc.check_integrity()))
+    assert outs[0] == outs[1]
+
+
+def test_batch_scheduler_on_the_card_matches_cpu(cuda):
+    stream = chip_smoke.raw_stream(4, 4, 64, 600, cross=0.15)
+    outs = []
+    for device in (cuda, "cpu"):
+        backends = [KernelBackend(n_words=64, device=device)
+                    for _ in range(4)]
+        sched = BatchScheduler(backends, ShardRouter(4, words_per_shard=64),
+                               round_cap=16)
+        futs = []
+        for start in range(0, len(stream), 50):
+            futs += [sched.submit(MwCASOp(t), client=i % 8)
+                     for i, t in enumerate(stream[start:start + 50])]
+            sched.step()
+        sched.drain()
+        outs.append(([(f.success, f.latency_rounds) for f in futs],
+                     [b.values().tolist() for b in backends],
+                     sched.stats.steps, sched.stats.cross_rounds,
+                     [(sh.rounds, sh.defers) for sh in sched.stats.shards]))
+    assert outs[0] == outs[1]
+    assert outs[0][3] > 0

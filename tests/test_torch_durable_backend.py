@@ -203,9 +203,11 @@ def test_hashmap_resize_sweep_on_the_port(tmp_path):
     assert n > 10
 
 
-def test_sweeps_of_later_slices_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-        st.check_tree_crash_sweep([], None)
+def test_sweeps_of_later_slices_raise(tmp_path):
+    """The tree sweep (ROADMAP Queue 1 #4) now runs; only the
+    simulator's sweep (Queue 1 #7) still raises."""
+    ops = [st.KVOp(st.INSERT, k, 10 * k) for k in (5, 3, 9)]
+    assert st.check_tree_crash_sweep(ops, tmp_path, device="cpu") > 1
     with pytest.raises(NotImplementedError, match="Queue 1 #7"):
         st.check_sim_crash_sweep([])
     with pytest.raises(st.CrashCheckError):

@@ -205,10 +205,16 @@ def test_migration_matches_reference(tmp_path):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="bztree"):
-        svc_mod.KVService(2, structure="bztree", device="cpu")
-    with pytest.raises(NotImplementedError, match="leaf_cap.*Queue 1 #4"):
-        svc_mod.KVService(2, leaf_cap=4, device="cpu")
+    """The tree options of ROADMAP Queue 1 #4 now build tree shards (no
+    longer refused); the reference's ``use_kernel`` stays unknown, and a
+    kernel shard still cannot crash."""
+    svc = svc_mod.KVService(2, structure="bztree", leaf_cap=4, root_cap=4,
+                            n_regions=6, device="cpu")
+    assert [type(t).__name__ for t in svc.structs] == ["BzTreeIndex"] * 2
+    assert svc.words_per_shard == st.BzTreeIndex.words_needed(4, 4, 6)
+    assert svc.apply([st.KVOp(st.INSERT, 5, 50)])[0].status == st.OK
+    hm = svc_mod.KVService(2, leaf_cap=4, device="cpu")    # ignored by maps
+    assert isinstance(hm.structs[0], st.HashMap)
     with pytest.raises(TypeError, match="use_kernel"):
         svc_mod.KVService(2, use_kernel=False, device="cpu")
     # a kernel shard's table has no durable copy: as in the reference
