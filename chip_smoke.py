@@ -8,10 +8,11 @@ CUDA toolkit::
 
 Phases, in order; any failure exits non-zero:
 
-1. card and build — the card's name and power limit, then the four
+1. card and build — the card's name and power limit, then the five
    Hopper sources built from ``src/repro_torch/csrc/{pmwcas_apply,
-   flash_attention_tc, flash_attention_decode, flash_attention}.cu``, one
-   nvcc each in parallel (seconds, ptxas registers/spills);
+   flash_attention_tc, flash_attention_decode, flash_attention,
+   pmwcas_sim}.cu``, one nvcc each in parallel (seconds, ptxas
+   registers/spills);
 2. kernels vs plain — the PMwCAS kernel's verdicts and tables held bit
    for bit against its plain PyTorch version on both routes (``smem``,
    where its hash fits, and ``global``) over seeded ``[S, B, K]``
@@ -65,9 +66,10 @@ Phases, in order; any failure exits non-zero:
 7. the durable slice (the paper's persistence; host code over a
    ``PMemPool`` per shard in the temporary directory, on the machine's
    disk; its filesystem is printed) — ``run_differential`` holds the
-   PMwCAS kernel against the durable committer on seeded increment
-   batches ``[B, K]`` of ``DIFF_SHAPES`` (both routes; counts zeroed
-   before, read after);
+   simulator kernel, the PMwCAS kernel and the durable committer against
+   each other on seeded increment batches ``[B, K]`` of ``DIFF_SHAPES``
+   (both routes, one simulator launch a batch; counts zeroed before,
+   read after);
    YCSB-A (50% read, 50% update, Zipfian 0.99) from 8 clients over 4
    durable hash-map shards of 1,024 records with group commit, epochs of
    4 rounds, a checkpoint every 4 epochs and a WAL prune every 16 waves:
@@ -93,8 +95,27 @@ Phases, in order; any failure exits non-zero:
    and the run; the ``global`` route at the tree's widths (132, 390)
    against the plain version with its time; ``run_struct_differential``
    (bztree) on the card against durable shards, its rounds replayed on a
-   CPU ``KernelBackend`` and its table equal to a CPU tree's; and the
-   raw-op ``BatchScheduler`` on 4 card shards against 4 CPU shards.
+   CPU ``KernelBackend`` and on the simulator kernel (one launch a
+   checked round, counted here), and its table equal to a CPU tree's; and the
+   raw-op ``BatchScheduler`` on 4 card shards against 4 CPU shards;
+9. the cycle-accurate simulator (``csrc/pmwcas_sim.cu``, many
+   simulations a launch) — (a) the kernel against its plain version bit
+   for bit on the whole state, the four algorithms over ``SIM_CASES``
+   (drained and cut) in one mixed launch, and alone == batched; (b)
+   every crash point 1-399 of ``test_crash_exhaustive_prefix``'s
+   schedule for the four algorithms in one launch, each recovering
+   consistently and held to the plain version, and the pinned ORIGINAL
+   crash (seed 8016, step 365) raising the reference's RecoveryError
+   through ``SimSession.crash_at`` on the card;
+   (c) ``run_struct_differential(hashmap, algorithm="ours")`` with every
+   round replayed on the simulator kernel; (d) the Figs. 9-10 grid
+   (``benchmarks/bench_threads.py``: 84 drained cells at 1,000,000 words,
+   60,000 steps, ``max_ops`` 512, seed 11) in ONE launch: modeled Mops
+   at 2 GHz, CAS / flush / invalidations per op and p99 per cell, the
+   zero-conflict CAS counts at one thread, the ours/original ratio at
+   t = 56, alpha = 1, four full-size cells held to the plain version
+   (its time per step extrapolated to the grid), and one cell alone for
+   the time per step beside the latency floor.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``{"kernels": [...]}`` record, and the line before that the
@@ -1497,13 +1518,15 @@ LEDGER_SPEC = dict(n_ops=96, n_keys=48, read=0.1, update=0.55, insert=0.25,
 
 
 def durable_differential(pm, kernel, dev, seed: int) -> dict:
-    """``run_differential`` on the card: the Hopper kernel against the
-    durable committer on seeded increment batches, one per shape of
-    ``DIFF_SHAPES``; verdicts and final values must be equal and each
-    batch must take its route.  Counts are zeroed just before and read
-    just after."""
+    """``run_differential`` on the card: the simulator kernel, the PMwCAS
+    kernel and the durable committer on seeded increment batches, one per
+    shape of ``DIFF_SHAPES``; verdicts and final values must be equal,
+    each batch must take its route and run one simulator launch.  Counts
+    are zeroed just before and read just after."""
+    from repro_torch.kernels.pmwcas_sim import kernel as sim_kernel
     out = {}
     kernel.reset_counts()
+    sim_kernel.reset_counts()
     for B, K, route in DIFF_SHAPES:
         init, ops = pm.increment_batch(B * K, K, B, seed=seed + K)
         check(len(ops) == B, f"increment_batch gave {len(ops)} ops, not {B}")
@@ -1513,7 +1536,9 @@ def durable_differential(pm, kernel, dev, seed: int) -> dict:
             report = pm.run_differential(ops, init, durable_root=root,
                                          device=dev)
             secs = time.perf_counter() - t0
-        check(report.agree, f"kernel != durable at [{B}, {K}]:\n"
+        check(report.agree and set(report.verdicts) ==
+              {"sim", "kernel", "durable"},
+              f"sim / kernel / durable disagree at [{B}, {K}]:\n"
               + report.summary())
         routes = kernel.pmwcas_apply_cuda.route_launches
         check(routes[route] == before[route] + 1,
@@ -1521,16 +1546,20 @@ def durable_differential(pm, kernel, dev, seed: int) -> dict:
         won = int(report.verdicts["kernel"].sum())
         out[f"{B}x{K}"] = dict(route=route, ops=B, won=won, s=secs)
         log(f"phase 7: run_differential [{B}, {K}] on the {route} route: "
-            f"kernel == durable ({won}/{B} won, {B * K} words, "
+            f"sim == kernel == durable ({won}/{B} won, {B * K} words, "
             f"{secs:.3f} s with the committer's seeding)")
     launches = kernel.pmwcas_apply_cuda.launches
     routes = dict(kernel.pmwcas_apply_cuda.route_launches)
-    check(launches == len(DIFF_SHAPES) and all(routes.values()),
-          f"differential launches {launches}, routes {routes}: both "
-          "routes must run")
+    sim_launches = sim_kernel.pmwcas_sim_cuda.launches
+    check(launches == len(DIFF_SHAPES) and all(routes.values())
+          and sim_launches == len(DIFF_SHAPES),
+          f"differential launches {launches}, routes {routes}, simulator "
+          f"{sim_launches}: both routes and one simulation a batch must run")
     log("kernels: " + json.dumps({"pmwcas_apply differential": launches,
-                                  "routes": routes}))
-    return dict(launches=launches, routes=routes, shapes=out)
+                                  "routes": routes,
+                                  "pmwcas_sim differential": sim_launches}))
+    return dict(launches=launches, routes=routes, shapes=out,
+                sim_launches=sim_launches)
 
 
 def fs_type(path) -> str:
@@ -2084,14 +2113,26 @@ def tree_differential(st, pm, dev, seed: int) -> dict:
                            insert=0.45, delete=0.1, scan=0.05, alpha=0.5,
                            seed=seed + 4, batch=8)
     kvops = st.load_phase(spec, 0.5) + st.compile_workload(spec)
+    from repro_torch.kernels.pmwcas_sim import kernel as sim_kernel
+    from repro_torch.structures.differential import _replay_rounds_on_sim
     shape = dict(leaf_cap=8, root_cap=4, n_regions=40)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tree_diff_") as root:
+        sim_kernel.reset_counts()
         t0 = time.perf_counter()
         rep = st.run_struct_differential(kvops, structure="bztree",
                                          durable_root=root, device=dev,
                                          **shape)
         secs = time.perf_counter() - t0
+        sim_launches = sim_kernel.pmwcas_sim_cuda.launches
     check(rep.agree, "tree kernel != durable:\n" + rep.summary())
+    check(sim_launches == rep.sim_rounds_checked > 0,
+          f"the tree differential made {sim_launches} simulator launches "
+          f"for {rep.sim_rounds_checked} rounds checked")
+    # the simulator's share of the differential's time: its replay again,
+    # alone (these launches come after the count was read)
+    t0 = time.perf_counter()
+    _replay_rounds_on_sim(rep.structs["kernel"].last_history, "ours", dev)
+    sim_secs = time.perf_counter() - t0
     card = rep.structs["kernel"]
     check(card.splits >= 3 and card.root_splits >= 1,
           f"the differential's tree split {card.splits} times")
@@ -2108,10 +2149,14 @@ def tree_differential(st, pm, dev, seed: int) -> dict:
     log(f"phase 8: run_struct_differential(bztree) kernel on the card == "
         f"durable ({len(kvops)} ops, {rep.rounds['kernel']} rounds, "
         f"{card.splits} splits, {card.root_splits} root splits, {secs:.2f} "
-        f"s); {replayed} rounds replayed on the CPU match; word table == "
-        f"the CPU tree's bit for bit")
+        f"s); {rep.sim_rounds_checked} rounds replayed on the simulator "
+        f"kernel in {sim_launches} launches ({rep.sim_rounds_skipped} "
+        f"skipped; the replay alone {sim_secs:.3f} s); {replayed} rounds "
+        f"replayed on the CPU match; word table == the CPU tree's bit for "
+        f"bit")
     return dict(ops=len(kvops), rounds=rep.rounds["kernel"],
-                splits=card.splits, s=secs)
+                splits=card.splits, s=secs, sim_launches=sim_launches,
+                sim_skipped=rep.sim_rounds_skipped, sim_s=sim_secs)
 
 
 def raw_stream(seed: int, n_shards: int, words: int, n_ops: int,
@@ -2203,6 +2248,376 @@ def tree_phase(pm, ref, svc_mod, st, obs, kernel, dev, seed: int,
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the cycle-accurate simulator
+# ---------------------------------------------------------------------------
+
+# the CPU parity tests' configs (tests/test_torch_sim_core.py): a dense
+# alpha = 1 schedule for each algorithm, ORIGINAL helping, 8-byte blocks
+# (false sharing), the pinned ORIGINAL crash, a long alpha = 0 one
+SIM_CASES = (
+    ("ours", dict(n_threads=4, n_words=64, k=3, n_steps=1200, max_ops=32,
+                  seed=3, alpha=1.0)),
+    ("ours_df", dict(n_threads=4, n_words=64, k=3, n_steps=1200,
+                     max_ops=32, seed=3, alpha=1.0)),
+    ("original", dict(n_threads=8, n_words=32, k=2, n_steps=3000,
+                      max_ops=32, seed=7, alpha=1.0)),
+    ("pcas", dict(n_threads=4, n_words=64, k=1, n_steps=1200, max_ops=32,
+                  seed=3, alpha=1.0)),
+    ("ours", dict(n_threads=8, n_words=512, k=1, n_steps=3000, max_ops=128,
+                  seed=7, alpha=1.0, block_bytes=8)),
+    ("original", dict(n_threads=6, n_words=32, k=2, n_steps=600,
+                      max_ops=16, seed=8016, alpha=1.0)),
+    ("ours_df", dict(n_threads=4, n_words=256, k=3, n_steps=4000,
+                     max_ops=64, seed=7)),
+)
+SIM_CUT = 365                        # run_until's cut in the checks
+# tests/test_recovery.py::test_crash_exhaustive_prefix: every crash point
+# of a 400-step hot schedule over 16 words, per algorithm
+CRASH_ALGS = (("ours", 3), ("ours_df", 3), ("original", 2), ("pcas", 1))
+CRASH_KW = dict(n_threads=4, n_words=16, n_steps=400, max_ops=32, seed=3,
+                alpha=1.0)
+# the reference's pinned ORIGINAL fault (ROADMAP Queue 3): the same answer
+# from both packages
+PIN_CFG = dict(algorithm="original", n_threads=6, n_words=32, k=2,
+               n_steps=600, max_ops=16, seed=8016, alpha=1.0)
+PIN_STEP, PIN_MSG = 365, "words [15]: recovered=[1] expected=[2]"
+# Figs. 9-10 (benchmarks/bench_threads.py:11-32) at the paper's 1e6 words
+FIG_THREADS = (1, 4, 8, 16, 32, 56)
+FIG_WORDS, FIG_STEPS, FIG_MAX_OPS, FIG_SEED = 1_000_000, 60_000, 512, 11
+CLOCK_GHZ = 2.0                      # benchmarks/common.py:17
+# dependent 4-byte loads on a step's critical path: the schedule entry,
+# the thread's PC, its target index / op index, the target's address, the
+# word (its line owner loads beside it)
+STEP_DEP_LOADS = 5
+
+
+def sim_diff(a: dict, b: dict) -> list:
+    """The state fields where two host states differ (counters as int64)."""
+    bad = []
+    for name, x in a.items():
+        x, y = np.asarray(x), np.asarray(b[name])
+        if name == "counters":
+            x, y = x.astype(np.int64), y.astype(np.int64)
+        if x.shape != y.shape or not np.array_equal(x, y):
+            bad.append(name)
+    return bad
+
+
+def sim_err(a: dict, b: dict) -> int:
+    """The largest absolute difference over every field of two host
+    states of one shape (uint32 words compared as integers)."""
+    return max(int(np.abs(np.asarray(x).astype(np.int64)
+                          - np.asarray(b[name]).astype(np.int64)).max(
+                              initial=0))
+               for name, x in a.items())
+
+
+def sim_specs(core, cases=SIM_CASES, cut=SIM_CUT) -> list:
+    """Each case drained, and cut at ``cut`` without draining."""
+    out = []
+    for alg, kw in cases:
+        cfg = core.SimConfig(algorithm=alg, **kw)
+        out += [(cfg, None, None, True, None), (cfg, None, None, False, cut)]
+    return out
+
+
+def sim_held(core, specs, card_results, what: str) -> int:
+    """Run ``specs`` through the plain version and hold every card result
+    to it on the whole state and the drain rounds; returns the largest
+    absolute difference seen (0: bit for bit)."""
+    worst = 0
+    for spec, got, want in zip(specs, card_results,
+                               core.run_sims(specs, device="cpu")):
+        bad = sim_diff(got.state, want.state)
+        check(not bad and got.drain_rounds == want.drain_rounds,
+              f"{what}: the simulator kernel != plain for "
+              f"{spec[0].algorithm} {spec[0]} (cut {spec[4]}) in {bad}, "
+              f"drain rounds {got.drain_rounds} / {want.drain_rounds}")
+        worst = max(worst, sim_err(got.state, want.state))
+    return worst
+
+
+def sim_kernel_vs_plain(core, sim_kernel, dev) -> int:
+    """(a) The kernel against its plain version, bit for bit on the whole
+    state: every case of ``SIM_CASES`` drained and cut, all four
+    algorithms, in ONE mixed launch; then two of them alone."""
+    specs = sim_specs(core)
+    before = sim_kernel.pmwcas_sim_cuda.launches
+    card = core.run_sims(specs, device=dev)
+    check(sim_kernel.pmwcas_sim_cuda.launches == before + 1,
+          "the mixed simulations took more than one launch")
+    err = sim_held(core, specs, card, "mixed launch")
+    for i in (1, 4):
+        alone = core.run_sims([specs[i]], device=dev)[0]
+        check(not sim_diff(alone.state, card[i].state),
+              "a simulation alone != the same in a mixed launch")
+    log(f"phase 9: simulator kernel == plain bit for bit on the whole state "
+        f"(max abs err {err}) for {len(specs)} simulations "
+        f"({len(SIM_CASES)} configs x drained / cut at {SIM_CUT}, four "
+        f"algorithms) in one mixed launch; alone == batched")
+    return err
+
+
+def sim_crash_sweep(core, pm, sim_kernel, dev) -> dict:
+    """(b) Every crash point 1-399 of ``test_crash_exhaustive_prefix``'s
+    schedule for the four algorithms, as simulations of one launch; each
+    recovers consistently and equals the plain version; then the pinned
+    ORIGINAL example, which must raise the reference's RecoveryError."""
+    specs = []
+    for alg, k in CRASH_ALGS:
+        cfg = core.SimConfig(algorithm=alg, k=k, **CRASH_KW)
+        specs += [(cfg, None, None, False, s) for s in range(1, 400)]
+    t0 = time.perf_counter()
+    card = core.run_sims(specs, device=dev)
+    secs = time.perf_counter() - t0
+    kernel_ms = sim_kernel.pmwcas_sim_cuda.last_ms
+    for spec, r in zip(specs, card):
+        core.check_crash_consistency(spec[0], r.state)
+    err = sim_held(core, specs, card, "crash sweep")
+    pin = core.SimConfig(**PIN_CFG)
+    got = core.run_until(pin, PIN_STEP, device=dev)
+    want = core.run_until(pin, PIN_STEP, device="cpu")
+    check(not sim_diff(got.state, want.state), "pinned case: kernel != plain")
+    before = sim_kernel.pmwcas_sim_cuda.launches
+    try:
+        pm.SimSession().configure(**PIN_CFG).with_device(dev).crash_at(
+            PIN_STEP)
+        raised = None
+    except core.RecoveryError as e:
+        raised = str(e)
+    check(sim_kernel.pmwcas_sim_cuda.launches == before + 1,
+          "SimSession.crash_at did not launch the simulator kernel")
+    check(raised is not None and PIN_MSG in raised,
+          f"the pinned ORIGINAL crash gave {raised!r}")
+    log(f"phase 9: crash sweep, {len(specs)} crash points (1-399 x four "
+        f"algorithms) in one launch of {kernel_ms:.3f} ms ({secs:.3f} s "
+        f"with set-up and copies): all "
+        f"recover consistently, all == plain (max abs err {err}); pinned "
+        f"ORIGINAL "
+        f"crash@{PIN_STEP}: RecoveryError({raised!r}) as in the reference")
+    return dict(points=len(specs), s=secs, pinned=raised,
+                kernel_ms=kernel_ms, err=err)
+
+
+def sim_struct_differential(st, dev, seed: int) -> dict:
+    """(c) ``run_struct_differential(hashmap, algorithm="ours")`` on the
+    card: kernel == durable, and every round replayed on the simulator
+    kernel (one launch a round).  The ops are
+    ``test_struct_differential_native_sim_no_shadow_skips``'s (inserts,
+    an update, deletes and a re-insert of one key group: three rounds)
+    over four key groups."""
+    kvops = []
+    for base in range(0, 96, 24):
+        kvops += [st.KVOp(st.INSERT, base + k, ((base + k) << 8) | 1)
+                  for k in (2, 6, 10, 14)]
+        kvops += [st.KVOp(st.UPDATE, base + 2, 123456 + base + seed),
+                  st.KVOp(st.DELETE, base + 6),
+                  st.KVOp(st.INSERT, base + 18, 7),
+                  st.KVOp(st.DELETE, base + 10),
+                  st.KVOp(st.INSERT, base + 6, 999 + base)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sim_diff_") as root:
+        rep = st.run_struct_differential(kvops, 64, algorithm="ours",
+                                         durable_root=root, device=dev)
+    check(rep.agree and rep.sim_rounds_checked > 0,
+          "hash-map differential with the simulator:\n" + rep.summary())
+    log(f"phase 9: run_struct_differential(hashmap, algorithm=ours) on the "
+        f"card over {len(kvops)} ops: agree, {rep.sim_rounds_checked} "
+        f"rounds checked on the simulator kernel, {rep.sim_rounds_skipped} "
+        f"skipped")
+    return dict(checked=rep.sim_rounds_checked,
+                skipped=rep.sim_rounds_skipped)
+
+
+def fig_specs(core, pm) -> list:
+    """Figs. 9-10: threads x alpha; k = 3 x {ours, ours_df, original}, k =
+    1 x {ours, ours_df, original, pcas}; drained runs, as ``run_cell``."""
+    specs = []
+    for fig, k, algs in ((9, 3, (pm.OURS, pm.OURS_DF, pm.ORIGINAL)),
+                         (10, 1, (pm.OURS, pm.OURS_DF, pm.ORIGINAL,
+                                  pm.PCAS))):
+        for alpha in (0.0, 1.0):
+            for t in FIG_THREADS:
+                for alg in algs:
+                    cfg = core.SimConfig(
+                        algorithm=alg.name, n_threads=t, k=k,
+                        n_words=FIG_WORDS, alpha=alpha, n_steps=FIG_STEPS,
+                        max_ops=FIG_MAX_OPS, seed=FIG_SEED)
+                    specs.append((f"fig{fig}_{alg.name}_t{t}_a{alpha:g}",
+                                  (cfg, None, None, True, None)))
+    return specs
+
+
+def sim_bytes(cfg, state) -> int:
+    """Bytes one drained simulation must move at least: every word its
+    threads' ops touched (cache and pmem, read and written), the owner of
+    every distinct line touched (read and written: the touched words'
+    lines and, but for PCAS, which keeps no descriptor, the descriptor
+    line of each thread that ran), the schedule, those ops' address and
+    desired rows, and the per-thread registers, descriptors and counters
+    read and written once."""
+    ops, op_idx = np.asarray(state["ops"]), np.asarray(state["op_idx"])
+    counters = np.asarray(state["counters"])
+    rows = [ops[t, :min(int(op_idx[t]) + 1, cfg.max_ops)].reshape(-1)
+            for t in range(cfg.n_threads)]
+    words = np.unique(np.concatenate(rows).astype(np.int64))
+    ran = sum(1 for t in range(cfg.n_threads)
+              if int(op_idx[t]) > 0 or counters[t].any())
+    lines = np.unique(words // cfg.words_per_line).size + (
+        0 if cfg.algorithm == "pcas" else ran)
+    n_rows = sum(r.size for r in rows)
+    per_thread = sum(np.asarray(v).nbytes for name, v in state.items()
+                     if name not in ("cache", "pmem", "line_owner", "ops",
+                                     "ops_des"))
+    return (words.size * 16 + lines * 8 + 4 * cfg.n_steps + 8 * n_rows
+            + 2 * per_thread)
+
+
+def sim_grid(core, pm, sim_kernel, pm_kernel, dev, seed: int) -> dict:
+    """(d) The Figs. 9-10 grid at 1,000,000 words in ONE launch: modeled
+    Mops at 2 GHz, CAS / flush / invalidations per op and p99 per cell;
+    the zero-conflict counts at one thread; four full-size cells (t = 56,
+    alpha = 1, one per algorithm) held to the plain version, whose time
+    per step is extrapolated to the grid; one simulation alone for the
+    time per step beside the latency floor."""
+    named = fig_specs(core, pm)
+    specs = [s for _, s in named]
+    t0 = time.perf_counter()
+    results = core.run_sims(specs, device=dev)
+    wall = time.perf_counter() - t0
+    grid_ms = sim_kernel.pmwcas_sim_cuda.last_ms
+    grid_steps = sim_kernel.pmwcas_sim_cuda.last_steps
+    cells = {}
+    for (name, spec), r in zip(named, results):
+        secs = r.wall_cycles / (CLOCK_GHZ * 1e9)
+        cells[name] = dict(
+            mops=r.ops_completed / secs / 1e6 if secs > 0 else 0.0,
+            cas=r.per_op(pm.CNT_CAS), flush=r.per_op(pm.CNT_FLUSH),
+            inval=r.per_op(pm.CNT_INVAL),
+            p99=r.percentile_latency_cycles(99), ops=r.ops_completed)
+        check(r.ops_completed > 0, f"{name} completed no op")
+        log(f"phase 9: {name}: {cells[name]['mops']:.3f} Mops "
+            f"(modeled at {CLOCK_GHZ:g} GHz), {cells[name]['ops']} ops, "
+            f"cas/op {cells[name]['cas']:.4f}, flush/op "
+            f"{cells[name]['flush']:.4f}, inval/op {cells[name]['inval']:.4f},"
+            f" p99 {cells[name]['p99']:.1f} cycles/op")
+    # zero-conflict counts (tests/test_pmwcas_core.py): one thread
+    for alg in pm.STRATEGIES:
+        for k in (3, 1):
+            name = f"fig{9 if k == 3 else 10}_{alg.name}_t1_a0"
+            if name not in cells:
+                continue
+            want = alg.cas_per_op(k) + (1 if alg is pm.ORIGINAL else 0)
+            check(abs(cells[name]["cas"] - want) <= 0.01,
+                  f"{name}: {cells[name]['cas']} CAS per op, not {want}")
+    ratio = (cells["fig9_ours_t56_a1"]["mops"]
+             / cells["fig9_original_t56_a1"]["mops"])
+    # four full-size cells on the plain version
+    held = {}
+    plain_s = plain_steps = worst = 0
+    for name in ("fig9_ours_t56_a1", "fig9_ours_df_t56_a1",
+                 "fig9_original_t56_a1", "fig10_pcas_t56_a1"):
+        i = [n for n, _ in named].index(name)
+        cfg = specs[i][0]
+        job = core_job(core, cfg)
+        t1 = time.perf_counter()
+        out = core.sim.run_jobs([job])[0]
+        plain_s += time.perf_counter() - t1
+        plain_steps += int(out[sim_kernel.O_STEPS])
+        plain = core.state_to_arrays(job.state)
+        bad = sim_diff(results[i].state, plain)
+        worst = max(worst, sim_err(results[i].state, plain))
+        check(not bad and results[i].drain_rounds ==
+              int(out[sim_kernel.O_ROUNDS]),
+              f"{name}: the grid's kernel result != plain in {bad}")
+        held[name] = int(out[sim_kernel.O_STEPS])
+    plain_us_step = plain_s / plain_steps * 1e6
+    plain_grid_ms = plain_us_step * grid_steps / 1e3
+    # one simulation alone: its time per step beside the latency floor
+    alone = core.run_sims([specs[[n for n, _ in named].index(
+        "fig9_ours_t56_a1")]], device=dev)[0]
+    alone_ms = sim_kernel.pmwcas_sim_cuda.last_ms
+    alone_steps = sim_kernel.pmwcas_sim_cuda.last_steps
+    check(not sim_diff(alone.state, results[[n for n, _ in named].index(
+        "fig9_ours_t56_a1")].state),
+        "the t56 ours cell alone != in the grid's launch")
+    step_us = alone_ms * 1e3 / alone_steps
+    # the latency of one dependent load (the PMwCAS kernel's probe): the
+    # simulator's own kind (L1 cached) through a 16 KiB chain, and L2's
+    # (__ldcg) through a 4 MiB one; each the slope over `trips` loads of
+    # the device time per launch (profiler: stream time between launches
+    # issued from Python holds the host's launch gaps, which can hide a
+    # short probe), else of the stream time
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out1 = torch.empty(1, dtype=torch.int32, device=dev)
+    trips, lat = 1024, {}
+    for what, n in (("l1", 1 << 12), ("l2", 1 << 20)):
+        chain = torch.randint(0, n, (n,), dtype=torch.int32, device=dev,
+                              generator=gen)
+        probes = {m: (lambda m=m: pm_kernel.latency_probe(
+            chain, out1, m, l1=what == "l1")) for m in (0, trips)}
+        us = {m: _per_launch_us(fn, 20, "latency")[0]
+              for m, fn in probes.items()}
+        if None in us.values():
+            us = {m: _event_ms(fn, 20) * 1e3 for m, fn in probes.items()}
+        lat[what] = (us[trips] - us[0]) / trips
+    load_us = lat["l1"]
+    floor_us = STEP_DEP_LOADS * load_us
+    n_bytes = sum(sim_bytes(s[0], r.state) for s, r in zip(specs, results))
+    bound_ms = n_bytes / H100_BYTES_PER_S * 1e3
+    log(f"phase 9: Figs. 9-10 grid, {len(specs)} simulations at "
+        f"{FIG_WORDS} words, {FIG_STEPS} steps, max_ops {FIG_MAX_OPS}, seed "
+        f"{FIG_SEED}, drained: ONE launch, {grid_ms:.3f} ms of stream time "
+        f"(CUDA events) for {grid_steps} steps ({wall:.3f} s wall with "
+        f"state set-up and copies); plain version {plain_us_step:.3f} us a "
+        f"step over four full-size cells ({plain_steps} steps, "
+        f"{plain_s:.3f} s; each == the grid's kernel result bit for bit), "
+        f"so the grid extrapolates to {plain_grid_ms:.1f} ms on the plain "
+        f"version; ours/original at t = 56, alpha = 1: {ratio:.4f}x Mops")
+    log(f"phase 9: one simulation alone (fig9_ours_t56_a1): "
+        f"{alone_ms:.3f} ms for {alone_steps} steps = {step_us:.4f} us a "
+        f"step; latency floor {STEP_DEP_LOADS} dependent loads x "
+        f"{load_us:.4f} us (an L1 hit: the probe's slope of device time "
+        f"over {trips} dependent 4-byte loads through a 16 KiB chain) = "
+        f"{floor_us:.4f} "
+        f"us ({STEP_DEP_LOADS * lat['l2']:.4f} us with every load from L2, "
+        f"{lat['l2']:.4f} us each); the grid's bytes bound "
+        f"{bound_ms * 1e3:.3f} us ({n_bytes} bytes at "
+        f"{H100_BYTES_PER_S:.3g} B/s)")
+    return dict(cells=len(specs), grid_ms=grid_ms, grid_steps=grid_steps,
+                wall_s=wall, plain_us_step=plain_us_step,
+                plain_grid_ms=plain_grid_ms, held=held, ratio=ratio,
+                step_us=step_us, alone_steps=alone_steps, err=worst,
+                load_us=load_us, l2_load_us=lat["l2"], floor_us=floor_us,
+                bound_ms=bound_ms,
+                n_bytes=n_bytes,
+                t56_a1={n: cells[n] for n in cells if n.endswith("t56_a1")})
+
+
+def core_job(core, cfg):
+    """A drained job of ``cfg`` on CPU tensors, for the plain driver."""
+    from repro_torch.kernels.pmwcas_sim.kernel import SimJob
+    return SimJob(cfg, core.init_state(cfg, device="cpu"),
+                  core.generate_schedule(cfg), drain=True)
+
+
+def sim_phase(core, pm, st, sim_kernel, pm_kernel, dev, seed: int) -> dict:
+    t0 = time.perf_counter()
+    sim_kernel.reset_counts()
+    err = sim_kernel_vs_plain(core, sim_kernel, dev)
+    crash = sim_crash_sweep(core, pm, sim_kernel, dev)
+    diff = sim_struct_differential(st, dev, seed)
+    before = sim_kernel.pmwcas_sim_cuda.launches
+    grid = sim_grid(core, pm, sim_kernel, pm_kernel, dev, seed)
+    launches = sim_kernel.pmwcas_sim_cuda.launches
+    check(launches - before == 2, "the grid and the cell alone took "
+          f"{launches - before} launches, not 2")
+    log("kernels: " + json.dumps({"pmwcas_sim phase 9": launches}))
+    log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+    return dict(err=max(err, crash["err"], grid["err"]), crash=crash,
+                differential=diff, grid=grid, launches=launches)
+
+
+# ---------------------------------------------------------------------------
 
 def build_kernels(builders) -> None:
     """Build every kernel's source at once (``builders``: one zero-argument
@@ -2249,6 +2664,8 @@ def main(argv=None) -> int:
         from repro_torch.kernels.flash_attention import ref as fa_ref
         from repro_torch.kernels.pmwcas_apply import kernel
         from repro_torch.kernels.pmwcas_apply import ref
+        from repro_torch.kernels.pmwcas_sim import kernel as sim_kernel
+        import repro_torch.core as core
         from repro_torch.launch import serve as serve_mod
         from repro_torch.models import build_model
     except ImportError as e:
@@ -2268,8 +2685,9 @@ def main(argv=None) -> int:
         f"python {sys.version.split()[0]}, device "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t_start = time.perf_counter()
-    build_kernels([kernel.build] + [functools.partial(fa_kernel.build, r)
-                                    for r in fa_kernel.ROUTES])
+    build_kernels([kernel.build, sim_kernel.build]
+                  + [functools.partial(fa_kernel.build, r)
+                     for r in fa_kernel.ROUTES])
 
     dev = torch.device("cuda")
     worst = kernel_vs_plain(pm, ref, kernel, args.seed, dev)
@@ -2294,6 +2712,9 @@ def main(argv=None) -> int:
         "ledger": durable["ledger"]}))
     tree = tree_phase(pm, ref, svc_mod, st, obs, kernel, dev, args.seed)
     log("tree: " + json.dumps(tree, default=str))
+    sim = sim_phase(core, pm, st, sim_kernel, kernel, dev, args.seed)
+    grid = sim["grid"]
+    log("sim: " + json.dumps(sim, default=str))
     log(f"the whole smoke took {time.perf_counter() - t_start:.1f} s")
 
     pre, dec = ft["prefill"], ft["decode"]
@@ -2342,7 +2763,22 @@ def main(argv=None) -> int:
         "max_abs_err": max(fa_worst, pre["err"], dec["err"]),
         "ms": pre["ms"], "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
-        "library_ms": pre["library_ms"]}]}), flush=True)
+        "library_ms": pre["library_ms"]}, {
+        "name": "pmwcas_sim", "route": "cuda",
+        "source": "src/repro_torch/csrc/pmwcas_sim.cu",
+        "replaces": "src/repro/core/sim.py:175",
+        "launches": sim["launches"], "grid_launches": 1,
+        "differential_launches": durable["differential"]["sim_launches"],
+        "tree_sim_launches": tree["differential"]["sim_launches"],
+        "max_abs_err": sim["err"],
+        "ms": grid["grid_ms"], "grid_cells": grid["cells"],
+        "grid_steps": grid["grid_steps"],
+        "plain_ms": grid["plain_grid_ms"],
+        "plain_ms_is": "extrapolated from four full-size cells",
+        "plain_us_step": grid["plain_us_step"],
+        "bound_ms": grid["bound_ms"], "bound_by": "bytes",
+        "step_us": grid["step_us"], "step_floor_us": grid["floor_us"],
+        "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

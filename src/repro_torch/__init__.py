@@ -8,16 +8,24 @@ path.  It imports ``torch``, numpy and the standard library, never
 Public surface (import from here or from the subpackages):
 
 - ``repro_torch.pmwcas`` — operation model (``Target``/``MwCASOp``/
-  ``OpResult``), ``KernelBackend``, ``DurableBackend`` and the backend
-  registry, ``run_differential`` (kernel against durable), and the
-  batched primitives ``pmwcas_apply``/``pmwcas_apply_stacked``/
+  ``OpResult``), ``SimBackend``, ``KernelBackend``, ``DurableBackend``
+  and the backend registry, the algorithm strategies (``OURS``,
+  ``OURS_DF``, ``ORIGINAL``, ``PCAS``), ``SimSession`` and the simulator
+  surface (``run_sim``/``run_until``/``run_sims``, recovery and its
+  crash invariant), ``run_differential`` (sim, kernel and durable), and
+  the batched primitives ``pmwcas_apply``/``pmwcas_apply_stacked``/
   ``reserve_slots``: a CUDA tensor runs the hand-written Hopper kernel,
   a CPU tensor its plain PyTorch version.
+- ``repro_torch.core`` — the cycle-accurate PMwCAS simulator (the
+  paper's contribution): state model, the four algorithms' micro-op
+  machines, the driver that runs many simulations in one launch of
+  ``csrc/pmwcas_sim.cu``, and crash recovery.
 - ``repro_torch.structures`` — ``HashMap`` (directory doubling
   included), the BzTree node and multi-node ``BzTreeIndex``, the
   ``FreeListAllocator``, the YCSB-style workload compiler, the durable
-  crash-at-every-persist sweeps (map, elastic map, tree) and
-  ``run_struct_differential`` (kernel against durable).
+  crash-at-every-persist sweeps (map, elastic map, tree), the
+  simulator's crash sweep and ``run_struct_differential`` (kernel
+  against durable, every round replayed on the simulator).
 - ``repro_torch.service`` — ``KVService`` on sharded kernel or durable
   backends with hash-map or BzTree shards (group commit, epochs, WAL
   pruning, crash/recover, region GC), the raw-op ``BatchScheduler`` with
@@ -51,12 +59,18 @@ _LAZY = {name: "repro_torch.pmwcas" for name in (
     "Target", "MwCASOp", "OpResult", "KernelBackend", "DurableBackend",
     "DurabilityStats", "make_backend", "run_differential",
     "increment_batch", "DifferentialReport",
-    "pmwcas_apply", "pmwcas_apply_stacked", "reserve_slots")}
+    "pmwcas_apply", "pmwcas_apply_stacked", "reserve_slots",
+    "SimBackend", "UnsupportedBatch", "SimSession", "SimConfig",
+    "SimResult", "CostModel", "run_sim", "run_until", "run_sims",
+    "recover", "committed_histogram", "check_crash_consistency",
+    "RecoveryError", "generate_ops", "generate_schedule",
+    "Algorithm", "OURS", "OURS_DF", "ORIGINAL", "PCAS", "STRATEGIES")}
 _LAZY.update({name: "repro_torch.structures" for name in (
     "HashMap", "KVOp", "StructResult", "WorkloadSpec",
     "BzTreeIndex", "SortedNode", "FreeListAllocator",
     "check_durable_crash_sweep", "check_hashmap_resize_sweep",
-    "check_tree_crash_sweep", "run_struct_differential",
+    "check_tree_crash_sweep", "check_sim_crash_sweep",
+    "run_struct_differential",
     "CrashCheckError")})
 _LAZY.update({name: "repro_torch.service" for name in (
     "KVService", "KVFuture", "ServiceStats", "load_word_tables",

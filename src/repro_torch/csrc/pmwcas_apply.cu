@@ -369,11 +369,14 @@ __global__ void pmwcas_apply_slots_kernel(int32_t* __restrict__ words,
 
 // One thread follows `trips` dependent 4-byte loads through `chain`: the
 // device time of an empty launch (trips = 0) and of the smem route's three
-// dependent trips to memory with nothing else (trips = 3).
+// dependent trips to memory with nothing else (trips = 3).  Each load is
+// the kind this file's kernels make (__ldcg, from L2) or, with kL1, the
+// simulator's kind (ld.global, cached in L1).
+template <bool kL1>
 __global__ void pmwcas_latency_probe_kernel(const int32_t* chain,
                                             int32_t* out, int trips) {
   int i = 0;
-  for (int t = 0; t < trips; ++t) i = __ldcg(chain + i);
+  for (int t = 0; t < trips; ++t) i = kL1 ? chain[i] : __ldcg(chain + i);
   out[0] = i;
 }
 
@@ -454,9 +457,14 @@ extern "C" int pmwcas_apply_launch(void* words, const void* addr,
 
 // The latency probe: chain int32[N] of indices into itself, out int32[1].
 extern "C" int pmwcas_latency_probe_launch(const void* chain, void* out,
-                                           int trips, void* stream) {
-  pmwcas_latency_probe_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(chain), static_cast<int32_t*>(out), trips);
+                                           int trips, int l1, void* stream) {
+  auto* c = static_cast<const int32_t*>(chain);
+  auto* o = static_cast<int32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (l1)
+    pmwcas_latency_probe_kernel<true><<<1, 1, 0, st>>>(c, o, trips);
+  else
+    pmwcas_latency_probe_kernel<false><<<1, 1, 0, st>>>(c, o, trips);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -110,7 +110,7 @@ def _lib() -> ctypes.CDLL:
     lib.pmwcas_apply_smem_launch.argtypes = [ptr] * 5 + [i32] * 3 + [
         i64, i32, i32, ptr]
     lib.pmwcas_apply_launch.argtypes = [ptr] * 6 + [i32] * 3 + [i64, ptr]
-    lib.pmwcas_latency_probe_launch.argtypes = [ptr, ptr, i32, ptr]
+    lib.pmwcas_latency_probe_launch.argtypes = [ptr, ptr, i32, i32, ptr]
     lib.pmwcas_smem_bytes.argtypes = [i32, i32]
     lib.pmwcas_smem_bytes.restype = i64
     for fn in (lib.pmwcas_apply_smem_launch, lib.pmwcas_apply_launch,
@@ -205,15 +205,19 @@ def launch(words: torch.Tensor, addr: torch.Tensor, exp: torch.Tensor,
     return route
 
 
-def latency_probe(chain: torch.Tensor, out: torch.Tensor, trips: int) -> None:
+def latency_probe(chain: torch.Tensor, out: torch.Tensor, trips: int,
+                  l1: bool = False) -> None:
     """Enqueue the latency probe: one thread follows ``trips`` dependent
     4-byte loads through ``chain`` (int32 indices into itself) and stores
-    where it ended in ``out[0]``.  Not counted: it is no part of the op."""
+    where it ended in ``out[0]``.  Each load is this kernel's kind
+    (``__ldcg``, from L2) or, with ``l1``, the simulator kernel's (a plain
+    load, cached in L1).  Not counted: it is no part of the op."""
     lib = _lib()
     with torch.cuda.device(chain.device):
         stream = torch.cuda.current_stream(chain.device).cuda_stream
         err = lib.pmwcas_latency_probe_launch(chain.data_ptr(),
-                                              out.data_ptr(), trips, stream)
+                                              out.data_ptr(), trips, int(l1),
+                                              stream)
     if err:
         raise RuntimeError("latency probe launch failed: "
                            + lib.pmwcas_error_string(err).decode())

@@ -1,10 +1,11 @@
 """Execution backends for the canonical PMwCAS operation model.
 
-One batch semantics, two substrates in this package:
+One batch semantics, three substrates:
 
 =============  ==========================================  ==================
 backend        substrate                                   wraps
 =============  ==========================================  ==================
+SimBackend     cycle-accurate many-core simulator          core.engine / sim
 KernelBackend  batched Hopper kernel (CUDA) / plain torch  kernels.pmwcas_apply
 DurableBackend file-granularity descriptor-WAL committer   checkpoint.committer
 =============  ==========================================  ==================
@@ -13,8 +14,9 @@ DurableBackend file-granularity descriptor-WAL committer   checkpoint.committer
 MwCAS primitive, which runs the hand-written Hopper kernel on a CUDA
 table and its plain PyTorch version on a CPU table.  ``DurableBackend``
 is host code over a :class:`repro_torch.checkpoint.PMemPool`: it holds
-no tensors and takes no device.  The simulator backend is ROADMAP
-Queue 1 #7; asking the factory for it raises.
+no tensors and takes no device.  ``SimBackend`` runs each batch through
+the micro-op machines, on the card in one launch of the simulator kernel
+(``csrc/pmwcas_sim.cu``), on the CPU through its plain version.
 
 Canonical batch semantics (DESIGN.md Sec. 3.2) — *deterministic one-shot*:
 the batch executes against the pre-batch state with index order as the
@@ -24,6 +26,14 @@ linearization.  Op ``i`` succeeds iff
   (b) no lower-index op that also passes (a) targets a shared address.
 
 ``KernelBackend`` and ``DurableBackend`` implement exactly this.
+``SimBackend`` replays the batch through the micro-op state machines (one
+attempt per op, expected values read before any attempt runs) which
+yields the *winner-blocking* refinement of (b): an (a)-passing op that
+itself lost does not block later ops, because the state machine rolls its
+reservations back before the next attempt starts.  The two verdicts
+coincide on any batch in which every pair of address-sharing ops involves
+an actual winner — the differential test constructs such batches, and
+``repro_torch.pmwcas.differential`` asserts three-way agreement.
 """
 from __future__ import annotations
 
@@ -39,16 +49,21 @@ from repro_torch.checkpoint.committer import (Committer, DurabilityStats,
                                               _slot_rel, data_rel)
 from repro_torch.checkpoint.marker_committer import MarkerCommitter
 from repro_torch.checkpoint.pmem import PMemPool
+from repro_torch.core import SimConfig
+from repro_torch.core.model import (ALG_PCAS, TAG_MASK, TAG_SHIFT,
+                                    init_state, state_to_arrays)
+from repro_torch.core.sim import run_jobs
+from repro_torch.kernels.pmwcas_sim.kernel import (ERR_READ_PHASE,
+                                                   MODE_BACKEND, O_ERR,
+                                                   O_ERR_THREAD, SimJob)
 from repro_torch.kernels.pmwcas_apply.ops import (pmwcas_apply,
                                                   tensor_to_words,
                                                   words_to_tensor)
 from repro_torch.obs import span
 
+from .algorithms import Algorithm, OURS, resolve
 from .descriptor import (Addr, Descriptor, MwCASOp, OpResult,
                          ops_to_arrays, results_from_mask)
-
-# backend kinds of the reference that later slices port
-_LATER = {"sim": "ROADMAP Queue 1 #7 (the simulator)"}
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -159,6 +174,182 @@ class KernelBackend:
                 f"word table {tuple(t.shape)} {t.dtype} on "
                 f"{t.device} != {tuple(self._words.shape)} int32 on "
                 f"{self._words.device}")
+
+
+class UnsupportedBatch(ValueError):
+    """The backend cannot express this batch (see SimBackend limits)."""
+
+
+# ===========================================================================
+# Simulator backend
+# ===========================================================================
+
+class SimBackend:
+    """One-shot batches through the cycle-accurate micro-op state machines.
+
+    Each op becomes one simulated thread running exactly one attempt:
+    every thread first reads its targets (so all expected values are
+    pre-batch), then attempts run to their operation boundary in index
+    order.  Success is the thread's own verdict (op_idx advanced); the
+    word table is carried across ``execute`` calls.  A batch is one
+    launch of the simulator kernel on ``device`` (``"cuda"``, the
+    default; it raises without a card) or its plain version on
+    ``"cpu"``.
+
+    Arbitrary desired values are native: the machines take explicit
+    per-target desired payloads (``ops_des`` in the engine state), so
+    structure rounds — whose desireds are keys, values and TOMBSTONEs,
+    not increments — run without shadowing onto fresh words.  Two
+    per-batch remaps make that fit the engine:
+
+    - a *value codec*: the machines compare words only for equality, so
+      payloads are injectively renumbered into small ids (keeping every
+      real value, including ``TOMBSTONE = 2**32 - 1``, inside the
+      ``32 - TAG_SHIFT``-bit payload field) and decoded on write-back;
+    - *address compression + private pads*: touched addresses compress
+      to ``0..n-1`` (monotonic, so canonical sorted order is preserved)
+      and each op narrower than the batch's widest is padded to uniform
+      width with fresh private guard words (expected == desired == 0)
+      appended above the compressed range — invisible to the conflict
+      graph, required because one engine config has a single ``k``.
+
+    Limits (``UnsupportedBatch`` otherwise):
+
+    - expected values must equal the current stored values: one-shot
+      batches take pre-batch expecteds;
+    - addresses sorted (the paper's canonical embedding order), distinct
+      within an op, int only, in range;
+    - the PCAS strategy only supports k == 1 and increment-shaped ops
+      (its state machine is hard-wired to ``CAS(v -> v+1)``).
+
+    Instrumentation: the batch's per-thread counters (int64) are exposed
+    as ``counters`` after each batch, so the same batch can be costed in
+    modeled cycles.
+    """
+    name = "sim"
+
+    def __init__(self, n_words: int,
+                 algorithm: Union[str, Algorithm] = OURS,
+                 values: Optional[Sequence[int]] = None, *,
+                 attempt_cap: int = 10_000,
+                 device: Union[str, torch.device] = "cuda"):
+        self.algorithm = resolve(algorithm)
+        self.n_words = n_words
+        self.device = resolve_device(device)
+        self._values = (np.zeros(n_words, np.uint32) if values is None
+                        else np.asarray(values, np.uint32).copy())
+        if self._values.shape != (n_words,):
+            raise ValueError("values shape mismatch")
+        self.attempt_cap = attempt_cap
+        self.counters: Optional[np.ndarray] = None
+
+    # -- validation ------------------------------------------------------------
+    def _check_batch(self, ops: Sequence[MwCASOp]) -> int:
+        if not ops:
+            raise UnsupportedBatch("empty batch")
+        k_max = max(op.k for op in ops)
+        for i, op in enumerate(ops):
+            if not self.algorithm.supports_k(op.k):
+                raise UnsupportedBatch(
+                    f"{self.algorithm.name} supports k<="
+                    f"{self.algorithm.max_k}, got {op.k}")
+            if self.algorithm.name == ALG_PCAS and not op.is_increment():
+                raise UnsupportedBatch(
+                    f"op {i} is not increment-shaped; the PCAS machine is "
+                    "hard-wired to CAS(v -> v+1)")
+            addrs = list(op.addrs)
+            if any(not isinstance(a, int) for a in addrs):
+                raise UnsupportedBatch(f"op {i} has non-int addresses")
+            if addrs != sorted(addrs):
+                raise UnsupportedBatch(
+                    f"op {i} addresses not in canonical sorted order")
+            if len(set(addrs)) != len(addrs):
+                raise UnsupportedBatch(f"op {i} has duplicate addresses")
+            if any(a < 0 or a >= self.n_words for a in addrs):
+                raise UnsupportedBatch(f"op {i} address out of range")
+            for t in op.targets:
+                if t.expected != int(self._values[t.addr]):
+                    raise UnsupportedBatch(
+                        f"op {i} expects {t.expected} at word {t.addr} but "
+                        f"the simulator holds {int(self._values[t.addr])}; "
+                        "one-shot batches take pre-batch expected values")
+        return k_max
+
+    # -- Backend protocol ------------------------------------------------------
+    def execute(self, ops: Sequence[MwCASOp]) -> List[OpResult]:
+        with span("mwcas.round", backend=self.name, ops=len(ops)):
+            return self._execute(ops)
+
+    def _execute(self, ops: Sequence[MwCASOp]) -> List[OpResult]:
+        k_max = self._check_batch(ops)
+        B = len(ops)
+        # compress touched addresses to 0..n-1 (monotonic) and lay private
+        # pad words above the compressed range
+        touched = sorted({a for op in ops for a in op.addrs})
+        index = {a: i for i, a in enumerate(touched)}
+        n_pads = sum(k_max - op.k for op in ops)
+        # value codec: renumber payloads into dense ids (0 always encodes
+        # to id 0, so pad words need no seeding)
+        vals = sorted({0} | {int(self._values[a]) for a in touched}
+                      | {int(t.desired) for op in ops for t in op.targets})
+        if len(vals) >= 1 << (32 - TAG_SHIFT):
+            raise UnsupportedBatch("too many distinct payload values")
+        enc = {v: i for i, v in enumerate(vals)}
+        dec = np.asarray(vals, np.uint32)
+        addr_rows: List[List[int]] = []
+        des_rows: List[List[int]] = []
+        next_pad = len(touched)
+        for op in ops:
+            pads = list(range(next_pad, next_pad + (k_max - op.k)))
+            next_pad += len(pads)
+            addr_rows.append([index[a] for a in op.addrs] + pads)
+            des_rows.append([enc[int(t.desired)] for t in op.targets]
+                            + [0] * len(pads))
+        # the word count rounded up to a power of two, as the reference
+        # does (it shapes the state, the lines and so the counters)
+        n_sim = max(k_max, len(touched) + n_pads)
+        n_sim = 1 << (n_sim - 1).bit_length() if n_sim > 1 else 1
+        cfg = SimConfig(algorithm=self.algorithm.name, n_threads=B,
+                        n_words=n_sim, k=k_max, max_ops=1, n_steps=1)
+        ops_arr = np.asarray(addr_rows, np.int32).reshape(B, 1, k_max)
+        des_arr = np.asarray(des_rows, np.uint32).reshape(B, 1, k_max)
+        st = init_state(cfg, ops_arr, ops_des=des_arr, device=self.device)
+        mem = np.zeros(n_sim, np.uint32)
+        mem[:len(touched)] = [enc[int(self._values[a])] for a in touched]
+        word = torch.as_tensor((mem << TAG_SHIFT).view(np.int32),
+                               device=self.device)
+        st["cache"].copy_(word)
+        st["pmem"].copy_(word)
+
+        # phase 1: every thread reads its targets (pre-batch expecteds);
+        # phase 2: attempts run to their op boundary in index order
+        out = run_jobs([SimJob(cfg, st, np.zeros(0, np.int32),
+                               mode=MODE_BACKEND,
+                               attempt_cap=self.attempt_cap)])[0]
+        if out[O_ERR] == ERR_READ_PHASE:
+            raise RuntimeError("read phase did not converge")
+        if out[O_ERR]:
+            raise RuntimeError(f"attempt of op {int(out[O_ERR_THREAD])} "
+                               "did not converge")
+        host = state_to_arrays(st)
+        success = host["op_idx"] == 1
+        cache = host["cache"]
+        tags = cache & int(TAG_MASK)
+        if not (tags == 0).all():
+            raise AssertionError("batch left non-payload tags in cache")
+        ids = (cache >> TAG_SHIFT).astype(np.int64)
+        for a, i in index.items():          # decode ids back to real values
+            self._values[a] = dec[ids[i]]
+        self.counters = host["counters"]
+        return results_from_mask(ops, success, self.name)
+
+    def read(self, addr: Addr) -> int:
+        if not isinstance(addr, int):
+            raise TypeError(f"sim backend uses int addresses, got {addr!r}")
+        return int(self._values[addr])
+
+    def values(self) -> np.ndarray:
+        return self._values.copy()
 
 
 # ===========================================================================
@@ -362,6 +553,12 @@ class DurableBackend:
 # through this registry, so deployments can plug in their own substrate)
 # ===========================================================================
 
+def _make_sim(n_words: Optional[int] = None, **kw) -> SimBackend:
+    if n_words is None:
+        raise ValueError("sim backend needs n_words")
+    return SimBackend(n_words, **kw)
+
+
 def _make_kernel(n_words: Optional[int] = None, **kw) -> KernelBackend:
     return KernelBackend(n_words=n_words, **kw)
 
@@ -373,6 +570,7 @@ def _make_durable(n_words: Optional[int] = None, **kw) -> DurableBackend:
 
 
 BACKEND_FACTORIES: Dict[str, Callable[..., Backend]] = {
+    "sim": _make_sim,
     "kernel": _make_kernel,
     "durable": _make_durable,
 }
@@ -393,8 +591,9 @@ def make_backend(spec: Union[str, Callable[..., Backend], Backend],
                  **kw) -> Backend:
     """Resolve a backend spec into an instance.
 
-    ``spec`` may be a registered kind name (``"kernel"`` / ``"durable"`` /
-    anything added via :func:`register_backend`), a callable factory
+    ``spec`` may be a registered kind name (``"sim"`` / ``"kernel"`` /
+    ``"durable"`` / anything added via :func:`register_backend`), a
+    callable factory
     (called with the keyword arguments), or an existing :class:`Backend`
     instance (returned as-is; passing construction kwargs alongside an
     instance is an error).
@@ -403,9 +602,6 @@ def make_backend(spec: Union[str, Callable[..., Backend], Backend],
         factory = BACKEND_FACTORIES.get(spec)
         if factory is not None:
             return factory(**kw)
-        if spec in _LATER:
-            raise NotImplementedError(
-                f"backend kind {spec!r} is not ported yet: {_LATER[spec]}")
         raise ValueError(f"unknown backend kind {spec!r}; registered: "
                          f"{sorted(BACKEND_FACTORIES)}")
     # classes pass the runtime Protocol check (their *attributes* exist on

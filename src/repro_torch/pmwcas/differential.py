@@ -1,20 +1,22 @@
 """Cross-backend differential execution: the same ``MwCASOp`` batch runs
-through the batched kernel and the durable committer, and the per-op
-success verdicts (plus final word values) must agree.
+through the simulator, the batched kernel and the durable committer, and
+the per-op success verdicts (plus final word values) must agree.
 
-This is the payoff of the unified operation model: two implementations
-of the paper's algorithm check each other.  On a CUDA device the kernel
-side is the hand-written Hopper kernel (``csrc/pmwcas_apply.cu``, on the
-route its plan picks from the batch's ``[B, K]``), with no fallback; on
-the CPU it is the kernel's plain PyTorch version.  The durable side is
-host code over a :class:`repro_torch.checkpoint.PMemPool`.
+This is the payoff of the unified operation model: the three
+implementations of the paper's algorithm check each other.  On a CUDA
+device the simulator side is one launch of the simulator kernel
+(``csrc/pmwcas_sim.cu``) and the kernel side the hand-written PMwCAS
+kernel (``csrc/pmwcas_apply.cu``, on the route its plan picks from the
+batch's ``[B, K]``), with no fallback; on the CPU both are their plain
+versions.  The durable side is host code over a
+:class:`repro_torch.checkpoint.PMemPool`.
 
-The reference runs a third substrate, the cycle-accurate simulator; its
-entry here comes with the simulator's port (ROADMAP Queue 1 #7).
-:func:`increment_batch` still builds batches whose conflict graph only
-contains winner-involving edges, so the simulator's winner-blocking
-verdict would coincide with the one-shot verdict both backends here
-implement.
+Batch construction caveat (see the backends module docstring): the
+simulator executes one attempt per op with winner-blocking conflict
+semantics, while kernel/durable use the conservative one-shot verdict.
+The two coincide whenever every pair of address-sharing ops involves an
+actual winner; :func:`increment_batch` builds batches with that
+property.
 """
 from __future__ import annotations
 
@@ -24,7 +26,9 @@ from typing import Dict, List, Sequence, Union
 import numpy as np
 import torch
 
-from .backends import DurableBackend, KernelBackend, resolve_device
+from .algorithms import Algorithm, OURS
+from .backends import (DurableBackend, KernelBackend, SimBackend,
+                       resolve_device)
 from .descriptor import MwCASOp
 
 
@@ -77,23 +81,28 @@ def increment_batch(n_words: int, k: int, n_ops: int,
 
 def run_differential(ops: Sequence[MwCASOp],
                      initial_values: Sequence[int], *,
+                     algorithm: Union[str, Algorithm] = OURS,
                      durable_root=None,
                      device: Union[str, torch.device] = "cuda"
                      ) -> DifferentialReport:
-    """Execute one batch on the kernel and the durable backend and
-    compare outcomes.  ``device`` places the kernel's word table
-    (``"cuda"``, the default, runs the Hopper kernel and raises without
-    a card; ``"cpu"`` runs its plain PyTorch version)."""
+    """Execute one batch on all three backends and compare outcomes.
+    ``device`` places the simulator's and the kernel's state (``"cuda"``,
+    the default, runs the two Hopper kernels and raises without a card;
+    ``"cpu"`` runs their plain versions)."""
     initial = np.asarray(initial_values, np.uint32)
+    n_words = len(initial)
     addrs = sorted({a for op in ops for a in op.addrs})
+    dev = resolve_device(device)
 
-    kernel = KernelBackend(values=initial, device=resolve_device(device))
+    kernel = KernelBackend(values=initial, device=dev)
+    sim = SimBackend(n_words, algorithm=algorithm, values=initial,
+                     device=dev)
     durable = DurableBackend(durable_root)
     durable.seed({a: int(initial[a]) for a in addrs})
 
     verdicts: Dict[str, np.ndarray] = {}
     values: Dict[str, np.ndarray] = {}
-    for backend in (kernel, durable):
+    for backend in (sim, kernel, durable):
         results = backend.execute(list(ops))
         verdicts[backend.name] = np.asarray([r.success for r in results])
         if backend is kernel:

@@ -131,13 +131,14 @@ class KVService:
     """Sharded, batched KV execution service (see module docstring).
 
     ``backend`` is a registered backend kind (``"kernel"``/``"durable"``/
-    custom), a factory callable, or a list of pre-built per-shard
-    backends.  ``structure`` selects the per-shard partition type:
-    ``"hashmap"`` (sized by ``n_buckets`` per shard) or ``"bztree"``
-    (sized by ``leaf_cap``/``root_cap``/``n_regions`` per shard).
-    ``device`` places the kernel shards' word tables (default
-    ``"cuda"``; ``"cpu"`` runs the plain PyTorch version of the kernel)
-    and every tree shard's region allocator; it is checked for every
+    ``"sim"``/custom), a factory callable, or a list of pre-built
+    per-shard backends.  ``structure`` selects the per-shard partition
+    type: ``"hashmap"`` (sized by ``n_buckets`` per shard) or
+    ``"bztree"`` (sized by ``leaf_cap``/``root_cap``/``n_regions`` per
+    shard).  ``device`` places the kernel shards' word tables and the sim
+    shards' simulations (default ``"cuda"``; ``"cpu"`` runs the plain
+    versions of the kernels) and every tree shard's region allocator;
+    it is checked for every
     backend kind.  Durable shards put no word table on it; they live
     under ``durable_root/shard{s}`` (a temporary directory each without
     a root) and take ``group_commit``, ``epoch_rounds`` and
@@ -237,7 +238,7 @@ class KVService:
             return list(spec)
         out = []
         for s in range(n_shards):
-            if spec == "kernel":
+            if spec in ("kernel", "sim"):
                 kw = dict(n_words=words, device=device)
             elif spec == "durable":
                 root = (None if durable_root is None

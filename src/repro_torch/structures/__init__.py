@@ -24,11 +24,10 @@ a CPU one) and on the durable descriptor-WAL committer:
   (A/B/C plus the scan-heavy E for the range index), compiled to the
   shared logical-op vocabulary.
 - checkers + differential — the durable crash-at-every-persist sweeps
-  (map, elastic map, tree) and :func:`run_struct_differential`, kernel
-  against durable for whole logical workloads.
-
-The simulator's crash sweep and its entry in the differential come with
-the simulator (ROADMAP Queue 1 #7).
+  (map, elastic map, tree), the simulator's micro-op crash sweep
+  (:func:`check_sim_crash_sweep`, its crash points in one launch) and
+  :func:`run_struct_differential`, kernel against durable for whole
+  logical workloads with every round replayed on the simulator.
 """
 from .bztree import (COUNT_MASK, FROZEN_BIT, NODE_EXHAUSTED, NODE_EXISTS,
                      NODE_FROZEN, NODE_FULL, NODE_OK, SortedNode, SplitError,

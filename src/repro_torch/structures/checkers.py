@@ -1,4 +1,5 @@
-"""Structure-level crash-consistency checkers: the durable sweeps.
+"""Structure-level crash-consistency checkers: the durable sweeps and
+the simulator sweep.
 
 One invariant — *no torn multi-word effect, no lost committed effect*:
 
@@ -37,18 +38,23 @@ acceptable recovered states are computed from an oracle run's ROUND
 composition — a crash inside a batch may recover any round prefix,
 each round atomic at its commit fence (DESIGN.md Sec. 9.1).
 
-The reference's simulator sweep comes with the simulator (ROADMAP
-Queue 1 #7); here it raises ``NotImplementedError``.
+- **Simulator sweep** (:func:`check_sim_crash_sweep`): a compiled
+  structure round, shadowed as increments, crashed at micro-op steps of
+  the cycle-accurate simulator; every crash point is one simulation of
+  one batched launch (``repro_torch.core.run_sims``).
 """
 from __future__ import annotations
 
 import pathlib
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import PMemPool, SimulatedCrash
-from repro_torch.pmwcas import DurableBackend
+from repro_torch.pmwcas import (Algorithm, DurableBackend, MwCASOp, OURS,
+                                SimSession, check_crash_consistency,
+                                resolve, run_sims)
 
 from .hashmap import DELETE, HashMap, INSERT, KVOp, OK, UPDATE
 
@@ -253,9 +259,60 @@ def check_tree_crash_sweep(kvops: Sequence[KVOp], root, *,
         group_commit=group_commit)
 
 
-def check_sim_crash_sweep(*args, **kwargs) -> int:
-    """The simulator's micro-op crash sweep comes with the simulator:
-    ROADMAP Queue 1 #7."""
-    raise NotImplementedError(
-        "check_sim_crash_sweep is not ported yet: ROADMAP Queue 1 #7 "
-        "(the simulator)")
+def check_sim_crash_sweep(ops: Sequence[MwCASOp], *,
+                          algorithm: Union[str, Algorithm] = OURS,
+                          crash_steps: Optional[Sequence[int]] = None,
+                          n_steps: int = 4000, seed: int = 0,
+                          device: Union[str, torch.device] = "cuda") -> int:
+    """Sweep simulator crash points over a shadowed structure round.
+
+    ``ops`` is a compiled structure batch (e.g. ``HashMap`` round or
+    BzTree inserts); each op becomes one simulated thread executing an
+    increment over the op's (compressed) address set.  Every probed step
+    is ``SimSession.crash_at`` — recovery from the persisted descriptors
+    plus the central crash invariant — and additionally asserts per-op
+    atomicity for ops with private addresses.  The crash points run as
+    simulations of ONE launch on ``device`` (``"cuda"``, the default: the
+    simulator kernel; ``"cpu"``: its plain version).  Returns the number
+    of crash points checked.
+    """
+    from .differential import shadow_batch
+
+    # mixed widths are fine: shadow_batch pads every op to the round's
+    # max width with fresh private words (growth rounds batch 4-word
+    # moves next to 1-word generation CASes)
+    k = max(op.k for op in ops)
+    n_shadow, shadow = shadow_batch(ops)
+    T = len(shadow)
+    table = np.asarray([[list(op.addrs)] for op in shadow], np.int32)
+
+    session = (SimSession().with_algorithm(resolve(algorithm))
+               .with_threads(T).with_words(n_shadow).with_k(k)
+               .with_max_ops(1).with_steps(n_steps).with_seed(seed)
+               .with_ops(table))
+    if crash_steps is None:
+        rng = np.random.default_rng(seed)
+        crash_steps = sorted(set(
+            rng.integers(1, n_steps, size=12).tolist()))
+
+    # which shadow addresses belong to exactly one op (private)
+    counts: Dict[int, int] = {}
+    for op in shadow:
+        for a in op.addrs:
+            counts[a] = counts.get(a, 0) + 1
+    results = run_sims([session.spec(drain=False, cut=int(step))
+                        for step in crash_steps], device=device)
+    checked = 0
+    for step, r in zip(crash_steps, results):
+        rec, hist = check_crash_consistency(session.cfg, r.state)
+        assert rec.shape == (n_shadow,)
+        for op in shadow:
+            if any(counts[a] > 1 for a in op.addrs):
+                continue                      # shared word: counts mix
+            per_word = {int(hist[a]) for a in op.addrs}
+            if len(per_word) != 1:
+                raise CrashCheckError(
+                    f"crash@{step}: op over {op.addrs} committed "
+                    f"unevenly: {sorted(per_word)} — torn multi-word op")
+        checked += 1
+    return checked

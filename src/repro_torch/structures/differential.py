@@ -3,21 +3,22 @@
 ``repro_torch.pmwcas.run_differential`` checks one hand-built increment
 batch; this module raises the stakes: an entire *logical* workload — a
 hash map's or the multi-node BzTree's, splits and root splits included —
-runs to completion on the kernel backend and the durable backend, and
-the two must agree op for op.
+runs to completion on the kernel backend and the durable backend, the
+two must agree op for op, and every executed CAS round is additionally
+replayed NATIVELY through the cycle-accurate simulator — the real ops,
+real expected/desired payloads (keys, values, TOMBSTONEs), mixed widths
+and all (``SimBackend``'s per-batch value codec + internal padding).
+Each round seeds a fresh sim from the round's pre-state and must
+reproduce both the verdicts and the post-round word values.
+:func:`replay_rounds` also replays a recorded history on a fresh
+:class:`KernelBackend` — the kernel's rounds against its plain PyTorch
+version on the CPU, verdicts and post-round words.
 
-The reference additionally replays every executed round natively
-through the cycle-accurate simulator; that substrate comes with the
-simulator's port (ROADMAP Queue 1 #7), so here a report's
-``sim_rounds_checked`` is 0 and asking for the simulator raises.
-:func:`replay_rounds` replays a recorded history on a fresh
-:class:`KernelBackend` instead — the kernel's rounds against its plain
-PyTorch version on the CPU, verdicts and post-round words.
-
-Verdicts of the conservative and winner-blocking semantics are computed
-combinatorially below; rounds where they diverge are counted (that
-divergence is a documented property of the substrates, DESIGN.md
-Sec. 3.2, not a bug).
+Verdicts are compared with the simulator whenever the conservative and
+winner-blocking semantics provably coincide for that round's sharing
+graph (computed combinatorially below); rounds where they diverge are
+counted but not asserted — that divergence is a documented property of
+the substrates (DESIGN.md Sec. 3.2), not a bug.
 
 :func:`shadow_batch` — the increment-over-fresh-words translation of a
 round onto the simulator's vocabulary — is kept for the simulator crash
@@ -31,12 +32,10 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.pmwcas import (DurableBackend, KernelBackend, MwCASOp,
-                                resolve_device)
+from repro_torch.pmwcas import (Algorithm, DurableBackend, KernelBackend,
+                                MwCASOp, OURS, SimBackend, resolve_device)
 
 from .hashmap import HashMap, KVOp, RoundTrace
-
-_SIM = "ROADMAP Queue 1 #7 (the simulator)"
 
 
 def conservative_verdicts(ops: Sequence[MwCASOp]) -> np.ndarray:
@@ -95,7 +94,7 @@ class StructDifferentialReport:
     statuses: Dict[str, List[str]]        # backend -> per-logical-op status
     items: Dict[str, Dict[int, int]]      # backend -> final live k/v pairs
     rounds: Dict[str, int]                # backend -> CAS rounds executed
-    sim_rounds_checked: int               # 0 until the simulator is ported
+    sim_rounds_checked: int               # rounds asserted against sim
     sim_rounds_skipped: int               # rounds where semantics diverge
     agree: bool
     # backend -> the structure after the run (its tables, counters and
@@ -152,9 +151,56 @@ def replay_rounds(history: Sequence[RoundTrace], *,
     return len(history), matched
 
 
+def _replay_rounds_on_sim(history: List[RoundTrace],
+                          algorithm: Union[str, Algorithm],
+                          device: torch.device) -> tuple:
+    """Natively replay every executed round through SimBackend on
+    ``device``; returns (checked, skipped, all_matched).
+
+    Each round's pre-state is reconstructed from the ops' expected
+    values (every round op passed condition (a), so expecteds are
+    mutually consistent) and the REAL ops run on the micro-op machines —
+    actual desired payloads, mixed widths, guard words.  A checked round
+    must reproduce the verdicts *and* the post-round values at every
+    touched word."""
+    checked = skipped = 0
+    matched = True
+    for trace in history:
+        cons = conservative_verdicts(trace.ops)
+        wb = winner_blocking_verdicts(trace.ops)
+        if not np.array_equal(cons, wb):
+            skipped += 1
+            continue
+        pre: Dict[int, int] = {}
+        for op in trace.ops:
+            for t in op.targets:
+                pre[t.addr] = t.expected
+        n_words = max(pre) + 1
+        values = np.zeros(n_words, np.uint32)
+        for a, v in pre.items():
+            values[a] = v
+        sim = SimBackend(n_words, algorithm=algorithm, values=values,
+                         device=device)
+        verdicts = np.asarray([r.success for r in sim.execute(trace.ops)])
+        checked += 1
+        if not np.array_equal(verdicts, np.asarray(trace.success)):
+            matched = False
+            continue
+        # post-round values: a winner's targets moved to desired, every
+        # other touched word still holds its pre-round value
+        post = dict(pre)
+        for ok, op in zip(trace.success, trace.ops):
+            if ok:
+                for t in op.targets:
+                    post[t.addr] = t.desired
+        if any(sim.read(a) != v for a, v in post.items()):
+            matched = False
+    return checked, skipped, matched
+
+
 def run_struct_differential(kvops: Sequence[KVOp], n_buckets: int = 0, *,
                             structure: str = "hashmap",
-                            algorithm: Optional[str] = None,
+                            algorithm: Union[str, Algorithm] = OURS,
                             durable_root=None,
                             device: Union[str, torch.device] = "cuda",
                             max_rounds: Optional[int] = None,
@@ -162,9 +208,11 @@ def run_struct_differential(kvops: Sequence[KVOp], n_buckets: int = 0, *,
                             leaf_cap: int = 4, root_cap: int = 8,
                             n_regions: int = 8
                             ) -> StructDifferentialReport:
-    """One logical workload on kernel + durable backends.  Agreement
-    means: identical per-op statuses, identical final live items and
-    identical round counts.
+    """One logical workload on kernel + durable backends, with every
+    kernel round shadow-verified on the simulator (``algorithm``).
+    Agreement means: identical per-op statuses, identical final live
+    items, identical round counts, and every shadow-checked round's
+    verdicts and post-round values match.
 
     ``structure`` selects the structure under test: ``"hashmap"`` (size
     by ``n_buckets``; ``max_doublings > 0`` makes it elastic, so growth
@@ -172,14 +220,9 @@ def run_struct_differential(kvops: Sequence[KVOp], n_buckets: int = 0, *,
     ops — run in kernel+durable lockstep) or ``"bztree"`` (the
     multi-node tree, sized by ``leaf_cap`` / ``root_cap`` /
     ``n_regions``; its splits, root splits included, are part of the
-    history).  ``device`` places the kernel backend's table and the
-    trees' region allocators (``"cuda"``, the default, runs the Hopper
-    kernel; ``"cpu"`` its plain PyTorch version).  ``algorithm`` names a
-    simulator algorithm in the reference; the simulator is not ported,
-    so passing one raises."""
-    if algorithm is not None:
-        raise NotImplementedError(
-            f"the simulator's shadow replay is not ported yet: {_SIM}")
+    history).  ``device`` places the kernel backend's table, the trees'
+    region allocators and the simulator's state (``"cuda"``, the default,
+    runs the Hopper kernels; ``"cpu"`` their plain versions)."""
     kvops = list(kvops)
     dev = resolve_device(device)
     if structure == "hashmap":
@@ -213,14 +256,13 @@ def run_struct_differential(kvops: Sequence[KVOp], n_buckets: int = 0, *,
         items[name] = struct.check_integrity()
         rounds[name] = struct.rounds_run
 
-    skipped = sum(
-        not np.array_equal(conservative_verdicts(tr.ops),
-                           winner_blocking_verdicts(tr.ops))
-        for tr in structs["kernel"].last_history)
+    checked, skipped, sim_ok = _replay_rounds_on_sim(
+        structs["kernel"].last_history, algorithm, dev)
     agree = (statuses["kernel"] == statuses["durable"]
              and items["kernel"] == items["durable"]
-             and rounds["kernel"] == rounds["durable"])
+             and rounds["kernel"] == rounds["durable"]
+             and sim_ok)
     return StructDifferentialReport(
         kvops=kvops, statuses=statuses, items=items, rounds=rounds,
-        sim_rounds_checked=0, sim_rounds_skipped=skipped, agree=agree,
+        sim_rounds_checked=checked, sim_rounds_skipped=skipped, agree=agree,
         structs=structs)

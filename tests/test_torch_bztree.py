@@ -508,7 +508,7 @@ def test_struct_differential_bztree_matches(tmp_path, mix):
                                       device="cpu", **kw)
     assert port.agree and ref.agree
     assert _report_key(port) == _report_key(ref)
-    assert port.sim_rounds_checked == 0
+    assert port.sim_rounds_checked == ref.sim_rounds_checked > 0
     assert port.sim_rounds_skipped == ref.sim_rounds_skipped
     tree = port.structs["kernel"]
     assert tree.splits >= 1
@@ -531,15 +531,24 @@ def test_struct_differential_hashmap_matches(tmp_path, max_doublings):
         max_doublings=max_doublings)
     assert _report_key(port) == _report_key(ref)
     assert port.agree
+    assert (port.sim_rounds_checked, port.sim_rounds_skipped) == \
+        (ref.sim_rounds_checked, ref.sim_rounds_skipped)
 
 
 def test_struct_differential_refuses_the_simulator():
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-        st.run_struct_differential([], 4, algorithm="ours", device="cpu")
+    """The simulator is ported: the differential replays every round on
+    it and refuses only what the reference refuses (an unknown algorithm
+    or structure); the simulator's crash sweep refuses an empty batch."""
+    ops = [st.KVOp(st.INSERT, 3, 30), st.KVOp(st.UPDATE, 3, 31)]
+    rep = st.run_struct_differential(ops, 4, algorithm="ours_df",
+                                     device="cpu")
+    assert rep.agree and rep.sim_rounds_checked >= 1
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        st.run_struct_differential(ops, 4, algorithm="nope", device="cpu")
     with pytest.raises(ValueError, match="unknown structure"):
         st.run_struct_differential([], 4, structure="skiplist", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-        st.check_sim_crash_sweep([])
+    with pytest.raises(ValueError):
+        st.check_sim_crash_sweep([], device="cpu")
 
 
 def test_verdict_helpers_and_shadow_batch_match():

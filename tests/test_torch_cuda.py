@@ -8,7 +8,7 @@ nothing of the reference, so it runs on a machine with a card::
     python -m pytest -m requires_cuda tests/test_torch_cuda.py
 
 Tolerances: bit-identical verdicts and word tables for the PMwCAS
-kernel; 2e-5 (f32) and 2e-2 (bf16, and ``chip_smoke.FA_ROW_TOL`` per
+kernel, and every state field of the simulator kernel; 2e-5 (f32) and 2e-2 (bf16, and ``chip_smoke.FA_ROW_TOL`` per
 row) for the flash kernels, over the cases of ``chip_smoke.py``'s
 ``FA_CHECK_CASES``, each on the route the plan gives it; a small serve
 on the card matches the CPU's within 1e-3 in f32, and within
@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import core as sim_core
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_cuda,
@@ -34,9 +35,11 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.pmwcas_apply import kernel as pm_kernel
 from repro_torch.kernels.pmwcas_apply import ref
+from repro_torch.kernels.pmwcas_sim import kernel as sim_kernel
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import build_model
-from repro_torch.pmwcas import (KernelBackend, MwCASOp, increment_batch,
+from repro_torch.pmwcas import (KernelBackend, MwCASOp, SimBackend,
+                                SimSession, increment_batch,
                                 pmwcas_apply_cuda, pmwcas_apply_stacked,
                                 reserve_slots, run_differential,
                                 sequential_oracle, tensor_to_words,
@@ -44,6 +47,7 @@ from repro_torch.pmwcas import (KernelBackend, MwCASOp, increment_batch,
 from repro_torch.service import BatchScheduler, KVService, ShardRouter
 from repro_torch.structures import (BzTreeIndex, FreeListAllocator,
                                     OutOfRegions, WorkloadSpec,
+                                    check_sim_crash_sweep,
                                     client_streams, compile_workload,
                                     load_phase)
 
@@ -249,19 +253,23 @@ def test_service_on_card_matches_cpu(cuda):
                                        (512, 32, "global")])
 def test_run_differential_kernel_against_durable(cuda, tmp_path, B, K,
                                                  route):
-    """The Hopper kernel against the durable committer on one seeded
-    increment batch: equal verdicts and final values, on the route the
-    plan gives ``[B, K]``."""
+    """The Hopper kernel against the durable committer and the simulator
+    kernel on one seeded increment batch: equal verdicts and final
+    values, on the route the plan gives ``[B, K]``, one simulator
+    launch."""
     init, ops = increment_batch(B * K, K, B, seed=K)
     assert len(ops) == B
     pm_kernel.reset_counts()
+    sim_kernel.reset_counts()
     report = run_differential(ops, init, durable_root=tmp_path,
                               device=cuda)
     assert report.agree, report.summary()
     v = report.verdicts["kernel"]
     assert v.any() and not v.all()
+    assert np.array_equal(report.verdicts["sim"], v)
     assert pmwcas_apply_cuda.route_launches[route] == 1
     assert pmwcas_apply_cuda.launches == 1
+    assert sim_kernel.pmwcas_sim_cuda.launches == 1
 
 
 _US = ("latency_us", "queue_us", "dispatch_us", "persist_us", "retry_waves",
@@ -559,3 +567,134 @@ def test_batch_scheduler_on_the_card_matches_cpu(cuda):
                      [(sh.rounds, sh.defers) for sh in sched.stats.shards]))
     assert outs[0] == outs[1]
     assert outs[0][3] > 0
+
+
+# ---------------------------------------------------------------------------
+# the cycle-accurate simulator kernel (csrc/pmwcas_sim.cu)
+# ---------------------------------------------------------------------------
+
+def _sim_states_equal(got, want):
+    assert not chip_smoke.sim_diff(got.state, want.state)
+    assert got.drain_rounds == want.drain_rounds
+
+
+def test_sim_kernel_record_layout(cuda):
+    assert sim_kernel.kernel_rec_len() == sim_kernel.REC_LEN
+
+
+@pytest.mark.parametrize("case", range(len(chip_smoke.SIM_CASES)),
+                         ids=lambda i: "{}-{}".format(
+                             chip_smoke.SIM_CASES[i][0], i))
+def test_sim_kernel_matches_plain(cuda, case):
+    """Drained and cut at ``SIM_CUT``: every state field bit for bit."""
+    specs = chip_smoke.sim_specs(sim_core, [chip_smoke.SIM_CASES[case]])
+    for got, want in zip(sim_core.run_sims(specs, device=cuda),
+                         sim_core.run_sims(specs, device="cpu")):
+        _sim_states_equal(got, want)
+
+
+def test_sim_kernel_batched_equals_alone(cuda):
+    specs = chip_smoke.sim_specs(sim_core)
+    before = sim_kernel.pmwcas_sim_cuda.launches
+    batched = sim_core.run_sims(specs, device=cuda)
+    assert sim_kernel.pmwcas_sim_cuda.launches == before + 1
+    for spec, got in zip(specs, batched):
+        _sim_states_equal(got, sim_core.run_sims([spec], device=cuda)[0])
+
+
+def test_sim_kernel_continues_a_carried_state(cuda):
+    """``run_state`` from a state at step n, on the card, equals the run
+    to step N."""
+    cfg = sim_core.SimConfig(algorithm="original", n_threads=8, n_words=32,
+                             k=2, n_steps=3000, max_ops=32, seed=7,
+                             alpha=1.0)
+    sched = sim_core.generate_schedule(cfg)
+    mid = sim_core.run_until(cfg, 1000, device="cpu")
+    st = sim_core.state_from_arrays(cfg, mid.state, device=cuda)
+    got = sim_core.run_state(cfg, st, sched[1000:], drain=True)
+    _sim_states_equal(got, sim_core.run_sim(cfg, device="cpu"))
+
+
+@pytest.mark.parametrize("alg", ["ours", "ours_df", "original", "pcas"])
+def test_sim_backend_stop_mode_on_card(cuda, alg):
+    k = 1 if alg == "pcas" else 3
+    init, ops = increment_batch(64, k, 24, seed=5)
+    outs = []
+    for device in (cuda, "cpu"):
+        b = SimBackend(64, algorithm=alg, values=init, device=device)
+        verdicts = [r.success for r in b.execute(ops)]
+        outs.append((verdicts, b.values().tolist(), b.counters.tolist()))
+    assert outs[0] == outs[1]
+    assert any(outs[0][0])
+
+
+def test_sim_backend_mixed_widths_and_cap_on_card(cuda):
+    ops = [MwCASOp([(1, 0, 5), (4, 0, 2**32 - 1)]), MwCASOp([(2, 0, 9)]),
+           MwCASOp([(4, 0, 3), (6, 0, 1), (7, 0, 8)])]
+    outs = []
+    for device in (cuda, "cpu"):
+        b = SimBackend(8, values=[0] * 8, device=device)
+        outs.append(([r.success for r in b.execute(ops)],
+                     b.values().tolist(), b.counters.tolist()))
+        for cap, msg in ((1, "read phase"), (3, "attempt of op 0")):
+            capped = SimBackend(8, values=[0] * 8, attempt_cap=cap,
+                                device=device)
+            with pytest.raises(RuntimeError, match=msg):
+                capped.execute(ops)
+    assert outs[0] == outs[1]
+
+
+def test_sim_crash_sweep_and_pinned_case_on_card(cuda):
+    pin = sim_core.SimConfig(**chip_smoke.PIN_CFG)
+    got = sim_core.run_until(pin, chip_smoke.PIN_STEP, device=cuda)
+    _sim_states_equal(got, sim_core.run_until(pin, chip_smoke.PIN_STEP,
+                                              device="cpu"))
+    with pytest.raises(sim_core.RecoveryError, match=r"words \[15\]"):
+        sim_core.check_crash_consistency(pin, got.state)
+    batch = [MwCASOp.increment([a, a + 1], [0, 0]) for a in (0, 2, 4)]
+    batch.append(MwCASOp.increment([1, 4], [0, 0]))
+    steps = list(range(1, 400, 13))
+    assert check_sim_crash_sweep(batch, crash_steps=steps, n_steps=400,
+                                 device=cuda) == len(steps)
+
+
+def test_sim_session_runs_and_crashes_on_card(cuda):
+    """``SimSession`` on the card: ``run`` and ``run_until`` equal the
+    CPU's on every state field, one launch each, and ``crash_at`` on the
+    pinned ORIGINAL case raises the reference's RecoveryError."""
+    session = SimSession().configure(**chip_smoke.PIN_CFG)
+    before = sim_kernel.pmwcas_sim_cuda.launches
+    for run in (lambda s: s.run(), lambda s: s.run_until(400)):
+        _sim_states_equal(run(session.with_device(cuda)),
+                          run(session.with_device("cpu")))
+    with pytest.raises(sim_core.RecoveryError,
+                       match=r"words \[15\]: recovered=\[1\] "
+                             r"expected=\[2\]"):
+        session.with_device(cuda).crash_at(chip_smoke.PIN_STEP)
+    assert sim_kernel.pmwcas_sim_cuda.launches == before + 3
+
+
+def test_kv_service_on_sim_shards_on_card(cuda):
+    """``KVService(backend="sim")`` with its shards on the card equals the
+    same service on the CPU (futures, items, word tables, counters), and
+    every round went through the simulator kernel."""
+    spec = WorkloadSpec(n_ops=48, n_keys=24, read=0.25, update=0.3,
+                        insert=0.35, delete=0.1, alpha=0.9, seed=4)
+    outs = []
+    for device in (cuda, "cpu"):
+        before = sim_kernel.pmwcas_sim_cuda.launches
+        svc = KVService(n_shards=2, backend="sim", n_buckets=16,
+                        round_cap=8, device=device)
+        futs = svc.submit_many(load_phase(spec, 0.5))
+        futs += [svc.submit(op, client=i % 4)
+                 for i, op in enumerate(compile_workload(spec))]
+        svc.drain()
+        launched = sim_kernel.pmwcas_sim_cuda.launches - before
+        assert all(b.name == "sim" for b in svc.backends)
+        outs.append(([(f.status, f.result.value, f.done_step) for f in futs],
+                     svc.items(), [b.values().tolist() for b in svc.backends],
+                     [np.asarray(b.counters).tolist()
+                      for b in svc.backends],
+                     svc.stats.steps))
+        assert (launched > 0) == (device is cuda)
+    assert outs[0] == outs[1]

@@ -117,8 +117,9 @@ def test_run_differential_on_the_cpu(tmp_path, k):
     report = pm.run_differential(ops, init, durable_root=tmp_path / "d",
                                  device="cpu")
     assert report.agree, report.summary()
-    assert sorted(report.verdicts) == ["durable", "kernel"]
+    assert sorted(report.verdicts) == ["durable", "kernel", "sim"]
     v = report.verdicts["kernel"]
+    assert np.array_equal(report.verdicts["sim"], v)
     assert v.any() and not v.all()
     # the durable side against the reference's committer on the batch
     durable = ref_pm.DurableBackend(tmp_path / "ref")
@@ -138,8 +139,8 @@ def test_make_backend_durable_and_later_kinds(tmp_path):
     assert isinstance(b, pm.DurableBackend) and b.name == "durable"
     assert b.pool.root == tmp_path / "b"
     assert "durable" in pm.BACKEND_FACTORIES
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-        pm.make_backend("sim", n_words=8)
+    sim = pm.make_backend("sim", n_words=8, device="cpu")
+    assert isinstance(sim, pm.SimBackend) and sim.name == "sim"
     with pytest.raises(ValueError, match="epoch_rounds > 1"):
         pm.DurableBackend(tmp_path / "x", group_commit=False,
                           epoch_rounds=2)
@@ -204,11 +205,16 @@ def test_hashmap_resize_sweep_on_the_port(tmp_path):
 
 
 def test_sweeps_of_later_slices_raise(tmp_path):
-    """The tree sweep (ROADMAP Queue 1 #4) now runs; only the
-    simulator's sweep (Queue 1 #7) still raises."""
+    """The tree sweep (ROADMAP Queue 1 #4) and the simulator's sweep
+    (Queue 1 #7) both run now; the simulator's refuses an empty batch,
+    as the reference's does."""
     ops = [st.KVOp(st.INSERT, k, 10 * k) for k in (5, 3, 9)]
     assert st.check_tree_crash_sweep(ops, tmp_path, device="cpu") > 1
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-        st.check_sim_crash_sweep([])
+    batch = [pm.MwCASOp.increment([0, 1], [0, 0]),
+             pm.MwCASOp.increment([1, 2], [0, 0])]
+    assert st.check_sim_crash_sweep(batch, crash_steps=[5, 40, 300],
+                                    n_steps=400, device="cpu") == 3
+    with pytest.raises(ValueError):
+        st.check_sim_crash_sweep([], device="cpu")
     with pytest.raises(st.CrashCheckError):
         raise st.CrashCheckError("exported")

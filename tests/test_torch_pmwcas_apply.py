@@ -274,8 +274,9 @@ def test_cuda_without_a_card_raises():
 
 
 def test_unported_backend_kinds_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #7"):
-        make_backend("sim", n_words=8)
+    # every backend kind of the reference is ported: the simulator's
+    # backend runs its plain version on the CPU
+    assert make_backend("sim", n_words=8, device="cpu").name == "sim"
     # the durable backend is ported: host code, no device
     assert make_backend("durable", n_words=8).name == "durable"
     with pytest.raises(ValueError, match="unknown backend"):
