@@ -115,7 +115,23 @@ Phases, in order; any failure exits non-zero:
    zero-conflict CAS counts at one thread, the ours/original ratio at
    t = 56, alpha = 1, four full-size cells held to the plain version
    (its time per step extrapolated to the grid), and one cell alone for
-   the time per step beside the latency floor.
+   the time per step beside the latency floor;
+10. chaos (``repro_torch.chaos``) — (a) ``default_scenarios(seed, 60)``
+   with ``device="cuda"`` under the span tracer: the six durable
+   families at 60 waves and ``sim_native`` at 30, at the families' own
+   sizes (32 keys, 2-3 shards, 6 clients, ``round_cap`` 8), the pools in
+   the temporary directory, with ``benchmarks/bench_chaos.py``'s
+   assertions as checks (every history linearizable, at least 2 crashes,
+   WAL records pruned and fewer than the ops, every SLO block valid and
+   evaluated, every crash a ``chaos.fault`` instant) and one real
+   history tampered and rejected; (b) ``hot_key_storm`` on kernel
+   shards with only its shard storm: card == CPU (trace, items,
+   integers, checker), every launch on the ``smem`` route, one a
+   dispatch; (c) ``sim_native``: card == CPU, one simulator launch a
+   shard round; one line a family (ops/s, p99, waves, ops, crashes,
+   faults, checker counts, SLO verdict, WAL records/pruned, wall s) and
+   the device busy share of (b) and (c) (device time from a profiled
+   rerun over the wall time of the unprofiled run).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``{"kernels": [...]}`` record, and the line before that the
@@ -2618,6 +2634,221 @@ def sim_phase(core, pm, st, sim_kernel, pm_kernel, dev, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: chaos on the card
+# ---------------------------------------------------------------------------
+
+CHAOS_WAVES = 60                     # benchmarks/bench_chaos.py:31, not quick
+
+
+def chaos_ints(report) -> dict:
+    return {f.name: getattr(report, f.name)
+            for f in dataclasses.fields(report)
+            if type(getattr(report, f.name)) is int}
+
+
+def chaos_mismatch(card, cpu) -> list:
+    """The fields where two reports of one scenario differ: the canonical
+    trace, the final items, every integer and the checker's stats."""
+    out = []
+    if card.trace_lines != cpu.trace_lines:
+        first = next((i for i, (a, b) in enumerate(
+            zip(card.trace_lines, cpu.trace_lines)) if a != b),
+            min(len(card.trace_lines), len(cpu.trace_lines)))
+        out.append(f"trace_lines (first difference at line {first})")
+    if card.final_items != cpu.final_items:
+        out.append("final_items")
+    if chaos_ints(card) != chaos_ints(cpu):
+        out.append(f"integers {chaos_ints(card)} != {chaos_ints(cpu)}")
+    if dataclasses.asdict(card.check) != dataclasses.asdict(cpu.check):
+        out.append("check stats")
+    return out
+
+
+def chaos_line(rep, wall_s: float) -> str:
+    c, slo = rep.check, rep.slo
+    return (f"phase 10: {rep.scenario.name}: {rep.ops_per_s:.1f} ops/s, "
+            f"p99 {rep.p99_latency_us:.1f} us, {rep.waves_run} waves, "
+            f"{rep.ops_completed}/{rep.ops_invoked} ops, {rep.crashes} "
+            f"crashes, {rep.faults_fired} faults fired, {c.immediates}/"
+            f"{c.mutations}/{c.indeterminate} immediates/mutations/"
+            f"indeterminate, slo_ok {slo['ok']}, WAL {rep.wal_records} "
+            f"records / {rep.wal_pruned} pruned, {wall_s:.3f} s wall")
+
+
+def chaos_sweep_cell(chaos, obs, dev, scenarios) -> dict:
+    """(a) ``scenarios`` (``default_scenarios``) on the card, traced, with
+    ``bench_chaos.py``'s assertions as hard checks, and one real history
+    tampered."""
+    tracer = obs.enable_tracing(capacity=1 << 20).clear()
+    reports, drivers, walls = [], [], []
+    try:
+        with tempfile.TemporaryDirectory(prefix="chaos_smoke_") as tmp:
+            for i, sc in enumerate(scenarios):
+                root = (f"{tmp}/run{i}" if sc.backend == "durable"
+                        else None)
+                t0 = time.perf_counter()
+                driver = chaos.ScenarioDriver(sc, durable_root=root,
+                                              device=dev)
+                rep = driver.run()
+                walls.append(time.perf_counter() - t0)
+                log(chaos_line(rep, walls[-1]))
+                reports.append(rep)
+                drivers.append(driver)
+    finally:
+        obs.disable_tracing()
+    events = tracer.events()
+    check(tracer.dropped == 0, f"the tracer dropped {tracer.dropped} events")
+    obs.validate_chrome_trace(obs.chrome_trace(tracer))
+    durable = [r for r in reports if r.scenario.backend == "durable"]
+    check(len(reports) == 7 and len(durable) == 6,
+          f"{len(reports)} scenarios, {len(durable)} durable")
+    for rep in reports:
+        check(rep.check is not None and rep.check.ok,
+              f"{rep.scenario.name}: history not linearizable")
+        obs.validate_slo_report(rep.slo)
+        evals = sum(s["evaluations"] for s in rep.slo["specs"])
+        check(evals > 0, f"{rep.scenario.name}: SLOs never evaluated")
+        check(rep.slo["observations"] == rep.scenario.waves,
+              f"{rep.scenario.name}: {rep.slo['observations']} SLO "
+              f"observations for {rep.scenario.waves} waves")
+    crashes = sum(r.crashes for r in durable)
+    pruned = sum(r.wal_pruned for r in durable)
+    check(crashes >= 2, f"the sweep injected only {crashes} crashes")
+    check(pruned > 0, "the WAL prune cadence never ran under chaos")
+    for rep in durable:
+        check(rep.wal_records < max(1, rep.ops_completed),
+              f"{rep.scenario.name}: {rep.wal_records} WAL records for "
+              f"{rep.ops_completed} ops")
+    # where the sweep's time goes: host ms by span name (nested spans
+    # count inside their parents too), the ten largest
+    spans = collections.Counter()
+    for e in events:
+        if e["ph"] == "X":
+            spans[e["name"]] += e["dur"] / 1e3
+    top = dict(spans.most_common(10))
+    log("phase 10 (a): host ms by span: " + ", ".join(
+        f"{name} {ms:.1f}" for name, ms in top.items()))
+    faults = [e for e in events if e["name"] == "chaos.fault"]
+    check(faults and all(e["ph"] == "i" for e in faults),
+          "faults fired but no chaos.fault instant reached the trace")
+    traced_crashes = sum(1 for e in faults if e["args"]["kind"] == "crash")
+    check(traced_crashes == sum(r.crashes for r in reports),
+          f"{traced_crashes} crash instants for "
+          f"{sum(r.crashes for r in reports)} crashes")
+    # the checker's rejection power on a real card history
+    history = list(drivers[0].recorder.events)
+    idx = next(i for i, ev in enumerate(history)
+               if ev[0] == "complete" and ev[3] == "ok" and ev[4] is not None)
+    wave, seq, status, val = history[idx][1:]
+    history[idx] = ("complete", wave, seq, status, (val or 0) + 1)
+    try:
+        chaos.check_history(history)
+    except chaos.LinearizabilityError as e:
+        rejected = str(e)
+    else:
+        raise SmokeFailure("a tampered card history passed the checker")
+    log(f"phase 10: tampered {reports[0].scenario.name} history rejected: "
+        f"{rejected}")
+    families = {r.scenario.family: dict(
+        ops_per_s=r.ops_per_s, p99_latency_us=r.p99_latency_us,
+        waves=r.waves_run, ops_completed=r.ops_completed,
+        ops_invoked=r.ops_invoked, crashes=r.crashes,
+        faults_fired=r.faults_fired, migrations=r.migrations,
+        immediates=r.check.immediates, mutations=r.check.mutations,
+        indeterminate=r.check.indeterminate, slo_ok=r.slo["ok"],
+        wal_records=r.wal_records, wal_pruned=r.wal_pruned,
+        elapsed_s=r.elapsed_s, wall_s=w) for r, w in zip(reports, walls)}
+    return dict(families=families, crashes=crashes, wal_pruned=pruned,
+                fault_instants=len(faults), trace_events=len(events),
+                span_ms=top, wall_s=sum(walls))
+
+
+def kernel_storm(chaos, seed: int, waves: int):
+    """``hot_key_storm`` on kernel shards with only its shard storm (kernel
+    shards cannot crash: ``KVService.crash`` refuses them)."""
+    sc = chaos.hot_key_storm(seed=seed, waves=waves)
+    return dataclasses.replace(sc, backend="kernel", faults=tuple(
+        f for f in sc.faults if f.kind == chaos.SHARD_STORM))
+
+
+def chaos_on_card(chaos, scenario, dev, reset, count):
+    """Run ``scenario`` on the card with the launch counts zeroed just
+    before and read just after, then again under the profiler for its
+    device time, then on the CPU.  Returns the card driver, the counts,
+    the card and CPU reports, wall s and the busy share: the profiled
+    device time over the unprofiled run's wall time (the profiler slows
+    the host, so its own wall time would understate the share)."""
+    reset()
+    t0 = time.perf_counter()
+    driver = chaos.ScenarioDriver(scenario, device=dev)
+    card = driver.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = count()
+    by_name, _, _ = _profile(
+        lambda: chaos.ScenarioDriver(scenario, device=dev).run())
+    busy_us = sum(by_name.values())
+    cpu = chaos.ScenarioDriver(scenario, device="cpu").run()
+    return driver, counts, card, cpu, wall_s, (
+        busy_us / (wall_s * 1e6) if busy_us > 0 else None)
+
+
+def chaos_phase(chaos, obs, pm_kernel, sim_kernel, dev, seed: int) -> dict:
+    t0 = time.perf_counter()
+    scenarios = chaos.default_scenarios(seed=seed, waves=CHAOS_WAVES)
+    sweep = chaos_sweep_cell(chaos, obs, dev, scenarios)
+    log(f"phase 10 (a): the sweep took {sweep['wall_s']:.3f} s")
+
+    # (b) the PMwCAS kernel under a shard storm, card == CPU
+    driver, routes, card, cpu, storm_s, storm_busy = chaos_on_card(
+        chaos, kernel_storm(chaos, seed, CHAOS_WAVES), dev,
+        pm_kernel.reset_counts,
+        lambda: dict(pm_kernel.pmwcas_apply_cuda.route_launches))
+    log(chaos_line(card, storm_s))
+    bad = chaos_mismatch(card, cpu)
+    check(not bad, f"kernel storm: card != CPU in {bad}")
+    check(card.check.ok and card.crashes == 0 and card.faults_fired > 0,
+          "kernel storm: not linearizable, crashed, or no storm fired")
+    disp = driver.svc.stats.dispatch
+    check(routes["global"] == 0 and routes["smem"] ==
+          disp.dispatches + disp.serial_rounds and disp.dispatches > 0,
+          f"kernel storm: launches {routes} for {disp.dispatches} "
+          f"dispatches and {disp.serial_rounds} serial rounds")
+    log(f"phase 10 (b): {routes} launches for {disp.dispatches} stacked "
+        f"dispatches; device busy share "
+        + (f"{storm_busy:.4f}" if storm_busy is not None else
+           "not measured (the profiler saw no device time)"))
+    storm = dict(routes=routes, dispatches=disp.dispatches, wall_s=storm_s,
+                 busy_share=storm_busy, ops_per_s=card.ops_per_s,
+                 p99_latency_us=card.p99_latency_us)
+
+    # (c) the simulator kernel under chaos, card == CPU
+    sim_sc = next(sc for sc in scenarios if sc.family == "sim_native")
+    driver, sim_launches, card, cpu, sim_s, sim_busy = chaos_on_card(
+        chaos, sim_sc, dev, sim_kernel.reset_counts,
+        lambda: sim_kernel.pmwcas_sim_cuda.launches)
+    log(chaos_line(card, sim_s))
+    bad = chaos_mismatch(card, cpu)
+    check(not bad, f"sim_native: card != CPU in {bad}")
+    check(card.check.ok and card.check.mutations > 0,
+          "sim_native: not linearizable or no mutation")
+    rounds = driver.svc.stats.rounds
+    check(sim_launches == rounds and rounds > 0,
+          f"sim_native: {sim_launches} simulator launches for {rounds} "
+          "shard rounds")
+    log(f"phase 10 (c): {sim_launches} simulator launches for {rounds} "
+        "shard rounds; device busy share "
+        + (f"{sim_busy:.4f}" if sim_busy is not None else
+           "not measured (the profiler saw no device time)"))
+    wall = time.perf_counter() - t0
+    log(f"phase 10 took {wall:.1f} s")
+    return dict(sweep=sweep, storm=storm, sim=dict(
+        launches=sim_launches, rounds=rounds, wall_s=sim_s,
+        busy_share=sim_busy, ops_per_s=card.ops_per_s,
+        p99_latency_us=card.p99_latency_us), wall_s=wall)
+
+
+# ---------------------------------------------------------------------------
 
 def build_kernels(builders) -> None:
     """Build every kernel's source at once (``builders``: one zero-argument
@@ -2666,6 +2897,7 @@ def main(argv=None) -> int:
         from repro_torch.kernels.pmwcas_apply import ref
         from repro_torch.kernels.pmwcas_sim import kernel as sim_kernel
         import repro_torch.core as core
+        import repro_torch.chaos as chaos
         from repro_torch.launch import serve as serve_mod
         from repro_torch.models import build_model
     except ImportError as e:
@@ -2715,6 +2947,8 @@ def main(argv=None) -> int:
     sim = sim_phase(core, pm, st, sim_kernel, kernel, dev, args.seed)
     grid = sim["grid"]
     log("sim: " + json.dumps(sim, default=str))
+    chaos_run = chaos_phase(chaos, obs, kernel, sim_kernel, dev, args.seed)
+    log("chaos: " + json.dumps(chaos_run))
     log(f"the whole smoke took {time.perf_counter() - t_start:.1f} s")
 
     pre, dec = ft["prefill"], ft["decode"]
@@ -2752,6 +2986,8 @@ def main(argv=None) -> int:
                                  for K, t in tree["timings"].items()},
         "tree_global_bound_ms": {str(K): t["bound_ms"]
                                  for K, t in tree["timings"].items()},
+        "chaos_storm_route_launches": chaos_run["storm"]["routes"],
+        "chaos_storm_dispatches": chaos_run["storm"]["dispatches"],
         "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -2770,6 +3006,7 @@ def main(argv=None) -> int:
         "launches": sim["launches"], "grid_launches": 1,
         "differential_launches": durable["differential"]["sim_launches"],
         "tree_sim_launches": tree["differential"]["sim_launches"],
+        "chaos_sim_native_launches": chaos_run["sim"]["launches"],
         "max_abs_err": sim["err"],
         "ms": grid["grid_ms"], "grid_cells": grid["cells"],
         "grid_steps": grid["grid_steps"],

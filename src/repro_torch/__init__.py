@@ -34,7 +34,13 @@ Public surface (import from here or from the subpackages):
 - checkpoint layer: ``Committer`` (the descriptor-WAL committer),
   ``MarkerCommitter`` (the dirty-flag baseline), ``CommitError``,
   ``PMemPool``, ``SimulatedCrash``.
-- ``repro_torch.obs`` — metrics registry, span tracer, flush provenance.
+- ``repro_torch.chaos`` — the chaos harness: seeded statechart client
+  and fault machines, ``ScenarioDriver`` (crash/recover cycles, storms,
+  stragglers, drifting skew, migrations, epoch boundaries, sim shards),
+  the linearizability checker and ``chaos_sweep`` over the seven
+  families, with ``device=`` for the service's kernel and sim shards.
+- ``repro_torch.obs`` — metrics registry, span tracer, flush provenance,
+  the Chrome-trace/JSONL exporters, the SLO engine and the stats folds.
 - ``repro_torch.configs`` / ``repro_torch.models`` — the architecture
   registry and the dense attention model stack (forward, bf16 KV
   cache); ``attn_impl="pallas"`` runs the hand-written Hopper
@@ -53,8 +59,9 @@ from typing import Any
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("checkpoint", "configs", "core", "kernels", "launch",
-                "models", "obs", "pmwcas", "service", "structures")
+_SUBPACKAGES = ("chaos", "checkpoint", "configs", "core", "kernels",
+                "launch", "models", "obs", "pmwcas", "service",
+                "structures")
 _LAZY = {name: "repro_torch.pmwcas" for name in (
     "Target", "MwCASOp", "OpResult", "KernelBackend", "DurableBackend",
     "DurabilityStats", "make_backend", "run_differential",
@@ -78,6 +85,23 @@ _LAZY.update({name: "repro_torch.service" for name in (
 _LAZY.update({name: "repro_torch.checkpoint" for name in (
     "Committer", "MarkerCommitter", "CommitError", "PMemPool",
     "SimulatedCrash", "data_rel")})
+_LAZY.update({name: "repro_torch.chaos" for name in (
+    "Scenario", "ScenarioDriver", "ChaosReport",
+    "ClientMachine", "ClientSpec", "FaultMachine", "FaultSpec",
+    "Machine", "Transition", "Event",
+    "HistoryRecorder", "check_history", "CheckStats",
+    "LinearizabilityError", "chaos_sweep", "default_scenarios",
+    "run_scenario")})
+_LAZY.update({name: "repro_torch.obs" for name in (
+    "MetricsRegistry", "Counter", "Gauge", "Histogram",
+    "get_registry", "reset_metrics",
+    "SpanTracer", "span", "instant", "get_tracer",
+    "enable_tracing", "disable_tracing", "tracing_enabled",
+    "chrome_trace", "export_chrome_trace", "export_jsonl",
+    "validate_chrome_trace", "span_tree",
+    "SloSpec", "SloEngine", "validate_slo_report",
+    "fold_durability", "fold_dispatch", "fold_service",
+    "fold_check", "fold_workload")})
 
 __all__ = sorted(_LAZY) + list(_SUBPACKAGES)
 

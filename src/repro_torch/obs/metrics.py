@@ -14,7 +14,7 @@ Three series types:
   are allowed for honest-ledger corrections, mirroring
   ``DurabilityStats.flushes_saved``);
 - :class:`Gauge` — last-write-wins level (idempotent to re-fold, which
-  is why the stats-adapter snapshot folds use gauges);
+  is why the :mod:`.adapters` snapshot folds use gauges);
 - :class:`Histogram` — wall-clock samples in MICROSECONDS with p50/p99,
   a bounded reservoir of recent samples (a long-running service must
   not grow its sample list without bound) plus lifetime count/sum.

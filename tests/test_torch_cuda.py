@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import chaos
 from repro_torch import core as sim_core
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -698,3 +699,68 @@ def test_kv_service_on_sim_shards_on_card(cuda):
                      svc.stats.steps))
         assert (launched > 0) == (device is cuda)
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# chaos on the card (repro_torch.chaos; chip_smoke.py phase 10)
+# ---------------------------------------------------------------------------
+
+def test_chaos_sim_native_on_card_matches_cpu(cuda):
+    """``sim_native`` with its shards on the card equals the same scenario
+    on the CPU (trace, items, every integer, the checker's stats), one
+    simulator launch a shard round."""
+    sc = chaos.sim_native(seed=0, waves=12)
+    before = sim_kernel.pmwcas_sim_cuda.launches
+    driver = chaos.ScenarioDriver(sc, device=cuda)
+    card = driver.run()
+    launched = sim_kernel.pmwcas_sim_cuda.launches - before
+    cpu = chaos.ScenarioDriver(sc, device="cpu").run()
+    assert card.check.ok and card.check.mutations > 0
+    assert chip_smoke.chaos_mismatch(card, cpu) == []
+    assert launched == driver.svc.stats.rounds > 0
+
+
+def test_chaos_kernel_storm_on_card_matches_cpu(cuda):
+    """``hot_key_storm`` on kernel shards with its shard storm alone: card
+    == CPU, every launch on the ``smem`` route, one a dispatch."""
+    sc = chip_smoke.kernel_storm(chaos, 0, 20)
+    pm_kernel.reset_counts()
+    driver = chaos.ScenarioDriver(sc, device=cuda)
+    card = driver.run()
+    routes = dict(pmwcas_apply_cuda.route_launches)
+    cpu = chaos.ScenarioDriver(sc, device="cpu").run()
+    assert card.check.ok and card.faults_fired > 0
+    assert chip_smoke.chaos_mismatch(card, cpu) == []
+    disp = driver.svc.stats.dispatch
+    assert routes["global"] == 0 and routes["smem"] > 0
+    assert routes["smem"] == disp.dispatches + disp.serial_rounds
+
+
+@pytest.mark.parametrize("family", [f for f in chaos.FAMILIES
+                                    if f != "sim_native"])
+def test_chaos_durable_family_on_card_matches_cpu(cuda, family, tmp_path):
+    """A durable family with the service on the card (its shards are host
+    code; the device is checked and carried through every crash) equals
+    the CPU run."""
+    sc = chaos.FAMILIES[family](seed=0, waves=20)
+    card = chaos.ScenarioDriver(sc, tmp_path / "card", device=cuda).run()
+    cpu = chaos.ScenarioDriver(sc, tmp_path / "cpu", device="cpu").run()
+    assert card.check.ok
+    assert chip_smoke.chaos_mismatch(card, cpu) == []
+
+
+def test_chaos_driver_refuses_cuda_without_a_card(monkeypatch, tmp_path):
+    """With no card, asking for one raises when the driver is made, for
+    every backend kind, and nothing runs on the CPU instead (the CUDA
+    probe is patched, so this runs with and without a card)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for sc in (chaos.sim_native(seed=0, waves=4),
+               chaos.hot_key_storm(seed=0, waves=4),
+               chip_smoke.kernel_storm(chaos, 0, 4)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            chaos.ScenarioDriver(sc, tmp_path / sc.backend)
+        with pytest.raises(RuntimeError, match="cuda"):
+            chaos.run_scenario(sc, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        chaos.chaos_sweep(seed=0, waves=4)
+    assert not list(tmp_path.iterdir()), "a refused driver wrote a pool"
