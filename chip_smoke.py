@@ -131,7 +131,33 @@ Phases, in order; any failure exits non-zero:
    shard round; one line a family (ops/s, p99, waves, ops, crashes,
    faults, checker counts, SLO verdict, WAL records/pruned, wall s) and
    the device busy share of (b) and (c) (device time from a profiled
-   rerun over the wall time of the unprofiled run).
+   rerun over the wall time of the unprofiled run);
+11. training (``TrainModel.train_loss``, ``optim.adamw``, the
+   ``Trainer``) — (a) the flash kernel's training launch, which also
+   writes the rows' log-sum-exp, against its plain version over
+   ``FA_CHECK_CASES`` and the cell's training shape in f32 and bf16,
+   every call on ``tc`` or ``simt`` (never ``decode``), ``out`` to
+   phase 2's limits and ``lse`` to ``FA_LSE_TOL``, and each serving
+   launch (a null lse pointer) on the same route equal to it bit for
+   bit; (b) the llama3-8b smoke config trained on the card and on the
+   CPU from the same f32 masters, in f32 (``simt``) and bf16 at head_dim
+   128 (``tc``), the loss and every gradient held to ``SMALL_TOL``,
+   limits that planted faults in the CPU's attention backward (the lse
+   off by log 2, ``delta`` dropped) exceed; (c) the cell
+   ``train_llama3_8b_L8_s4096`` (llama3-8b's widths at 8 layers, f32
+   masters drawn on the card, bf16 compute, batch 2 x 4,096 tokens,
+   remat, AdamW with clipping): one warm-up and 4 timed steps, exactly
+   80 flash launches all on ``tc``, finite losses, every master changed;
+   step ms, tokens/s, MFU, peak memory, a profiled step's device split
+   (flash forward, attention backward, matrix products, cross-entropy,
+   AdamW, the rest) and idle share; the flash op at the training shape
+   with and without the log-sum-exp, its plain version, the port's plain
+   backward and SDPA forward and backward; (d) ``Trainer`` at the smoke
+   config crashed at step 24 of 40 (checkpoints every 10, in the
+   temporary directory) and restarted: the restore equals what the
+   step-20 save committed, bit for bit, the resumed run's final params
+   are held to an uninterrupted run's, and an async-checkpointed run
+   restores at step 40.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``{"kernels": [...]}`` record, and the line before that the
@@ -141,6 +167,8 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import copy
 import dataclasses
 import functools
 import itertools
@@ -2849,6 +2877,649 @@ def chaos_phase(chaos, obs, pm_kernel, sim_kernel, dev, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: training
+# ---------------------------------------------------------------------------
+
+# the flash op's training call at the cell's shape: q [64, 4096, 128], k/v
+# [16, 4096, 128] (llama3-8b's 32 heads over 8 kv heads, batch 2, 4096
+# tokens), causal
+TRAIN_FA_CASE = FACase("train_llama3_8b_s4096", 2, 8, 4, 4096, 4096, 128,
+                       True, 0, 0.0, "tc")
+# the log-sum-exp against the plain version's, absolute: f32 as asked of
+# the simt route; bf16 from the readings (PERF.md section 6)
+FA_LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
+
+
+def fa_lse_route(case: FACase, dtype) -> str:
+    """The route of a training (log-sum-exp) call: never ``decode``."""
+    return ("tc" if dtype == torch.bfloat16 and case.hd in (64, 128, 256)
+            else "simt")
+
+
+def fa_lse_vs_plain(fa_kernel, fa_ref, seed: int, dev) -> dict:
+    """Phase 11 (a): the flash kernel's training launch (``lse=True``)
+    against the plain version on the same inputs, over ``FA_CHECK_CASES``
+    and the cell's training shape, in f32 and bf16.  ``out`` is held as
+    phase 2 holds it (``fa_close``), ``lse`` to ``FA_LSE_TOL``; each call
+    must take ``tc`` or ``simt``, never ``decode``.  Where a serving
+    launch takes the same route, its output (a null lse pointer) must
+    equal the training launch's bit for bit.  Returns the worst errors by
+    dtype and the launches by route."""
+    worst = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
+    routes = collections.Counter()
+    same = 0
+    for case in FA_CHECK_CASES + [TRAIN_FA_CASE]:
+        for dtype in (torch.float32, torch.bfloat16):
+            args, kw = fa_case_inputs(case, dtype, dev, seed)
+            before = dict(fa_kernel.flash_attention_cuda.route_launches)
+            got, lse = fa_kernel.flash_attention_cuda(*args, **kw, lse=True)
+            after = fa_kernel.flash_attention_cuda.route_launches
+            took = [r for r in after if after[r] != before[r]]
+            want_route = fa_lse_route(case, dtype)
+            check(took == [want_route], f"training flash {case.name} "
+                  f"{dtype} took {took}, not {want_route}")
+            routes[want_route] += 1
+            want, want_lse = fa_ref.flash_attention_flat_lse(*args, **kw)
+            _sync(dev)
+            ok, err = fa_close(got, want, dtype)
+            lerr = float((lse - want_lse).abs().max())
+            check(ok, f"training flash out != plain at {case.name} {dtype}:"
+                  f" max abs err {err}")
+            check(lse.shape == want_lse.shape and lse.dtype == torch.float32
+                  and bool(torch.isfinite(lse).all())
+                  and lerr <= FA_LSE_TOL[dtype],
+                  f"training flash lse != plain at {case.name} {dtype}: "
+                  f"max abs err {lerr} (limit {FA_LSE_TOL[dtype]})")
+            name = "float32" if dtype == torch.float32 else "bfloat16"
+            worst[name] = [max(worst[name][0], err),
+                           max(worst[name][1], lerr)]
+            if fa_route(case, dtype) == want_route:
+                serve = fa_kernel.flash_attention_cuda(*args, **kw)
+                check(torch.equal(serve, got), f"{case.name} {dtype}: the "
+                      f"serving launch differs from the training launch")
+                same += 1
+            del args, got, lse, want, want_lse
+    torch.cuda.empty_cache()
+    n = len(FA_CHECK_CASES) + 1
+    log(f"phase 11 (a): training flash (lse) == plain on {n} cases x "
+        f"{{f32, bf16}}, launches by route {json.dumps(routes)}: out max abs"
+        f" err f32 {worst['float32'][0]:.3e} / bf16 "
+        f"{worst['bfloat16'][0]:.3e}; lse max abs err f32 "
+        f"{worst['float32'][1]:.3e} (limit {FA_LSE_TOL[torch.float32]}) / "
+        f"bf16 {worst['bfloat16'][1]:.3e} (limit "
+        f"{FA_LSE_TOL[torch.bfloat16]}); {same} serving launches (null lse)"
+        f" equal the training launch bit for bit")
+    return dict(worst=worst, routes=dict(routes), same=same)
+
+
+# (b) small training, card against CPU: the llama3-8b smoke config in f32
+# (head_dim 8: the simt route) and bf16 at head_dim 128 (the tc route),
+# SMALL_STEPS AdamW steps from the same float32 masters on the same
+# batches, key chunks of SMALL_CHUNK so the backward runs several.
+# Limits per step: the loss (absolute) and every master's gradient in
+# relative norm ||g_card - g_cpu|| / ||g_cpu||, set from the readings
+# (PERF.md section 6) and checked on every run to lie below what planted
+# faults in the CPU's attention read (TRAIN_FAULTS).
+SMALL_STEPS, SMALL_SEQ, SMALL_BATCH, SMALL_CHUNK = 3, 64, 2, 16
+SMALL_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 5e-2)}
+TRAIN_FAULTS = ("lse_off_by_log2", "delta_dropped")
+
+
+def small_train_config(get_config, dtype: str):
+    cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
+                              dtype=dtype, attn_impl="chunked",
+                              attn_chunk=SMALL_CHUNK)
+    return dataclasses.replace(cfg, head_dim=128) if dtype == "bfloat16" \
+        else cfg
+
+
+@contextlib.contextmanager
+def planted(attn_mod, fault: Optional[str]):
+    """The attention backward with a planted fault: the log-sum-exp off by
+    log 2 (a kernel's lse in the wrong base or offset), or ``delta``
+    dropped (the backward fed a zero output, so ``sum(do * out)`` is 0)."""
+    orig = attn_mod._flash_backward
+
+    def faulty(q, k, v, q_pos, k_pos, out, lse, do, **kw):
+        if fault == "lse_off_by_log2":
+            lse = lse + float(np.log(2.0))
+        elif fault == "delta_dropped":
+            out = torch.zeros_like(out)
+        return orig(q, k, v, q_pos, k_pos, out, lse, do, **kw)
+
+    if fault is not None:
+        attn_mod._flash_backward = faulty
+    try:
+        yield
+    finally:
+        attn_mod._flash_backward = orig
+
+
+def _grads_and_step(model, adamw, opt_cfg, opt, batch) -> tuple:
+    """One training step that keeps its gradients: ``(loss, {name:
+    grad})``; the masters and ``opt`` are updated in place."""
+    params = model.param_dict()
+    for t in params.values():
+        t.grad = None
+    loss = model.train_loss(batch)
+    loss.backward()
+    grads = {n: t.grad.detach().clone() for n, t in params.items()}
+    adamw.update(opt_cfg, {n: t.grad for n, t in params.items()}, opt,
+                 params)
+    return float(loss.detach()), grads
+
+
+def _grad_err(a: dict, b: dict) -> float:
+    return max(float((a[n].float().cpu() - b[n].float().cpu()).norm()
+                     / b[n].float().cpu().norm().clamp_min(1e-30))
+               for n in b)
+
+
+def small_train_matches_cpu(get_config, TrainModel, adamw, data, attn_mod,
+                            fa_kernel, dtype: str, seed: int, dev) -> dict:
+    """Phase 11 (b) for one dtype: the card's run against the CPU's, step
+    by step (loss and every gradient); the planted faults on the CPU's
+    first step against its sound first step.  On the card every flash
+    call takes the route of the dtype, twice a layer a step (remat)."""
+    cfg = small_train_config(get_config, dtype)
+    cpu = TrainModel(cfg, device="cpu", seed=seed)
+    card = copy.deepcopy(cpu).to(dev)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                total_steps=SMALL_STEPS)
+    stream = data.SyntheticStream(data.DataConfig(
+        vocab=cfg.vocab, seq_len=SMALL_SEQ, global_batch=SMALL_BATCH,
+        seed=seed))
+    batches = [stream.next_batch() for _ in range(SMALL_STEPS)]
+    faults = {}
+    for fault in TRAIN_FAULTS:
+        with planted(attn_mod, fault):
+            m = copy.deepcopy(cpu)
+            faults[fault] = _grads_and_step(
+                m, adamw, opt_cfg, adamw.init_state(opt_cfg, m.param_dict()),
+                batches[0])
+    before = dict(fa_kernel.flash_attention_cuda.route_launches)
+    runs = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        opt = adamw.init_state(opt_cfg, model.param_dict())
+        runs[name] = [_grads_and_step(
+            model, adamw, opt_cfg, opt,
+            {k: torch.as_tensor(v, device=model.device)
+             for k, v in b.items()}) for b in batches]
+    _sync(dev)
+    routes = {r: n - before[r] for r, n in
+              fa_kernel.flash_attention_cuda.route_launches.items()}
+    loss_err = max(abs(a[0] - b[0]) for a, b in zip(runs["card"],
+                                                      runs["cpu"]))
+    grad_err = max(_grad_err(a[1], b[1]) for a, b in zip(runs["card"],
+                                                           runs["cpu"]))
+    sound = runs["cpu"][0]
+    fault_err = {f: dict(loss=abs(r[0] - sound[0]),
+                         grad=_grad_err(r[1], sound[1]))
+                 for f, r in faults.items()}
+    loss_tol, grad_tol = SMALL_TOL[dtype]
+    route = "tc" if dtype == "bfloat16" else "simt"
+    want = dict.fromkeys(fa_kernel.ROUTES, 0)
+    want[route] = 2 * cfg.n_layers * SMALL_STEPS
+    if dev.type == "cuda":
+        check(routes == want, f"small training {dtype}: flash routes "
+              f"{routes}, not {want}")
+    check(all(np.isfinite(r[0]) for r in runs["card"]),
+          f"small training {dtype}: non-finite loss on the card")
+    check(loss_err <= loss_tol and grad_err <= grad_tol,
+          f"small training {dtype}: card != CPU (loss err {loss_err:.3e}, "
+          f"limit {loss_tol}; grad err {grad_err:.3e}, limit {grad_tol})")
+    for f, e in fault_err.items():
+        check(e["grad"] > grad_tol, f"planted fault {f} reads grad err "
+              f"{e['grad']:.3e}, within the limit {grad_tol}")
+    log(f"phase 11 (b): small training {dtype} (llama3-8b smoke, head_dim "
+        f"{cfg.resolved_head_dim}, {SMALL_STEPS} steps of {SMALL_BATCH} x "
+        f"{SMALL_SEQ} tokens, chunks of {SMALL_CHUNK}) card == CPU: loss "
+        f"err {loss_err:.3e} (limit {loss_tol}), grad rel-norm err "
+        f"{grad_err:.3e} (limit {grad_tol}); planted faults on the CPU "
+        + ", ".join(f"{f}: loss {e['loss']:.3e} grad {e['grad']:.3e}"
+                    for f, e in fault_err.items())
+        + f"; flash calls by route {json.dumps(routes)}")
+    return dict(loss_err=loss_err, grad_err=grad_err, faults=fault_err,
+                routes=routes)
+
+
+# (c) the full-width cell train_llama3_8b_L8_s4096: llama3-8b's published
+# widths, depth cut to 8 layers (f32 masters, gradients and AdamW's m/v of
+# 32 layers need 128 GB), batch 2 of 4,096 tokens (train_4k's length).
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_TIMED = 8, 4096, 2, 4
+TRAIN_GROUPS = ("flash_fwd", "attn_bwd", "matmul", "cross_entropy",
+                "adamw", "other")
+CE_BACKWARD = ("LogsumexpBackward", "GatherBackward")
+
+
+def train_cell_config(get_config):
+    return dataclasses.replace(get_config("llama3-8b"),
+                               n_layers=TRAIN_LAYERS)
+
+
+def matmul_params(cfg) -> int:
+    """Parameters the step multiplies by (every layer's projections and
+    MLP, and the head; the embedding lookup excluded)."""
+    D, H, KV, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.resolved_head_dim)
+    layer = D * H * hd + 2 * D * KV * hd + H * hd * D + 3 * D * cfg.d_ff
+    return layer * cfg.n_layers + D * cfg.vocab
+
+
+def _is_matmul(name: str) -> bool:
+    low = name.lower()
+    return any(w in low for w in ("gemm", "cutlass", "xmma", "cublas",
+                                  "nvjet"))
+
+
+def _kernels_under(evt) -> list:
+    """``(name, device µs)`` of every kernel launched under a CPU event."""
+    out = [(k.name, k.duration) for k in getattr(evt, "kernels", [])]
+    for child in evt.cpu_children:
+        out += _kernels_under(child)
+    return out
+
+
+def train_step_split(step, attn_mod, adamw, transformer) -> dict:
+    """One training step under the profiler, its device time split into
+    ``TRAIN_GROUPS``: the flash kernels (the forward, by name); the
+    attention backward (every kernel under ``_flash_backward``, whose
+    products are plain PyTorch); matrix products outside it (cuBLAS
+    kernels by name); cross-entropy (its forward and the backward nodes
+    ``CE_BACKWARD``); AdamW (every kernel under ``update``); the rest.
+    The ranges are ``record_function`` wrappers put around the three
+    functions for this step only.  Returns µs by group, busy and wall
+    µs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    wrapped = ((attn_mod, "_flash_backward", "p11.attn_bwd"),
+               (adamw, "update", "p11.adamw"),
+               (transformer, "cross_entropy", "p11.cross_entropy"))
+    saved = []
+    for mod, name, label in wrapped:
+        fn = getattr(mod, name)
+
+        def ranged(*a, _fn=fn, _label=label, **kw):
+            with record_function(_label):
+                return _fn(*a, **kw)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, ranged)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    events = prof.events()
+    busy = flash = mm = 0.0
+    for e in events:
+        # the ranges also show on the device timeline (as annotations
+        # spanning their kernels): only kernels, copies and fills count
+        if e.device_type == DeviceType.CUDA and \
+                not e.name.startswith("p11."):
+            busy += e.device_time_total
+            if any(f in e.name for f in FLASH_KERNELS):
+                flash += e.device_time_total
+            elif _is_matmul(e.name):
+                mm += e.device_time_total
+    ranges = {"p11.attn_bwd": 0.0, "p11.adamw": 0.0,
+              "p11.cross_entropy": 0.0}
+    mm_in_bwd = ce_bwd = 0.0
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name in ranges and not any(
+                a.name == e.name for a in _ancestors(e)):
+            under = _kernels_under(e)
+            ranges[e.name] += sum(us for _, us in under)
+            if e.name == "p11.attn_bwd":
+                mm_in_bwd += sum(us for n, us in under if _is_matmul(n))
+        elif any(n in e.name for n in CE_BACKWARD) and \
+                "evaluate_function" in e.name:
+            ce_bwd += sum(us for _, us in _kernels_under(e))
+    split = {"flash_fwd": flash, "attn_bwd": ranges["p11.attn_bwd"],
+             "matmul": mm - mm_in_bwd,
+             "cross_entropy": ranges["p11.cross_entropy"] + ce_bwd,
+             "adamw": ranges["p11.adamw"]}
+    split["other"] = busy - sum(split.values())
+    return dict(split=split, busy_us=busy, wall_us=wall)
+
+
+def _ancestors(evt):
+    p = evt.cpu_parent
+    while p is not None:
+        yield p
+        p = p.cpu_parent
+
+
+def _attn_library_ms(q, k, v, qp, kp, scale: float, B: int) -> tuple:
+    """SDPA (boolean causal mask, GQA) at the training shape: forward ms,
+    and forward + backward ms (CUDA events); the yardsticks of a later
+    backward kernel (never called by the port)."""
+    import torch.nn.functional as F
+    H, Sq, hd = q.shape
+    HK, Sk, _ = k.shape
+    ok = ((kp < 2.0 ** 29)[None, :] & (qp[:, None] >= kp[None, :]))
+    q4 = q.view(B, H // B, Sq, hd).detach().requires_grad_()
+    k4 = k.view(B, HK // B, Sk, hd).detach().requires_grad_()
+    v4 = v.view(B, HK // B, Sk, hd).detach().requires_grad_()
+    do = torch.randn_like(q4)
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q4, k4, v4, attn_mask=ok[None, None],
+                                           scale=scale, enable_gqa=True)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=ok[None, None], scale=scale,
+            enable_gqa=True)
+        torch.autograd.grad(out, (q4, k4, v4), do)
+
+    return _event_ms(fwd, 5), _event_ms(fwd_bwd, 3)
+
+
+def train_flash_timings(fa_kernel, fa_ref, attn_mod, cfg, dev,
+                        seed: int) -> dict:
+    """The flash op at the cell's training shape (bf16, causal): the
+    kernel's training launch (with the log-sum-exp) and the serving
+    launch (without) in turns, the plain version, the port's plain
+    backward for one layer (``_flash_backward``, chunks of
+    ``cfg.attn_chunk``), and SDPA forward and forward + backward, beside
+    the forward's bound."""
+    B, KV = TRAIN_BATCH, cfg.n_kv_heads
+    G, hd, S = cfg.n_heads // KV, cfg.resolved_head_dim, TRAIN_SEQ
+    case = FACase("train", B, KV, G, S, S, hd, True, 0, 0.0, "tc")
+    args, kw = fa_case_inputs(case, torch.bfloat16, dev, seed + 17)
+    q, k, v, qp, kp = args
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=dev)
+
+    def with_lse():
+        fa_kernel.launch(q, k, v, qp, kp, out, **kw, lse=lse)
+
+    def without():
+        fa_kernel.launch(q, k, v, qp, kp, out, **kw)
+
+    rounds = {"lse": [], "no_lse": []}
+    for _ in range(3):
+        rounds["lse"].append(_event_ms(with_lse, 10))
+        rounds["no_lse"].append(_event_ms(without, 10))
+    ms, ms_serve = (float(np.median(rounds["lse"])),
+                    float(np.median(rounds["no_lse"])))
+    plain = _event_ms(lambda: fa_ref.flash_attention_flat_lse(*args, **kw),
+                      2)
+    q5 = q.view(B, KV, G, S, hd)
+    k4, v4 = k.view(B, KV, S, hd), v.view(B, KV, S, hd)
+    o5 = out.view(B, KV, G, S, hd)
+    with_lse()
+    l4 = lse.view(B, KV, G, S)
+    do = torch.randn_like(q5)
+    bwd_kw = dict(causal=True, window=0, attn_cap=0.0, scale=kw["scale"],
+                  chunk=cfg.attn_chunk)
+    bwd = _event_ms(lambda: attn_mod._flash_backward(
+        q5, k4, v4, qp, kp, o5, l4, do, **bwd_kw), 2)
+    lib_fwd, lib_fwd_bwd = _attn_library_ms(q, k, v, qp, kp, kw["scale"], B)
+    pairs = _visible_pairs(qp, kp) * q.shape[0]
+    flops = 4 * hd * pairs
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
+    bound_ops = flops / H100_BF16_FLOPS * 1e3
+    bound_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    res = dict(ms=ms, ms_no_lse=ms_serve, rounds=rounds, plain_ms=plain,
+               bwd_ms=bwd, library_ms=lib_fwd,
+               library_bwd_ms=lib_fwd_bwd - lib_fwd,
+               library_fwd_bwd_ms=lib_fwd_bwd,
+               bound_ms=max(bound_ops, bound_bytes),
+               bound_by="operations" if bound_ops >= bound_bytes else "bytes")
+    log(f"phase 11 (c): flash at the training shape q [{q.shape[0]}, {S}, "
+        f"{hd}] x k/v [{k.shape[0]}, {S}, {hd}] bf16 causal: training launch"
+        f" (lse) {ms * 1e3:.1f} us, serving launch (no lse) "
+        f"{ms_serve * 1e3:.1f} us (medians of 3 rounds in turns, CUDA "
+        f"events: {json.dumps(rounds)}), plain {plain * 1e3:.1f} us, bound "
+        f"{res['bound_ms'] * 1e3:.1f} us by {res['bound_by']} ({flops} "
+        f"flops over {pairs} visible pairs); the port's plain backward "
+        f"(chunks of {cfg.attn_chunk}) {bwd * 1e3:.1f} us a layer; SDPA "
+        f"forward {lib_fwd * 1e3:.1f} us, backward "
+        f"{res['library_bwd_ms'] * 1e3:.1f} us (forward + backward "
+        f"{lib_fwd_bwd * 1e3:.1f} us)")
+    del args, q, k, v, out, lse, do
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
+               transformer, fa_kernel, dev, seed: int) -> dict:
+    """Phase 11 (c): ``train_llama3_8b_L8_s4096`` through
+    ``make_train_step`` with remat: one warm-up step and
+    ``TRAIN_TIMED`` timed ones, the flash launches counted over all of
+    them (``(1 + TRAIN_TIMED) x 2 x layers``, every one on ``tc``), the
+    losses finite, every master changed; step ms (median), tokens/s, MFU
+    (6 x the matrix-product parameters x tokens over the step time at
+    989 TFLOP/s), peak memory; then one more step profiled for the
+    device split."""
+    cfg = train_cell_config(get_config)
+    model = TrainModel(cfg, device=dev, seed=seed)
+    params = model.param_dict()
+    n_params = sum(t.numel() for t in params.values())
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2,
+                                total_steps=1 + TRAIN_TIMED)
+    opt = adamw.init_state(opt_cfg, params)
+    stream = data.SyntheticStream(data.DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=seed))
+    step = steps_mod.make_train_step(model, opt_cfg)
+    probe = {n: (t.detach().flatten()[::max(1, t.numel() // 4096)].clone(),
+                 float(t.detach().double().sum()))
+             for n, t in params.items()}
+    torch.cuda.reset_peak_memory_stats()
+    fa_kernel.reset_counts()
+    losses, times = [], []
+    for _ in range(1 + TRAIN_TIMED):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in stream.next_batch().items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = fa_kernel.flash_attention_cuda.launches
+    routes = dict(fa_kernel.flash_attention_cuda.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = 2 * cfg.n_layers * (1 + TRAIN_TIMED)
+    check(launches == want and routes["tc"] == want,
+          f"training cell: {launches} flash launches by route {routes}, not "
+          f"{want} on tc")
+    check(all(np.isfinite(losses)), f"training cell: losses {losses}")
+    unchanged = [n for n, t in params.items()
+                 if torch.equal(t.detach().flatten()[
+                     ::max(1, t.numel() // 4096)], probe[n][0])
+                 and float(t.detach().double().sum()) == probe[n][1]]
+    check(not unchanged, f"training cell: masters unchanged: {unchanged}")
+    step_s = float(np.median(times[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mm = matmul_params(cfg)
+    mfu = 6 * mm * tokens / step_s / H100_BF16_FLOPS
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in stream.next_batch().items()}
+    prof = train_step_split(lambda: step(params, opt, batch), attn_mod,
+                            adamw, transformer)
+    busy, wall = prof["busy_us"], prof["wall_us"]
+    shares = ", ".join(f"{g} {us / 1e3:.1f} ms ({us / busy:.3f})"
+                       for g, us in prof["split"].items()) if busy else \
+        "not measured (the profiler saw no device time)"
+    log(f"phase 11 (c): train_llama3_8b_L8_s4096: {cfg.n_layers} layers at "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} f32 masters; "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens; losses "
+        f"{json.dumps([round(x, 4) for x in losses])}; step s "
+        f"{json.dumps([round(t, 4) for t in times])} (first: warm-up), "
+        f"median {step_s * 1e3:.1f} ms, {tokens / step_s:.1f} tokens/s, MFU "
+        f"{mfu:.4f} (6 x {mm} matrix-product params x {tokens} tokens over "
+        f"the step at {H100_BF16_FLOPS:.3g} FLOP/s); peak memory "
+        f"{peak / 1e9:.2f} GB (max_memory_allocated); flash launches "
+        f"{launches} {json.dumps(routes)}; every master changed")
+    log(f"phase 11 (c): a profiled step: device busy {busy / 1e3:.1f} ms of "
+        f"{wall / 1e3:.1f} ms wall, idle share "
+        f"{(1 - busy / wall) if busy else float('nan'):.4f}; by group: "
+        f"{shares}; clocks, power, temperature {_clocks()}")
+    res = dict(cfg=cfg, losses=losses, times=times, step_ms=step_s * 1e3,
+               tokens_per_s=tokens / step_s, mfu=mfu, mm_params=mm,
+               n_params=n_params, peak_bytes=peak, launches=launches,
+               routes=routes, split_us=prof["split"], busy_us=busy,
+               wall_us=wall)
+    del model, params, opt, step, batch, probe
+    torch.cuda.empty_cache()
+    return res
+
+
+# (d) the paper's guarantee in training: test_system.py's crash at step 24
+# of 40 with a checkpoint every 10, on the card, at the smoke config.  The
+# resumed run against the uninterrupted one, relative norm: 0 when the
+# card's step is deterministic (PERF.md section 6)
+CRASH_STEPS, CRASH_EVERY, CRASH_AT = 40, 10, 24
+CRASH_REL_TOL = 1e-5
+
+
+def _trees_equal(a, b) -> bool:
+    if isinstance(b, dict):
+        return isinstance(a, dict) and sorted(a) == sorted(b) and all(
+            _trees_equal(a[k], b[k]) for k in b)
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        np.array_equal(a, b)
+
+
+def trainer_crash_restart(get_config, TrainModel, adamw, data, runtime,
+                          convert, fa_kernel, dev, seed: int) -> dict:
+    """Phase 11 (d): ``Trainer`` (llama3-8b smoke config on the card,
+    checkpoints in the temporary directory through the 9p pool) crashed
+    at step ``CRASH_AT`` of ``CRASH_STEPS``, restarted: the restored
+    params, m, v, step and stream state equal what the step-20 save
+    committed, bit for bit; the resumed run's final params against an
+    uninterrupted run's; an ``AsyncCheckpointManager`` run restores at
+    its last step."""
+    cfg = get_config("llama3-8b", smoke=True)
+
+    def trainer(root, async_=False):
+        return runtime.Trainer(
+            TrainModel(cfg, device=dev, init=False),
+            adamw.AdamWConfig(lr=3e-3, warmup_steps=5,
+                              total_steps=CRASH_STEPS, weight_decay=0.0),
+            data.DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4),
+            runtime.TrainerConfig(total_steps=CRASH_STEPS,
+                                  ckpt_every=CRASH_EVERY, ckpt_async=async_,
+                                  ckpt_dir=str(root)), device=dev)
+
+    t0 = time.perf_counter()
+    before = fa_kernel.flash_attention_cuda.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t1 = trainer(root / "crash")
+        saved = {}
+        orig_save = t1.ckpt.save
+
+        def recording_save(step, state):
+            saved[step] = copy.deepcopy(state)
+            return orig_save(step, state)
+
+        t1.ckpt.save = recording_save
+        crashed = False
+        try:
+            t1.run(seed=seed, crash_at_step=CRASH_AT)
+        except RuntimeError:
+            crashed = True
+        check(crashed, "the injected crash did not happen")
+        t2 = trainer(root / "crash")
+        _, opt, stream, start = t2.restore_or_init(seed)
+        want = saved[start]
+        restored = {"params": convert.params_to_numpy(t2.model),
+                    "opt": convert.opt_state_to_numpy(opt, t2.model),
+                    "data_state": {k: np.asarray(v)
+                                   for k, v in stream.state().items()}}
+        check(start == 20 and all(_trees_equal(restored[g], want[g])
+                                  for g in restored),
+              f"restored at step {start}, or the restore differs from what "
+              f"the step-{start} save committed")
+        t2 = trainer(root / "crash")
+        params_c, _, losses_c = t2.run(seed=seed)
+        t3 = trainer(root / "whole")
+        params_r, _, losses_r = t3.run(seed=seed)
+        with torch.no_grad():
+            diff = max(float((params_c[n] - p).abs().max())
+                       for n, p in params_r.items())
+            rel = max(float((params_c[n] - p).norm()
+                            / p.norm().clamp_min(1e-30))
+                      for n, p in params_r.items())
+        exact = diff == 0.0
+        check(rel <= CRASH_REL_TOL, f"resumed run's final params differ "
+              f"from the uninterrupted run's by {rel:.3e} relative")
+        t4 = trainer(root / "async", async_=True)
+        _, _, losses_a = t4.run(seed=seed)
+        start_a = trainer(root / "async").restore_or_init(seed)[3]
+        check(start_a == CRASH_STEPS, f"the async run restores at step "
+              f"{start_a}, not {CRASH_STEPS}")
+        check(losses_r[-1] < losses_r[0] and all(np.isfinite(losses_r)),
+              f"the uninterrupted run's loss did not fall: {losses_r[0]} -> "
+              f"{losses_r[-1]}")
+    wall = time.perf_counter() - t0
+    launches = fa_kernel.flash_attention_cuda.launches - before
+    log(f"phase 11 (d): Trainer (llama3-8b smoke, {cfg.dtype}) crashed at "
+        f"step {CRASH_AT} of {CRASH_STEPS} (checkpoints every "
+        f"{CRASH_EVERY}), restored at step {start}: params, m, v, step and "
+        f"stream state equal the step-{start} save bit for bit; resumed "
+        f"final params vs uninterrupted: max abs diff {diff:.3e}, rel "
+        f"{rel:.3e} ({'bit for bit' if exact else 'within ' + str(CRASH_REL_TOL)}"
+        f"); losses {losses_r[0]:.4f} -> {losses_r[-1]:.4f}; the resumed "
+        f"run's {len(losses_c)} losses "
+        f"{'equal' if losses_c == losses_r[start:] else 'differ from'} the "
+        f"uninterrupted run's; async run restores at {start_a}; "
+        f"{launches} flash launches; {wall:.1f} s")
+    return dict(restored_step=start, exact=exact, max_abs_diff=diff,
+                rel=rel, async_start=start_a, launches=launches, wall_s=wall)
+
+
+def train_phase(fa_kernel, fa_ref, dev, seed: int) -> dict:
+    """Phase 11: training on the card: (a) the flash kernel's training
+    launch against its plain version; (b) small training, card against
+    CPU, beside planted faults; (c) the full-width cell; (d) the
+    ``Trainer``'s crash and restart, and an async run."""
+    import repro_torch.data as data
+    import repro_torch.runtime as runtime
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import convert
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import TrainModel
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    log(f"phase 11: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"on the card at the start")
+    out = dict(lse=fa_lse_vs_plain(fa_kernel, fa_ref, seed, dev))
+    out["small"] = {dt: small_train_matches_cpu(
+        get_config, TrainModel, adamw, data, attn_mod, fa_kernel, dt, seed,
+        dev) for dt in ("float32", "bfloat16")}
+    cell = train_cell(get_config, TrainModel, adamw, data, steps_mod,
+                      attn_mod, transformer, fa_kernel, dev, seed)
+    out["timings"] = train_flash_timings(fa_kernel, fa_ref, attn_mod,
+                                         cell.pop("cfg"), dev, seed)
+    out["cell"] = cell
+    out["crash"] = trainer_crash_restart(get_config, TrainModel, adamw,
+                                         data, runtime, convert, fa_kernel,
+                                         dev, seed)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 11 took {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def build_kernels(builders) -> None:
     """Build every kernel's source at once (``builders``: one zero-argument
@@ -2937,6 +3608,9 @@ def main(argv=None) -> int:
                   args.seed, dev)
     ft = flash_timings(fa_ops, fa_ref, fa_kernel, lm, dev, args.seed)
     where_time_goes(lm, ft, dev, args.seed)
+    fa_serve = dict(launches=lm["fa_launches"], routes=lm["fa_routes"])
+    del lm                       # the serve model's 16 GB, before phase 11
+    torch.cuda.empty_cache()
     durable = durable_phase(pm, svc_mod, st, obs, kernel, dev, args.seed)
     log("durable: " + json.dumps({
         "differential": durable["differential"],
@@ -2949,6 +3623,9 @@ def main(argv=None) -> int:
     log("sim: " + json.dumps(sim, default=str))
     chaos_run = chaos_phase(chaos, obs, kernel, sim_kernel, dev, args.seed)
     log("chaos: " + json.dumps(chaos_run))
+    train = train_phase(fa_kernel, fa_ref, dev, args.seed)
+    tc, tt = train["cell"], train["timings"]
+    log("train: " + json.dumps(train, default=str))
     log(f"the whole smoke took {time.perf_counter() - t_start:.1f} s")
 
     pre, dec = ft["prefill"], ft["decode"]
@@ -2993,13 +3670,24 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/flash_attention_tc.cu",
         "sources": [f"src/repro_torch/csrc/{p.name}"
                     for p in fa_kernel.SOURCES.values()],
-        "route_launches": lm["fa_routes"],
+        "route_launches": fa_serve["routes"],
         "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
-        "launches": lm["fa_launches"],
-        "max_abs_err": max(fa_worst, pre["err"], dec["err"]),
+        "launches": fa_serve["launches"],
+        "max_abs_err": max(fa_worst, pre["err"], dec["err"],
+                           *(w[0] for w in train["lse"]["worst"].values())),
         "ms": pre["ms"], "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
-        "library_ms": pre["library_ms"]}, {
+        "library_ms": pre["library_ms"],
+        "lse_routes": ["tc", "simt"],
+        "lse_max_abs_err": max(w[1] for w in train["lse"]["worst"].values()),
+        "train_launches": tc["launches"],
+        "train_route_launches": tc["routes"],
+        "train_ms": tt["ms"], "train_ms_no_lse": tt["ms_no_lse"],
+        "train_plain_ms": tt["plain_ms"], "train_bound_ms": tt["bound_ms"],
+        "train_bound_by": tt["bound_by"],
+        "train_library_ms": tt["library_ms"],
+        "train_library_bwd_ms": tt["library_bwd_ms"],
+        "train_plain_bwd_ms": tt["bwd_ms"]}, {
         "name": "pmwcas_sim", "route": "cuda",
         "source": "src/repro_torch/csrc/pmwcas_sim.cu",
         "replaces": "src/repro/core/sim.py:175",

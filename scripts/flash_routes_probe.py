@@ -82,7 +82,7 @@ def tc_entry(path: pathlib.Path):
     lib = ctypes.CDLL(str(path))
     fn = lib.flash_attention_tc_launch
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [ptr] * 6 + [i32] * 5 + [f32, i32, i32, f32, ptr]
+    fn.argtypes = [ptr] * 7 + [i32] * 5 + [f32, i32, i32, f32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -140,7 +140,7 @@ def main() -> int:
 
             def run():
                 err = fn(qf.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         qpf.data_ptr(), kp.data_ptr(), of.data_ptr(), HK, G,
+                         qpf.data_ptr(), kp.data_ptr(), of.data_ptr(), None, HK, G,
                          SQ, SK, HD, kw["scale"], causal, 0, 0.0, stream)
                 if err:
                     raise RuntimeError(f"{name}: launch error {err}")

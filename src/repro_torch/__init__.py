@@ -33,7 +33,7 @@ Public surface (import from here or from the subpackages):
   migration log and ``ServiceStats``.
 - checkpoint layer: ``Committer`` (the descriptor-WAL committer),
   ``MarkerCommitter`` (the dirty-flag baseline), ``CommitError``,
-  ``PMemPool``, ``SimulatedCrash``.
+  ``PMemPool``, ``SimulatedCrash``, the checkpoint managers.
 - ``repro_torch.chaos`` — the chaos harness: seeded statechart client
   and fault machines, ``ScenarioDriver`` (crash/recover cycles, storms,
   stragglers, drifting skew, migrations, epoch boundaries, sim shards),
@@ -47,6 +47,13 @@ Public surface (import from here or from the subpackages):
   flash-attention kernel on a CUDA tensor.
 - ``repro_torch.launch.serve`` — batched LM serving: KV-page admission
   through ``reserve_slots``, prefill and greedy decode.
+- training — ``TrainModel.train_loss`` (float32 masters, remat, the
+  flash kernel's forward with its log-sum-exp and the recompute
+  backward), ``adamw`` (``repro_torch.optim``), the synthetic stream
+  (``DataConfig``, ``SyntheticStream``), the atomic
+  ``CheckpointManager`` / ``AsyncCheckpointManager`` over the committer,
+  and the fault-tolerant ``Trainer`` / ``TrainerConfig``
+  (``repro_torch.runtime``; ``python -m repro_torch.launch.train``).
 
 Entry points take ``device=`` and default to ``"cuda"``; ``"cpu"`` is
 an explicit request.  Word tables hold uint32 words as int32 bit
@@ -59,9 +66,9 @@ from typing import Any
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("chaos", "checkpoint", "configs", "core", "kernels",
-                "launch", "models", "obs", "pmwcas", "service",
-                "structures")
+_SUBPACKAGES = ("chaos", "checkpoint", "configs", "core", "data",
+                "kernels", "launch", "models", "obs", "optim", "pmwcas",
+                "runtime", "service", "structures")
 _LAZY = {name: "repro_torch.pmwcas" for name in (
     "Target", "MwCASOp", "OpResult", "KernelBackend", "DurableBackend",
     "DurabilityStats", "make_backend", "run_differential",
@@ -84,7 +91,13 @@ _LAZY.update({name: "repro_torch.service" for name in (
     "BatchScheduler", "OpFuture")})
 _LAZY.update({name: "repro_torch.checkpoint" for name in (
     "Committer", "MarkerCommitter", "CommitError", "PMemPool",
-    "SimulatedCrash", "data_rel")})
+    "SimulatedCrash", "data_rel", "CheckpointManager",
+    "AsyncCheckpointManager")})
+_LAZY.update({name: "repro_torch.runtime" for name in (
+    "Trainer", "TrainerConfig")})
+_LAZY.update({name: "repro_torch.data" for name in (
+    "DataConfig", "SyntheticStream")})
+_LAZY["adamw"] = "repro_torch.optim"
 _LAZY.update({name: "repro_torch.chaos" for name in (
     "Scenario", "ScenarioDriver", "ChaosReport",
     "ClientMachine", "ClientSpec", "FaultMachine", "FaultSpec",

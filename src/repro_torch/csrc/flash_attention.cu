@@ -16,6 +16,11 @@
 // TPU kernel's answer whenever its kv tile divides Sk (for other tiles it
 // also counts its own zero padding), and the plain version's
 // (src/repro_torch/kernels/flash_attention/ref.py).
+// With an lse pointer it also writes every row's natural log-sum-exp over
+// its visible keys, m + log(l) in f32 (the training forward's second
+// output, which the recompute backward reads); a row with no visible key
+// gets NEG_INF + log(Sk), the log-sum-exp of the Sk NEG_INF scores whose
+// uniform softmax gives the mean of v.  A null pointer writes nothing.
 //
 // Design.  The TPU kernel carries m/l/acc across a sequential kv-tile grid
 // axis; Hopper blocks run in no order, so here one block owns a q tile and
@@ -57,8 +62,9 @@
 // tolerance) or bf16 at a head_dim other than 64, 128 or 256.  bf16
 // prefills at those head dims go to flash_attention_tc.cu (tensor cores,
 // TMA), and every call with at most 16 q rows per kv head, decode steps
-// included, to flash_attention_decode.cu (split-K).  The 16-row tile
-// instantiations below are reached by no route now.
+// included, to flash_attention_decode.cu (split-K) -- unless the call asks
+// for the log-sum-exp, which the decode route does not write: such a call
+// with at most 16 rows a kv head comes here, to the 16-row tile.
 
 #include <cstdint>
 
@@ -145,8 +151,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v,
                        const float* __restrict__ q_pos,
                        const float* __restrict__ k_pos, T* __restrict__ out,
-                       int G, int Sq, int Sk, int hd, float scale, int causal,
-                       int window, float attn_cap) {
+                       float* __restrict__ lse, int G, int Sq, int Sk, int hd,
+                       float scale, int causal, int window, float attn_cap) {
   constexpr int TR = BQ / 16;        // rows per thread
   constexpr int ACC = HDMAX / 16;    // head-dim columns per thread
   constexpr int KC = kBK / 16;       // keys per thread per tile
@@ -332,6 +338,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!real[i]) continue;
     const long long r = row0 + rg * TR + i;
     const float inv_l = 1.0f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && cg == 0)   // m and l are the same in all 16 lanes
+      lse[hk * R + r] = l[i] == 0.0f
+                            ? kNegInf + logf(static_cast<float>(Sk))
+                            : m[i] + logf(fmaxf(l[i], 1e-30f));
 #pragma unroll
     for (int j = 0; j < ACC; ++j) {
       const int d = cg + 16 * j;
@@ -345,9 +355,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HDMAX, int BQ>
 int launch_tiled(const void* q, const void* k, const void* v,
-                 const float* q_pos, const float* k_pos, void* out, int HK,
-                 int G, int Sq, int Sk, int hd, float scale, int causal,
-                 int window, float attn_cap, cudaStream_t stream) {
+                 const float* q_pos, const float* k_pos, void* out,
+                 float* lse, int HK, int G, int Sq, int Sk, int hd,
+                 float scale, int causal, int window, float attn_cap,
+                 cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, HDMAX, BQ>;
   const int stride = hd * static_cast<int>(sizeof(T)) / 4 + 1;
   const size_t bytes = sizeof(uint32_t) * smem_words<BQ>(stride, hd);
@@ -364,19 +375,19 @@ int launch_tiled(const void* q, const void* k, const void* v,
                   static_cast<unsigned>(HK));
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), q_pos, k_pos, static_cast<T*>(out), G, Sq,
-      Sk, hd, scale, causal, window, attn_cap);
+      static_cast<const T*>(v), q_pos, k_pos, static_cast<T*>(out), lse, G,
+      Sq, Sk, hd, scale, causal, window, attn_cap);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int BQ>
 int launch_bq(const void* q, const void* k, const void* v,
-              const float* q_pos, const float* k_pos, void* out, int HK,
-              int G, int Sq, int Sk, int hd, float scale, int causal,
+              const float* q_pos, const float* k_pos, void* out, float* lse,
+              int HK, int G, int Sq, int Sk, int hd, float scale, int causal,
               int window, float attn_cap, cudaStream_t stream) {
-#define FA_LAUNCH(HDMAX)                                                   \
-  return launch_tiled<T, HDMAX, BQ>(q, k, v, q_pos, k_pos, out, HK, G, Sq, \
-                                    Sk, hd, scale, causal, window,         \
+#define FA_LAUNCH(HDMAX)                                                    \
+  return launch_tiled<T, HDMAX, BQ>(q, k, v, q_pos, k_pos, out, lse, HK, G, \
+                                    Sq, Sk, hd, scale, causal, window,      \
                                     attn_cap, stream)
   if (hd <= 16) FA_LAUNCH(16);
   if (hd <= 32) FA_LAUNCH(32);
@@ -388,39 +399,43 @@ int launch_bq(const void* q, const void* k, const void* v,
 
 template <typename T>
 int launch_typed(const void* q, const void* k, const void* v,
-                 const float* q_pos, const float* k_pos, void* out, int HK,
-                 int G, int Sq, int Sk, int hd, float scale, int causal,
-                 int window, float attn_cap, cudaStream_t stream) {
-  // a decode step's g rows fill one 16-row tile; longer q use 64 rows
+                 const float* q_pos, const float* k_pos, void* out,
+                 float* lse, int HK, int G, int Sq, int Sk, int hd,
+                 float scale, int causal, int window, float attn_cap,
+                 cudaStream_t stream) {
+  // at most 16 rows of a kv head fill one 16-row tile; longer q use 64 rows
   if (static_cast<long long>(G) * Sq <= 16)
-    return launch_bq<T, 16>(q, k, v, q_pos, k_pos, out, HK, G, Sq, Sk, hd,
-                            scale, causal, window, attn_cap, stream);
-  return launch_bq<T, 64>(q, k, v, q_pos, k_pos, out, HK, G, Sq, Sk, hd,
-                          scale, causal, window, attn_cap, stream);
+    return launch_bq<T, 16>(q, k, v, q_pos, k_pos, out, lse, HK, G, Sq, Sk,
+                            hd, scale, causal, window, attn_cap, stream);
+  return launch_bq<T, 64>(q, k, v, q_pos, k_pos, out, lse, HK, G, Sq, Sk,
+                          hd, scale, causal, window, attn_cap, stream);
 }
 
 }  // namespace
 
 // q [HK*G, Sq, hd], k/v [HK, Sk, hd], out like q, all contiguous, 16-byte
 // aligned, of one dtype (0 = float32, 1 = bfloat16); q_pos [Sq] and k_pos
-// [Sk] float32.  hd is a multiple of 8 in [8, 256] (the wrapper checks).
-// Returns cudaGetLastError() after the launch (0 when it was accepted).
+// [Sk] float32; lse null or float32 [HK*G, Sq].  hd is a multiple of 8 in
+// [8, 256] (the wrapper checks).  Returns cudaGetLastError() after the
+// launch (0 when it was accepted).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, const void* q_pos,
-                                      const void* k_pos, void* out, int dtype,
-                                      int HK, int G, int Sq, int Sk, int hd,
-                                      float scale, int causal, int window,
-                                      float attn_cap, void* stream) {
+                                      const void* k_pos, void* out, void* lse,
+                                      int dtype, int HK, int G, int Sq, int Sk,
+                                      int hd, float scale, int causal,
+                                      int window, float attn_cap,
+                                      void* stream) {
   if (HK <= 0 || G <= 0 || Sq <= 0 || Sk <= 0) return 0;
   const auto* qp = static_cast<const float*>(q_pos);
   const auto* kp = static_cast<const float*>(k_pos);
   const auto st = static_cast<cudaStream_t>(stream);
+  auto* ls = static_cast<float*>(lse);
   if (dtype == 1)
-    return launch_typed<__nv_bfloat16>(q, k, v, qp, kp, out, HK, G, Sq, Sk,
-                                       hd, scale, causal, window, attn_cap,
-                                       st);
-  return launch_typed<float>(q, k, v, qp, kp, out, HK, G, Sq, Sk, hd, scale,
-                             causal, window, attn_cap, st);
+    return launch_typed<__nv_bfloat16>(q, k, v, qp, kp, out, ls, HK, G, Sq,
+                                       Sk, hd, scale, causal, window,
+                                       attn_cap, st);
+  return launch_typed<float>(q, k, v, qp, kp, out, ls, HK, G, Sq, Sk, hd,
+                             scale, causal, window, attn_cap, st);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -13,7 +13,11 @@
 //         && (window <= 0 || q_pos - k_pos < window)
 //   out = softmax over the ok keys of s, times v (kv head h // g); masked
 //         keys get p = 0; a row with no visible key gets the mean of v
-//         over the Sk keys; the output is bf16.
+//         over the Sk keys; the output is bf16;
+//   lse = m + log(l) in natural log, f32, when the caller passes an lse
+//         pointer (the training forward's second output); NEG_INF +
+//         log(Sk) for a row with no visible key.  A null pointer writes
+//         nothing, and the serving launches pass one.
 //
 // What bounds it on an H100: a causal prefill does 4*hd flops per visible
 // (q, k) pair, so the bound is the bf16 tensor-core rate (989 TFLOP/s),
@@ -43,7 +47,10 @@
 //     one's softmax runs while the other's products hold the tensor cores;
 //   - epilogue: divide by l; rows with l == 0 take the column mean of v
 //     (one extra pass over the kv head, only when such a row exists);
-//     only rows < g*Sq are stored;
+//     only rows < g*Sq are stored.  The softmax keeps m in the scores'
+//     own units and l as a sum of powers of two, so the log-sum-exp goes
+//     back to natural log: m * (f * ln 2) + ln l, where f * ln 2 is the
+//     scale (or 1 after a softcap, which applies the scale itself);
 //   - CTAs that run together share a kv head (blockIdx.y), so K/V tiles
 //     are read from HBM about once and then from L2; inside a head the q
 //     tiles with the largest positions go first (causal load balance).
@@ -80,6 +87,7 @@
 
 namespace {
 
+constexpr float kNegInf = -1048576.0f;     // -2**20, the reference's mask fill
 constexpr float kPosLimit = 536870912.0f;  // 2**29: keys at or above are invalid
 constexpr float kPadPos = 1073741824.0f;   // 2**30: past Sk
 constexpr float kLog2e = 1.4426950408889634f;
@@ -467,8 +475,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const float* __restrict__ q_pos,
                           const float* __restrict__ k_pos,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ out, int G, int Sq,
-                          int Sk, float scale, int causal, int window,
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, int G, int Sq, int Sk,
+                          float scale, int causal, int window,
                           float attn_cap) {
   using Shape = TcShape<HD>;
   constexpr int BK = Shape::kBK;
@@ -791,6 +800,13 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       named_sync(1 + cw, 128);
     }
     const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
+    if (lse != nullptr && lane % 4 == 0) {   // the quad holds one row pair
+      const float to_nat = attn_cap > 0.0f ? 1.0f : scale;
+      const float empty = kNegInf + logf(static_cast<float>(Sk));
+      float* lh = lse + static_cast<long long>(hk) * R;
+      if (real0) lh[rg0] = l0 == 0.0f ? empty : m0 * to_nat + logf(l0);
+      if (real1) lh[rg1] = l1 == 0.0f ? empty : m1 * to_nat + logf(l1);
+    }
     __nv_bfloat16* oh = out + static_cast<long long>(hk) * R * HD;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
@@ -867,9 +883,9 @@ int make_map(CUtensorMap* map, const void* ptr, long long rows, int heads,
 
 template <int HD>
 int launch_hd(const void* q, const void* k, const void* v, const float* q_pos,
-              const float* k_pos, void* out, int HK, int G, int Sq, int Sk,
-              float scale, int causal, int window, float attn_cap,
-              cudaStream_t stream) {
+              const float* k_pos, void* out, float* lse, int HK, int G,
+              int Sq, int Sk, float scale, int causal, int window,
+              float attn_cap, cudaStream_t stream) {
   using Shape = TcShape<HD>;
   const long long R = static_cast<long long>(G) * Sq;
   CUtensorMap tq, tk, tv;
@@ -889,36 +905,39 @@ int launch_hd(const void* q, const void* k, const void* v, const float* q_pos,
                   static_cast<unsigned>(HK));
   kernel<<<grid, kThreads, Shape::kSmem, stream>>>(
       tq, tk, tv, q_pos, k_pos, static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), G, Sq, Sk, scale, causal, window,
-      attn_cap);
+      static_cast<__nv_bfloat16*>(out), lse, G, Sq, Sk, scale, causal,
+      window, attn_cap);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q [HK*G, Sq, hd], k/v [HK, Sk, hd], out like q: contiguous bf16, 16-byte
-// aligned; q_pos [Sq] and k_pos [Sk] float32; hd in {64, 128, 256}.
-// Returns 0 when the launch was accepted, else a cudaError_t or one of
-// this library's negative codes (flash_attention_tc_error_string).
+// aligned; q_pos [Sq] and k_pos [Sk] float32; lse null or float32
+// [HK*G, Sq]; hd in {64, 128, 256}.  Returns 0 when the launch was
+// accepted, else a cudaError_t or one of this library's negative codes
+// (flash_attention_tc_error_string).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          const void* v, const void* q_pos,
-                                         const void* k_pos, void* out, int HK,
-                                         int G, int Sq, int Sk, int hd,
-                                         float scale, int causal, int window,
+                                         const void* k_pos, void* out,
+                                         void* lse, int HK, int G, int Sq,
+                                         int Sk, int hd, float scale,
+                                         int causal, int window,
                                          float attn_cap, void* stream) {
   if (HK <= 0 || G <= 0 || Sq <= 0 || Sk <= 0) return 0;
   const auto* qp = static_cast<const float*>(q_pos);
   const auto* kp = static_cast<const float*>(k_pos);
+  auto* ls = static_cast<float*>(lse);
   const auto st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64:
-      return launch_hd<64>(q, k, v, qp, kp, out, HK, G, Sq, Sk, scale, causal,
-                           window, attn_cap, st);
+      return launch_hd<64>(q, k, v, qp, kp, out, ls, HK, G, Sq, Sk, scale,
+                           causal, window, attn_cap, st);
     case 128:
-      return launch_hd<128>(q, k, v, qp, kp, out, HK, G, Sq, Sk, scale,
+      return launch_hd<128>(q, k, v, qp, kp, out, ls, HK, G, Sq, Sk, scale,
                             causal, window, attn_cap, st);
     case 256:
-      return launch_hd<256>(q, k, v, qp, kp, out, HK, G, Sq, Sk, scale,
+      return launch_hd<256>(q, k, v, qp, kp, out, ls, HK, G, Sq, Sk, scale,
                             causal, window, attn_cap, st);
     default:
       return kErrHeadDim;

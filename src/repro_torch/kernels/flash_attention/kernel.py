@@ -16,6 +16,11 @@ dtype, and each source's header comment has its design:
 - ``simt`` (``flash_attention.cu``): everything else (f32 prefill, other
   head dims): 64-key tiles in shared memory, products on the CUDA cores.
 
+The ``tc`` and ``simt`` routes also write each row's f32 log-sum-exp when
+asked (``lse=True``): the training forward, whose recompute backward
+reads it.  The ``decode`` route does not, so a call that asks for it is
+planned onto ``tc`` or ``simt`` whatever its row count.
+
 Build: at first use a route's source is compiled with ``nvcc`` for
 ``sm_90a`` by :mod:`repro_torch.kernels._build` and loaded with
 ``ctypes``.  Nothing is built at import time, so the CPU tests import
@@ -66,14 +71,16 @@ def split_chunk(Sk: int, splits: int) -> tuple:
 
 
 def plan(dtype: torch.dtype, hd: int, rows_per_kv_head: int, Sk: int,
-         HK: int, n_sms: int, splits: int | None = None) -> tuple:
+         HK: int, n_sms: int, splits: int | None = None,
+         lse: bool = False) -> tuple:
     """``(route, splits)`` for one call: ``decode`` when a kv head has at
-    most 16 q rows (``g * Sq``), any dtype and head_dim; else ``tc`` for
-    bf16 at head_dim 64, 128 or 256; else ``simt`` (every f32 prefill:
-    wgmma has no f32 product, and TF32 would break the f32 tolerance).
-    ``splits`` forces the decode route's split count (the tests do);
-    the count returned is the one that launches."""
-    if rows_per_kv_head <= DECODE_ROWS:
+    most 16 q rows (``g * Sq``), any dtype and head_dim, and the call
+    does not ask for the log-sum-exp (``lse``); else ``tc`` for bf16 at
+    head_dim 64, 128 or 256; else ``simt`` (every f32 prefill: wgmma has
+    no f32 product, and TF32 would break the f32 tolerance).  ``splits``
+    forces the decode route's split count (the tests do); the count
+    returned is the one that launches."""
+    if rows_per_kv_head <= DECODE_ROWS and not lse:
         want = decode_splits(Sk, HK, n_sms) if splits is None else splits
         return "decode", split_chunk(Sk, want)[1]
     if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
@@ -94,10 +101,10 @@ def _lib(route: str) -> ctypes.CDLL:
     name = {"simt": "flash_attention", "tc": "flash_attention_tc",
             "decode": "flash_attention_decode"}[route]
     fn = getattr(lib, name + "_launch")
-    if route == "simt":       # q k v qp kp out dtype HK G Sq Sk hd ...
-        fn.argtypes = [ptr] * 6 + [i32] * 6 + [f32, i32, i32, f32, ptr]
-    elif route == "tc":       # q k v qp kp out HK G Sq Sk hd ...
-        fn.argtypes = [ptr] * 6 + [i32] * 5 + [f32, i32, i32, f32, ptr]
+    if route == "simt":       # q k v qp kp out lse dtype HK G Sq Sk hd ...
+        fn.argtypes = [ptr] * 7 + [i32] * 6 + [f32, i32, i32, f32, ptr]
+    elif route == "tc":       # q k v qp kp out lse HK G Sq Sk hd ...
+        fn.argtypes = [ptr] * 7 + [i32] * 5 + [f32, i32, i32, f32, ptr]
     else:                     # q k v qp kp out ws dtype HK G Sq Sk hd ...
         fn.argtypes = [ptr] * 7 + [i32] * 6 + [f32, i32, i32, f32, i32,
                                                i32, ptr]
@@ -172,29 +179,34 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_pos: torch.Tensor, k_pos: torch.Tensor, out: torch.Tensor, *,
            g: int, scale: float, causal: bool, window: int,
            attn_cap: float, splits: int | None = None,
-           workspace: torch.Tensor | None = None) -> tuple:
+           workspace: torch.Tensor | None = None,
+           lse: torch.Tensor | None = None) -> tuple:
     """Enqueue one call on the current stream along the route that
     :func:`plan` picks, WITHOUT the input checks and without counting it:
     for timing loops over inputs that :func:`flash_attention_cuda` has
     already accepted (float32 positions).  Where the decode route needs a
     workspace (:func:`needs_workspace`) it allocates one unless one of at
-    least :func:`workspace_floats` f32 words is given.  Returns ``(route,
-    splits)``; raises if a launch is refused."""
+    least :func:`workspace_floats` f32 words is given.  ``lse`` (f32
+    ``[H, Sq]``) receives the rows' log-sum-exp; without it the kernel
+    gets a null pointer and writes none.  Returns ``(route, splits)``;
+    raises if a launch is refused."""
     HK, Sk, hd = k.shape
     Sq = q.shape[1]
     route, n = plan(q.dtype, hd, g * Sq, Sk, HK, n_sms(q.device.index or 0),
-                    splits)
+                    splits, lse=lse is not None)
     lib = _lib(route)
     common = (float(scale), int(bool(causal)), int(window), float(attn_cap))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             k_pos.data_ptr(), out.data_ptr())
+    lse_ptr = None if lse is None else lse.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "simt":
-            err = lib.launch(*ptrs, DTYPES[q.dtype], HK, g, Sq, Sk, hd,
-                             *common, stream)
+            err = lib.launch(*ptrs, lse_ptr, DTYPES[q.dtype], HK, g, Sq, Sk,
+                             hd, *common, stream)
         elif route == "tc":
-            err = lib.launch(*ptrs, HK, g, Sq, Sk, hd, *common, stream)
+            err = lib.launch(*ptrs, lse_ptr, HK, g, Sq, Sk, hd, *common,
+                             stream)
         else:
             need = workspace_floats(HK, n, g * Sq, hd)
             if not needs_workspace(q.dtype, hd, n):
@@ -217,13 +229,15 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                          g: int, scale: float, causal: bool, window: int,
-                         attn_cap: float,
-                         splits: int | None = None) -> torch.Tensor:
+                         attn_cap: float, splits: int | None = None,
+                         lse: bool = False):
     """Launch the route :func:`plan` picks: ``q [H, Sq, hd]``, ``k``/``v
     [HK, Sk, hd]`` (q head ``h`` reads kv head ``h // g``) -> ``out [H,
-    Sq, hd]`` in q's dtype.  The tensors must be contiguous CUDA tensors,
-    16-byte aligned.  ``splits`` forces the decode route's split count.
-    Counts the call in ``launches`` and its route in ``route_launches``."""
+    Sq, hd]`` in q's dtype, or with ``lse=True`` ``(out, lse)``, ``lse``
+    the rows' f32 log-sum-exp ``[H, Sq]`` (never on the decode route).
+    The tensors must be contiguous CUDA tensors, 16-byte aligned.
+    ``splits`` forces the decode route's split count.  Counts the call in
+    ``launches`` and its route in ``route_launches``."""
     check_inputs(q, k, v, q_pos, k_pos, g)
     if not q.is_cuda:
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
@@ -235,11 +249,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be 16-byte aligned")
     qp, kp = _positions(q_pos, q.device), _positions(k_pos, q.device)
     out = torch.empty_like(q)
+    lse_out = (torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+               if lse else None)
     route, _ = launch(q, k, v, qp, kp, out, g=g, scale=scale, causal=causal,
-                      window=window, attn_cap=attn_cap, splits=splits)
+                      window=window, attn_cap=attn_cap, splits=splits,
+                      lse=lse_out)
     flash_attention_cuda.launches += 1
     flash_attention_cuda.route_launches[route] += 1
-    return out
+    return (out, lse_out) if lse else out
 
 
 def reset_counts() -> None:

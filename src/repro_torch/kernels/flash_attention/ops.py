@@ -31,6 +31,31 @@ def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ref.flash_attention_flat(q, k, v, q_pos, k_pos, **kw)
 
 
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal,
+                        window, attn_cap, scale) -> tuple:
+    """The training forward: ``q [B, KV, G, Sq, hd]``, ``k``/``v [B, KV,
+    Sk, hd]`` -> ``(out [B, KV, G, Sq, hd], lse [B, KV, G, Sq] f32)``, the
+    rows' log-sum-exp that the recompute backward reads.  On a CUDA tensor
+    the kernel writes both (``tc`` or ``simt``, never ``decode``); on the
+    CPU the plain version computes them."""
+    B, KV, G, Sq, hd = q.shape
+    Sk = k.shape[2]
+    flat = (q.reshape(B * KV * G, Sq, hd).contiguous(),
+            k.reshape(B * KV, Sk, hd).contiguous(),
+            v.reshape(B * KV, Sk, hd).contiguous(), q_pos, k_pos)
+    kw = dict(g=G, scale=float(scale), causal=bool(causal),
+              window=int(window), attn_cap=float(attn_cap))
+    if q.is_cuda:
+        out, lse = flash_attention_cuda(*flat, **kw, lse=True)
+    elif q.device.type == "cpu":
+        check_inputs(*flat, G)
+        out, lse = ref.flash_attention_flat_lse(*flat, **kw)
+    else:
+        raise ValueError(f"no flash_attention_lse for device {q.device}")
+    return out.reshape(B, KV, G, Sq, hd), lse.reshape(B, KV, G, Sq)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal,
                     window, attn_cap, scale) -> torch.Tensor:

@@ -15,6 +15,12 @@ passed in, never NaN: every score of such a row is ``NEG_INF``, so the
 softmax is uniform.  That is the TPU kernel's answer whenever its kv tile
 divides ``Sk`` (with a ragged tile it also counts its own zero padding).
 
+:func:`flash_attention_flat_lse` also returns each row's f32
+log-sum-exp ``[H, Sq]`` over its visible keys: the second output of the
+kernel's training launches (``tc`` and ``simt``).  A row with no visible
+key gets ``NEG_INF + log(Sk)``, the log-sum-exp of its ``Sk`` masked
+scores, consistent with the uniform softmax above.
+
 The CPU path of :func:`..ops.flash_attention` runs this; on a card the
 path runs the kernel, and the tests and ``chip_smoke.py`` call this
 directly to hold the kernel against it.  It launches no copy from the
@@ -36,17 +42,40 @@ def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                          g: int, scale: float, causal: bool, window: int,
                          attn_cap: float) -> torch.Tensor:
+    s = _scores(q, k, q_pos, k_pos, g, scale, causal, window, attn_cap)
+    return _attend(torch.softmax(s, dim=-1), v, q)
+
+
+def flash_attention_flat_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, q_pos: torch.Tensor,
+                             k_pos: torch.Tensor, *, g: int, scale: float,
+                             causal: bool, window: int,
+                             attn_cap: float) -> tuple:
+    """``(out, lse)``: :func:`flash_attention_flat`'s output and the
+    rows' f32 log-sum-exp ``[H, Sq]``."""
+    s = _scores(q, k, q_pos, k_pos, g, scale, causal, window, attn_cap)
+    lse = torch.logsumexp(s, dim=-1).reshape(q.shape[0], q.shape[1])
+    return _attend(torch.softmax(s, dim=-1), v, q), lse
+
+
+def _scores(q, k, q_pos, k_pos, g: int, scale: float, causal: bool,
+            window: int, attn_cap: float) -> torch.Tensor:
+    """Masked f32 scores ``[HK, g, Sq, Sk]``."""
     H, Sq, hd = q.shape
-    HK, Sk, _ = k.shape
+    HK = k.shape[0]
     qg = q.reshape(HK, g, Sq, hd).float()
     s = torch.einsum("kgqd,kcd->kgqc", qg, k.float()) * scale
     if attn_cap > 0.0:
         s = torch.tanh(s * (1.0 / attn_cap)) * attn_cap
-    s = s.masked_fill(~_visible(q_pos, k_pos, causal, window, q.device),
-                      NEG_INF)
-    w = torch.softmax(s, dim=-1)
+    return s.masked_fill(~_visible(q_pos, k_pos, causal, window, q.device),
+                         NEG_INF)
+
+
+def _attend(w: torch.Tensor, v: torch.Tensor, q: torch.Tensor):
+    """The softmax weights ``w [HK, g, Sq, Sk]`` times v, in q's dtype and
+    flat layout."""
     out = torch.einsum("kgqc,kcd->kgqd", w, v.float())
-    return out.to(q.dtype).reshape(H, Sq, hd)
+    return out.to(q.dtype).reshape(q.shape)
 
 
 def _visible(q_pos, k_pos, causal: bool, window: int, device):

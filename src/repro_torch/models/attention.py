@@ -12,14 +12,22 @@ the parity tests:
 
 - ``ref``      materialized [B,KV,G,S,S] scores with an additive mask
                bias -- the model's oracle
-- ``chunked``  online softmax over KV chunks (the forward of the
-               reference's flash-style jnp scan, as a loop over chunks)
+- ``chunked``  online softmax over KV chunks (the reference's
+               flash-style jnp scan, as a loop over chunks), with the
+               reference's recompute backward
 - ``pallas``   the kernel's plain PyTorch version
 
-Not on the serving path of the dense archs, so they raise
-``NotImplementedError`` naming ROADMAP Queue 1 #8: the int8 KV cache,
-cross-attention (``kv=``) and the chunked backward (the port runs the
-forward only; call it under ``torch.no_grad()``).
+Gradients (training) go through :class:`FlashAttention`, the port of the
+reference's ``_make_flash`` custom VJP: its forward saves only ``(q, k,
+v, out, lse)`` -- on a CUDA tensor the kernel writes ``out`` and the
+row log-sum-exp ``lse`` in one launch, on the CPU the chunked forward
+computes them -- and its backward recomputes the probabilities chunk by
+chunk as ``exp(s - lse)``.  The backward is plain PyTorch on both
+devices, as the reference leaves it to XLA outside any kernel.
+
+Not on the dense archs' paths, so they raise ``NotImplementedError``
+naming ROADMAP Queue 1 #8: the int8 KV cache and cross-attention
+(``kv=``).
 """
 from __future__ import annotations
 
@@ -101,23 +109,28 @@ def _sdpa_ref(q, k, v, q_pos, k_pos, *, causal, window, attn_cap, scale):
     return torch.einsum("bkgqc,bkcd->bkgqd", w.to(v.dtype), v)
 
 
-def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, window, attn_cap, scale,
-                  chunk: int = 1024):
-    """Flash-style attention forward: online softmax over KV chunks."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(f"the chunked attention backward is {LATER}")
-    B, KV, G, Sq, hd = q.shape
+def _chunk_kv(k, v, k_pos, chunk: int):
+    """Keys padded to whole chunks of ``min(chunk, Sk)``: ``(k, v, k_pos,
+    c, n_chunks, pad)``; padded keys sit at the sentinel position 2**30,
+    beyond the validity limit, so every mask drops them."""
     Sk = k.shape[2]
     c = min(chunk, Sk)
     n_chunks = -(-Sk // c)
     pad = n_chunks * c - Sk
-    q_pos = q_pos.float()
-    k_pos = k_pos.float()
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, pad))
-        # pad sentinel: beyond the validity limit so every mask drops it
         k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=2.0 ** 30)
+    return k, v, k_pos, c, n_chunks, pad
+
+
+def _chunked_forward(q, k, v, q_pos, k_pos, *, causal, window, attn_cap,
+                     scale, chunk):
+    """The reference's ``fwd_pass``: online softmax over KV chunks with an
+    additive mask bias; returns ``(out in q's dtype, lse [B,KV,G,Sq]
+    f32)``, ``lse = m + log(l)``."""
+    B, KV, G, Sq, hd = q.shape
+    k, v, k_pos, c, n_chunks, _ = _chunk_kv(k, v, k_pos, chunk)
     qf = q.float()
     m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32,
                    device=q.device)
@@ -138,13 +151,103 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, window, attn_cap, scale,
         acc = acc * alpha[..., None] + torch.einsum(
             "bkgqc,bkcd->bkgqd", p.to(vb.dtype), vb).float()
         m = m_new
-    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    return out, lse
 
 
-def _sdpa_pallas(q, k, v, q_pos, k_pos, **kw):
+def _flash_backward(q, k, v, q_pos, k_pos, out, lse, do, *, causal, window,
+                    attn_cap, scale, chunk):
+    """The reference's ``flash_bwd``: the probabilities recomputed chunk by
+    chunk as ``exp(s - lse)``, ``delta = sum(do * out)``, the softcap's
+    factor ``1 - tanh^2``, the window and padding masks; dk/dv trimmed of
+    the padding.  Products in f32.  Returns ``(dq, dk, dv)`` in the
+    inputs' dtypes."""
+    Sk = k.shape[2]
+    kp, vp, k_pos, c, n_chunks, pad = _chunk_kv(k, v, k_pos, chunk)
+    qf = q.float()
+    do_f = do.float()
+    delta = torch.sum(do_f * out.float(), dim=-1)             # [B,KV,G,S]
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for i in range(n_chunks):
+        kb = kp[:, :, i * c:(i + 1) * c].float()
+        vb = vp[:, :, i * c:(i + 1) * c].float()
+        pb = k_pos[i * c:(i + 1) * c]
+        sraw = torch.einsum("bkgqd,bkcd->bkgqc", qf, kb) * scale
+        s = softcap(sraw, attn_cap)
+        s = s + _fmask_bias(q_pos, pb, causal, window)
+        p = torch.exp(s - lse[..., None])                      # true probs
+        dvs.append(torch.einsum("bkgqc,bkgqd->bkcd", p, do_f))
+        dp = torch.einsum("bkgqd,bkcd->bkgqc", do_f, vb)
+        ds = p * (dp - delta[..., None])
+        if attn_cap > 0.0:
+            th = torch.tanh(sraw * (1.0 / attn_cap))
+            ds = ds * (1.0 - th * th)
+        dq = dq + torch.einsum("bkgqc,bkcd->bkgqd", ds, kb) * scale
+        dks.append(torch.einsum("bkgqc,bkgqd->bkcd", ds, qf) * scale)
+    dk = torch.cat(dks, dim=2)
+    dv = torch.cat(dvs, dim=2)
+    if pad:
+        dk, dv = dk[:, :, :Sk], dv[:, :, :Sk]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the reference's recompute backward
+    (``_make_flash``): ``q [B,KV,G,Sq,hd]``, ``k``/``v [B,KV,Sk,hd]``,
+    float32 positions -> ``out`` in q's dtype.
+
+    Forward: on a CUDA tensor one launch of the Hopper kernel that also
+    writes the row log-sum-exp (``tc`` or ``simt``); on the CPU the
+    chunked forward.  Only ``(q, k, v, out, lse)`` and the positions are
+    saved, never a score.  Backward: :func:`_flash_backward`, plain
+    PyTorch on both devices, ``chunk`` keys at a time."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, attn_cap,
+                scale, chunk):
+        kw = dict(causal=bool(causal), window=int(window),
+                  attn_cap=float(attn_cap), scale=float(scale))
+        if q.is_cuda:
+            out, lse = fa_ops.flash_attention_lse(q, k, v, q_pos, k_pos,
+                                                  **kw)
+        else:
+            out, lse = _chunked_forward(q, k, v, q_pos, k_pos, **kw,
+                                        chunk=int(chunk))
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, out, lse)
+        ctx.kw = dict(kw, chunk=int(chunk))
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_pos, k_pos, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, q_pos, k_pos, out, lse, do,
+                                     **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, window, attn_cap, scale,
+                  chunk: int = 1024):
+    """Flash-style attention: online softmax forward + recompute backward
+    (:class:`FlashAttention`)."""
+    return FlashAttention.apply(q, k, v, q_pos.float(), k_pos.float(),
+                                causal, window, attn_cap, scale, chunk)
+
+
+def _sdpa_pallas(q, k, v, q_pos, k_pos, *, chunk: int = 1024, **kw):
+    """The kernel: a serving call launches it alone (no log-sum-exp); a
+    call that needs gradients goes through :class:`FlashAttention`, whose
+    forward launches it with the log-sum-exp.  On the CPU, the kernel's
+    plain version (differentiable as it is)."""
     dt = torch.promote_types(q.dtype, k.dtype)   # a qkv bias widens q
-    return fa_ops.flash_attention(q.to(dt), k.to(dt), v.to(dt), q_pos,
-                                  k_pos, **kw)
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    if q.is_cuda and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(
+            q, k, v, q_pos.float(), k_pos.float(), kw["causal"],
+            kw["window"], kw["attn_cap"], kw["scale"], chunk)
+    return fa_ops.flash_attention(q, k, v, q_pos, k_pos, **kw)
 
 
 _IMPLS = {"ref": _sdpa_ref, "chunked": _sdpa_chunked, "pallas": _sdpa_pallas}
@@ -230,8 +333,8 @@ def attention(p, x, *, n_heads: int, n_kv_heads: int, head_dim: int,
     kw = dict(causal=True, window=window, attn_cap=attn_cap, scale=scale)
     if x.device.type != "cpu":
         impl = "pallas"          # the card runs the kernel, never a plain one
-    if impl == "chunked":
-        kw.update(chunk=chunk)
+    if impl != "ref":
+        kw.update(chunk=chunk)   # the backward's chunk on the kernel's path
     out = _IMPLS[impl](qg, k, v, positions, k_pos, **kw)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, S, n_heads * head_dim)
     return matmul(out, p["wo"]), layer_cache

@@ -16,6 +16,14 @@ on the card matches the CPU's within 1e-3 in f32, and within
 where the tensor-core and decode routes run inside the model (the
 constants' comments give the reasons; ``tests/test_torch_flash_faults.py``
 puts both bf16 limits to planted faults on the CPU).
+
+Training: the flash kernel's training launch (``lse=True``) against the
+plain version's ``(out, lse)`` (``out`` as above, ``lse`` to
+``chip_smoke.FA_LSE_TOL``), its serving launch (a null lse pointer)
+equal to it bit for bit; ``FlashAttention``'s gradients on the card
+against the CPU's (relative norm 1e-4 in f32, 5e-2 in bf16); a small
+training run card against CPU within ``chip_smoke.SMALL_TOL``, which
+planted faults exceed; the ``Trainer``'s crash and restart on the card.
 """
 import dataclasses
 import importlib.util
@@ -337,6 +345,84 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     assert flash_attention_cuda.route_launches == routes
     ok, err = chip_smoke.fa_close(got, want, dtype)
     assert ok, f"max abs err {err}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", chip_smoke.FA_CHECK_CASES
+                         + [chip_smoke.TRAIN_FA_CASE],
+                         ids=[c[0] for c in chip_smoke.FA_CHECK_CASES]
+                         + ["train"])
+def test_flash_lse_matches_plain(cuda, case, dtype):
+    """The training launch writes out and the log-sum-exp on tc or simt;
+    a serving launch on the same route gives the same out bit for bit."""
+    args, kw = chip_smoke.fa_case_inputs(case, dtype, cuda, seed=9)
+    routes = dict(flash_attention_cuda.route_launches)
+    got, lse = flash_attention_cuda(*args, **kw, lse=True)
+    route = chip_smoke.fa_lse_route(case, dtype)
+    routes[route] += 1
+    assert flash_attention_cuda.route_launches == routes
+    want, want_lse = fa_ref.flash_attention_flat_lse(*args, **kw)
+    torch.cuda.synchronize()
+    ok, err = chip_smoke.fa_close(got, want, dtype)
+    assert ok, f"max abs err {err}"
+    assert lse.dtype == torch.float32 and lse.shape == args[0].shape[:2]
+    assert float((lse - want_lse).abs().max()) <= chip_smoke.FA_LSE_TOL[dtype]
+    if chip_smoke.fa_route(case, dtype) == route:
+        assert torch.equal(flash_attention_cuda(*args, **kw), got)
+
+
+@pytest.mark.parametrize("dtype,hd,tol", [(torch.float32, 16, 1e-4),
+                                          (torch.bfloat16, 128, 5e-2)],
+                         ids=["f32_simt", "bf16_tc"])
+def test_flash_function_gradients_card_vs_cpu(cuda, dtype, hd, tol):
+    from repro_torch.models import attention as attn_mod
+    rng = np.random.default_rng(10)
+    shapes = ((2, 2, 4, 96, hd), (2, 2, 96, hd), (2, 2, 96, hd))
+    arrays = [rng.standard_normal(s, dtype=np.float32) for s in shapes]
+    do = rng.standard_normal(shapes[0], dtype=np.float32)
+    pos = torch.arange(96, dtype=torch.float32)
+    results = {}
+    for dev in ("cpu", cuda):
+        qkv = [torch.from_numpy(a).to(dev, dtype).requires_grad_()
+               for a in arrays]
+        p = pos.to(dev)
+        before = flash_attention_cuda.launches
+        out = attn_mod.FlashAttention.apply(*qkv, p, p, True, 0, 0.0,
+                                            hd ** -0.5, 32)
+        out.backward(torch.from_numpy(do).to(dev, dtype))
+        results[str(dev)] = [t.grad.float().cpu() for t in qkv]
+        assert flash_attention_cuda.launches - before == (
+            1 if dev != "cpu" else 0)
+    for got, want in zip(results["cuda"], results["cpu"]):
+        assert float((got - want).norm() / want.norm()) <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_small_train_step_card_vs_cpu(cuda, dtype):
+    import repro_torch.data as data
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.transformer import TrainModel
+    from repro_torch.optim import adamw
+    out = chip_smoke.small_train_matches_cpu(
+        get_config, TrainModel, adamw, data, attn_mod, fa_kernel, dtype, 0,
+        cuda)
+    assert out["grad_err"] <= chip_smoke.SMALL_TOL[dtype][1]
+
+
+def test_trainer_crash_restart_on_card(cuda):
+    import repro_torch.data as data
+    import repro_torch.runtime as runtime
+    from repro_torch.models import convert
+    from repro_torch.models.transformer import TrainModel
+    from repro_torch.optim import adamw
+    out = chip_smoke.trainer_crash_restart(
+        get_config, TrainModel, adamw, data, runtime, convert, fa_kernel,
+        cuda, 0)
+    assert out["restored_step"] == 20 and out["async_start"] == 40
+    cfg = get_config("llama3-8b", smoke=True)
+    # (25 + 20 + 40 + 40) steps, each 2 flash launches a layer (remat)
+    assert out["launches"] == 125 * 2 * cfg.n_layers
 
 
 def test_flash_model_layout_op(cuda):

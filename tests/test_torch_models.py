@@ -310,9 +310,3 @@ def test_unported_paths_raise():
         pt_attn.attention(p, x, n_heads=1, n_kv_heads=1, head_dim=8,
                           positions=torch.arange(2),
                           kv=(torch.zeros(1, 1, 2, 8),) * 2)
-    q = torch.zeros(1, 1, 1, 2, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        pt_attn._sdpa_chunked(q, torch.zeros(1, 1, 2, 8),
-                              torch.zeros(1, 1, 2, 8), torch.arange(2),
-                              torch.arange(2), causal=True, window=0,
-                              attn_cap=0.0, scale=1.0)
