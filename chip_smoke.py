@@ -157,7 +157,33 @@ Phases, in order; any failure exits non-zero:
    temporary directory) and restarted: the restore equals what the
    step-20 save committed, bit for bit, the resumed run's final params
    are held to an uninterrupted run's, and an async-checkpointed run
-   restores at step 40.
+   restores at step 40;
+12. the MoE sublayer (``models/moe.py``; granite-moe-3b-a800m) — (a)
+   ``moe.route`` on the card against the CPU on the same float32
+   probabilities over ``MOE_ROUTE_CASES`` (exact ties, capacity factors
+   0.05 / 1.25 / 8, groups 1 / 2, up to the serve cell's 26,624 tokens x
+   top-8 of 40): expert ids, capacity ranks, kept slots and counts equal,
+   gate values within 1e-6; ``apply_moe`` and ``apply_moe_dense`` card
+   against CPU in f32 and bf16 (the card on the CPU's routing,
+   ``routing_record``) within ``MOE_APPLY_TOL``, which the planted faults
+   (the tie order reversed, capacity ranks one too high) exceed; (b) the
+   granite-moe smoke config served (f32; bf16 at head_dim 64 on ``tc`` +
+   ``decode``) and trained (f32, bf16) card against CPU, with the MoE
+   faults beside phase 11's planted in the CPU's training, and qwen1.5's
+   bf16 smoke serve at head_dim 128 with every flash call on ``tc`` or
+   ``decode`` (its QKV biases held in bf16); (c) ``serve_granite_moe_3b``:
+   phase 5's traffic on granite-moe-3b-a800m at its published size
+   (admission equal to the plain version's, 32 ``tc`` + 1,024 ``decode``
+   launches, the MoE capacity path at every prefill layer and the dense
+   path at every decode layer, the share dropped at capacity), phase 6's
+   flash checks and timings at its head_dim-64 shapes, and a profiled
+   prefill and decode window split into flash, expert products, MoE
+   dispatch, other products and the rest; (d)
+   ``train_granite_moe_3b_s4096``: phase 11 (c)'s cell at granite's
+   published size (320 ``tc`` launches with the log-sum-exp, every
+   master changed, the aux term logged beside the cross-entropy, MFU
+   over the router and the top-8 experts a token takes) and the flash op
+   at the head_dim-64 training shape.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``{"kernels": [...]}`` record, and the line before that the
@@ -1020,7 +1046,8 @@ def fa_kernel_vs_plain(fa_ops, fa_ref, fa_kernel, seed: int, dev) -> float:
     return worst
 
 
-def serve_logits_agree(card, cpu, tol: float, rtol: float) -> tuple:
+def serve_logits_agree(card, cpu, tol: float, rtol: float,
+                       tag: str = "phase 2") -> tuple:
     """Two serves' kept logits, step by step: within ``atol = tol`` and
     ``rtol`` at every step, and the same tokens up to the first step
     whose top-2 gap is within ``tol`` (a near-tie may pick either token;
@@ -1041,15 +1068,16 @@ def serve_logits_agree(card, cpu, tol: float, rtol: float) -> tuple:
         check(same[clear].all(), f"step {step}: a token differs where the "
               f"top-2 gap exceeds {tol}")
         if not same.all():
-            log(f"phase 2: near-tie at step {step}; compared up to there")
+            log(f"{tag}: near-tie at step {step}; compared up to there")
             break
     return worst, step + 1
 
 
-def small_serve_config(get_config, dtype: str, head_dim: int = 0):
-    """The llama3-8b smoke config in ``dtype`` with attn_impl "pallas",
-    its head_dim set to ``head_dim`` when given."""
-    cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
+def small_serve_config(get_config, dtype: str, head_dim: int = 0,
+                       arch: str = "llama3-8b"):
+    """``arch``'s smoke config in ``dtype`` with attn_impl "pallas", its
+    head_dim set to ``head_dim`` when given."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
                               dtype=dtype, attn_impl="pallas")
     return dataclasses.replace(cfg, head_dim=head_dim) if head_dim else cfg
 
@@ -1063,35 +1091,48 @@ def small_serve_kwargs(seed: int) -> dict:
 
 def small_serve_matches_cpu(serve_mod, build_model, get_config, seed: int,
                             dev, dtype: str = "float32", head_dim: int = 0,
-                            tol: float = 1e-3, rtol: Optional[float] = None):
+                            tol: float = 1e-3, rtol: Optional[float] = None,
+                            arch: str = "llama3-8b", tag: str = "phase 2",
+                            prompt_len: int = 0):
     """A small serve (:func:`small_serve_config`, the same weights on both
     devices) on the card against the CPU: the same admitted set, and
     logits and tokens as :func:`serve_logits_agree` checks them (``rtol``
     defaults to ``tol``).  In f32 the tolerance 1e-3 covers sums taken in
     another order and the bf16 KV cache, which turns a last-bit
-    difference into one bf16 ulp.  Returns the flash calls the card run
-    made, by route."""
-    import copy
-    cfg = small_serve_config(get_config, dtype, head_dim)
+    difference into one bf16 ulp.  The CPU runs first; an MoE layer on
+    the card then takes the CPU's routing (:func:`routing_record`), and
+    its own choices may differ only at near-ties.  Returns the flash
+    calls the card run made, by route."""
+    from repro_torch.models import moe as moe_mod
+    cfg = small_serve_config(get_config, dtype, head_dim, arch)
     cpu_model = build_model(cfg, device="cpu", seed=seed)
     card_model = copy.deepcopy(cpu_model).to(dev)
     kw = small_serve_kwargs(seed)
+    kw["prompt_len"] = prompt_len or kw["prompt_len"]
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    with routing_record(moe_mod) as cpu_rec:
+        cpu = serve_mod.serve(cfg, device="cpu", model=cpu_model, **kw)
     before = dict(fa_kernel.flash_attention_cuda.route_launches)
-    card = serve_mod.serve(cfg, device=dev, model=card_model, **kw)
+    with routing_record(moe_mod, follow=cpu_rec) as card_rec:
+        card = serve_mod.serve(cfg, device=dev, model=card_model, **kw)
     routes = {r: n - before[r] for r, n in
               fa_kernel.flash_attention_cuda.route_launches.items()}
-    cpu = serve_mod.serve(cfg, device="cpu", model=cpu_model, **kw)
+    flips = routing_flips(card_rec, cpu_rec, ROUTE_GAP_EPS[dtype])
     check(np.array_equal(card.admitted, cpu.admitted),
           "card and CPU admitted different requests")
     check(card.logits_finite and cpu.logits_finite, "non-finite logits")
     rtol = tol if rtol is None else rtol
-    worst, steps = serve_logits_agree(card, cpu, tol, rtol)
-    log(f"phase 2: small serve (llama3-8b smoke, {dtype}, head_dim "
-        f"{cfg.resolved_head_dim}) on the card == on the CPU: "
+    worst, steps = serve_logits_agree(card, cpu, tol, rtol, tag)
+    moe = (f", {len(cpu_rec)} MoE calls, the card's own routing differs "
+           f"from the CPU's at {flips[0]} tokens (smallest reference gap "
+           f"{flips[1]:.3e}, limit {ROUTE_GAP_EPS[dtype]})"
+           if cpu_rec else "")
+    log(f"{tag}: small serve ({cfg.name} smoke, {dtype}, head_dim "
+        f"{cfg.resolved_head_dim}, prompts of {kw['prompt_len']}) on the "
+        f"card == on the CPU: "
         f"{len(card.admitted)} admitted, logits within atol {tol} rtol "
         f"{rtol} over {steps} steps (max abs diff {worst:.3e}), flash "
-        f"calls by route {json.dumps(routes)}")
+        f"calls by route {json.dumps(routes)}{moe}")
     return routes
 
 
@@ -1129,23 +1170,34 @@ LM_PAGE, LM_PAGES = 256, 1024
 
 
 def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
-             pm_kernel, seed: int, dev):
-    """llama3-8b at full width and depth, random bf16 weights from a seeded
+             pm_kernel, seed: int, dev, arch: str = "llama3-8b",
+             tag: str = "phase 5"):
+    """``arch`` at full width and depth, random bf16 weights from a seeded
     generator on the card, served through ``serve``: admission by the
-    PMwCAS kernel, attention by the flash kernel."""
-    cfg = dataclasses.replace(get_config("llama3-8b"), attn_impl="pallas")
+    PMwCAS kernel, attention by the flash kernel.  For an MoE arch also
+    the MoE layer's calls by path (the capacity path at every prefill
+    layer, the dense path at every decode layer) and the share of the
+    prefill's assignments dropped at capacity."""
+    from repro_torch.models import moe as moe_mod
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, seed=seed)
     _sync(dev)
     n_params = sum(p.numel() for p in model.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     norms = (2 * cfg.n_layers + 1) * cfg.d_model
-    check(n_params - norms == cfg.n_params, f"{n_params} parameters")
-    log(f"phase 5: llama3-8b ({cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab}): {cfg.n_params} weights + {norms} norm weights, "
-        f"{n_bytes / 1e9:.2f} GB on the card, drawn in "
-        f"{time.perf_counter() - t0:.3f} s")
+    # the embedding's rows past the vocab (padded to a multiple of 256)
+    pad = (cfg.padded_vocab - cfg.vocab) * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    check(n_params - norms - pad == cfg.n_params, f"{n_params} parameters")
+    experts = (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
+               f"{cfg.moe.d_ff}" if cfg.moe else "")
+    log(f"{tag}: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+        f"d_ff {cfg.d_ff}{experts}, vocab {cfg.vocab}): {cfg.n_params} "
+        f"weights + {norms} norm weights + {pad} padded-vocab weights, "
+        f"{n_bytes / 1e9:.2f} GB on the "
+        f"card, drawn in {time.perf_counter() - t0:.3f} s")
 
     # the plain reserve_slots on the same proposals
     pages_per_req = -(-(LM_PROMPT + LM_STEPS) // LM_PAGE)
@@ -1156,18 +1208,32 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
                                              device=dev), r,
                                   torch.ones_like(r), torch.zeros_like(r))
 
+    dropped = []
+    route = moe_mod.route
+
+    def counted_route(probs, k, capacity):  # drops summed on the card
+        r = route(probs, k, capacity)
+        dropped.append(((~r.keep).sum(), r.keep.numel()))
+        return r
+
     fa_kernel.reset_counts()                        # count this path only
     pm_kernel.reset_counts()
-    res = serve_mod.serve(cfg, requests=LM_REQUESTS, steps=LM_STEPS,
-                          prompt_len=LM_PROMPT, page_size=LM_PAGE,
-                          n_pages=LM_PAGES, device=dev, seed=seed,
-                          model=model)
+    moe_mod.reset_counts()
+    moe_mod.route = counted_route
+    try:
+        res = serve_mod.serve(cfg, requests=LM_REQUESTS, steps=LM_STEPS,
+                              prompt_len=LM_PROMPT, page_size=LM_PAGE,
+                              n_pages=LM_PAGES, device=dev, seed=seed,
+                              model=model)
+    finally:
+        moe_mod.route = route
+    moe_calls = dict(moe_mod.calls)
     fa_launches = fa_kernel.flash_attention_cuda.launches
     fa_routes = dict(fa_kernel.flash_attention_cuda.route_launches)
     pm_launches = pm_kernel.pmwcas_apply_cuda.launches
     pm_routes = dict(pm_kernel.pmwcas_apply_cuda.route_launches)
     B = len(res.admitted)
-    log(f"phase 5: admitted {B}/{LM_REQUESTS} requests ({pages_per_req} "
+    log(f"{tag}: admitted {B}/{LM_REQUESTS} requests ({pages_per_req} "
         f"pages each of {LM_PAGE} tokens, {LM_PAGES} pages)")
     check(np.array_equal(res.granted, want.cpu().numpy()),
           "admission != the plain reserve_slots on the same proposals")
@@ -1187,20 +1253,33 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
     check(pm_launches == 1 and pm_routes == {"smem": 1, "global": 0},
           f"page-grant launches {pm_launches} by route {pm_routes} != 1 "
           "on the smem route")
+    moe = ""
+    if cfg.moe:
+        want_moe = dict(capacity=cfg.n_layers, dense=cfg.n_layers * LM_STEPS)
+        check(moe_calls == want_moe, f"MoE calls by path {moe_calls} != "
+              f"{want_moe} (capacity at every prefill layer, dense at every "
+              f"decode layer)")
+        n_drop = int(sum(d for d, _ in dropped))
+        n_all = sum(n for _, n in dropped)
+        C = moe_mod._capacity(B * LM_PROMPT, cfg.moe.n_experts,
+                              cfg.moe.top_k, cfg.moe.capacity_factor)
+        moe = (f"; MoE calls by path {json.dumps(moe_calls)}; the prefill "
+               f"dropped {n_drop} of {n_all} assignments at capacity {C} "
+               f"({n_drop / n_all:.4f})")
     kv_bytes = 2 * cfg.n_layers * B * cfg.n_kv_heads * (
         LM_PROMPT + LM_STEPS) * cfg.resolved_head_dim * 2
     t = res.timings
-    log(f"phase 5: KV cache bf16 {kv_bytes / 1e9:.2f} GB; prefill of "
+    log(f"{tag}: KV cache bf16 {kv_bytes / 1e9:.2f} GB; prefill of "
         f"{B} x {LM_PROMPT} tokens {t['prefill_s']:.3f} s; decode "
         f"{t['decode_ms_per_step']:.3f} ms/step over {LM_STEPS} steps "
         f"({t['decode_tokens_per_s']:.1f} tokens/s decoding, "
         f"{t['tokens_per_s']:.1f} generated tokens/s with the prefill); "
         f"launches on this path: flash {fa_launches} (by route "
         f"{json.dumps(fa_routes)}), pmwcas {pm_launches} (by route "
-        f"{json.dumps(pm_routes)})")
+        f"{json.dumps(pm_routes)}){moe}")
     return dict(model=model, cfg=cfg, B=B, fa_launches=fa_launches,
                 fa_routes=fa_routes, pm_launches=pm_launches,
-                pm_routes=pm_routes, timings=t)
+                pm_routes=pm_routes, timings=t, moe_calls=moe_calls)
 
 
 def _visible_pairs(qp, kp) -> int:
@@ -1324,7 +1403,8 @@ def fa_fault_errs(fa_ref, args, kw, want, tile: int, stages: int) -> dict:
             for name, (kf, vf, kpf) in runs.items()}
 
 
-def flash_timings(fa_ops, fa_ref, fa_kernel, lm, dev, seed: int):
+def flash_timings(fa_ops, fa_ref, fa_kernel, lm, dev, seed: int,
+                  tag: str = "phase 6"):
     """The flash op at the slice's prefill and decode shapes (one layer,
     random q/k/v from a seed).  Kernel against plain in f32 (2e-5,
     prefill at B = 1; on the ``simt`` route and the decode route's SIMT
@@ -1442,7 +1522,7 @@ def flash_timings(fa_ops, fa_ref, fa_kernel, lm, dev, seed: int):
         best = res.get("graph_ms", ms)
         rate = (f"{flops / best / 1e9:.1f} TFLOP/s" if by == "operations"
                 else f"{n_bytes / best / 1e9:.4f} TB/s")
-        log(f"phase 6: flash at the {shape} shape q [{q.shape[0]}, {Sq}, "
+        log(f"{tag}: flash at the {shape} shape q [{q.shape[0]}, {Sq}, "
             f"{hd}] x k/v [{HK}, {Sk}, {hd}] bf16 (B = {Bc} of {B}; f32 "
             f"check at B = {B32}): route {route}, splits {splits}; stream "
             f"time per call (CUDA events, back to back) kernel "
@@ -1493,22 +1573,24 @@ def _device_split(fn):
     return sum(by_name.values()), wall_us, groups, top, flash
 
 
-def _log_split(what, flash_made, busy, wall, groups, top, flash_seen):
+def _log_split(what, flash_made, busy, wall, groups, top, flash_seen,
+               tag: str = "phase 6"):
     if not busy:
-        log(f"phase 6: {what}: device time not measured (the profiler saw "
+        log(f"{tag}: {what}: device time not measured (the profiler saw "
             "no device time)")
         return
     shares = ", ".join(f"{k} {v:.1f} us ({v / busy:.3f})"
                        for k, v in groups.items())
-    log(f"phase 6: {what}: device busy {busy:.1f} us of {wall:.1f} us "
+    log(f"{tag}: {what}: device busy {busy:.1f} us of {wall:.1f} us "
         f"wall, idle share {1 - busy / wall:.4f} (profiler); by group: "
         f"{shares}; flash launches in the trace: {flash_seen} of "
         f"{flash_made}")
     for name, us in top[:5]:
-        log(f"phase 6:   {us:12.1f} us  {name[:100]}")
+        log(f"{tag}:   {us:12.1f} us  {name[:100]}")
 
 
-def where_time_goes(lm, ft, dev, seed: int, steps: int = 8):
+def where_time_goes(lm, ft, dev, seed: int, steps: int = 8,
+                    tag: str = "phase 6"):
     """One prefill and a window of decode steps at the slice's batch and
     cache length, profiled: device busy share and time by kernel group,
     and the flash kernel's device time per prefill launch inside the
@@ -1524,11 +1606,11 @@ def where_time_goes(lm, ft, dev, seed: int, steps: int = 8):
         cache = model.init_cache(B, LM_PROMPT + LM_STEPS)
         split = _device_split(lambda: model.prefill(prompt, cache))
         _log_split(f"one prefill of {B} x {LM_PROMPT} tokens", cfg.n_layers,
-                   *split)
-        log(f"phase 6: clocks, power, temperature after it: {_clocks()}")
+                   *split, tag=tag)
+        log(f"{tag}: clocks, power, temperature after it: {_clocks()}")
         if split[0] and split[4] == cfg.n_layers:
             alone = ft["prefill"]
-            log(f"phase 6: flash per prefill launch inside the model "
+            log(f"{tag}: flash per prefill launch inside the model "
                 f"{split[2]['flash'] / cfg.n_layers:.1f} us (profiler) "
                 f"at B = {lm['B']} against {alone['ms'] * 1e3:.1f} us alone "
                 f"(CUDA events, B = {alone['B']})")
@@ -1540,7 +1622,7 @@ def where_time_goes(lm, ft, dev, seed: int, steps: int = 8):
         window()                                   # warm
         cache["index"] = LM_PROMPT
         _log_split(f"decode window of {steps} steps", cfg.n_layers * steps,
-                   *_device_split(window))
+                   *_device_split(window), tag=tag)
 
 
 # ---------------------------------------------------------------------------
@@ -2963,36 +3045,72 @@ def fa_lse_vs_plain(fa_kernel, fa_ref, seed: int, dev) -> dict:
 SMALL_STEPS, SMALL_SEQ, SMALL_BATCH, SMALL_CHUNK = 3, 64, 2, 16
 SMALL_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 5e-2)}
 TRAIN_FAULTS = ("lse_off_by_log2", "delta_dropped")
+MOE_TRAIN_FAULTS = ("pos_shifted", "aux_dropped")
 
 
-def small_train_config(get_config, dtype: str):
-    cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
+def small_train_config(get_config, dtype: str, arch: str = "llama3-8b",
+                       head_dim: int = 128):
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
                               dtype=dtype, attn_impl="chunked",
                               attn_chunk=SMALL_CHUNK)
-    return dataclasses.replace(cfg, head_dim=128) if dtype == "bfloat16" \
-        else cfg
+    return dataclasses.replace(cfg, head_dim=head_dim) \
+        if dtype == "bfloat16" else cfg
 
 
 @contextlib.contextmanager
-def planted(attn_mod, fault: Optional[str]):
-    """The attention backward with a planted fault: the log-sum-exp off by
-    log 2 (a kernel's lse in the wrong base or offset), or ``delta``
-    dropped (the backward fed a zero output, so ``sum(do * out)`` is 0)."""
-    orig = attn_mod._flash_backward
+def planted(attn_mod, fault: Optional[str], moe_mod=None):
+    """A planted fault: in the attention backward, the log-sum-exp off by
+    log 2 (a kernel's lse in the wrong base or offset) or ``delta``
+    dropped (the backward fed a zero output, so ``sum(do * out)`` is 0);
+    in the MoE layer (``moe_mod``), the tie order of the top-k reversed
+    (``tie_rule_dropped``), every capacity rank one too high
+    (``pos_shifted``) or the aux loss dropped (``aux_dropped``)."""
+    saved = []
 
-    def faulty(q, k, v, q_pos, k_pos, out, lse, do, **kw):
-        if fault == "lse_off_by_log2":
-            lse = lse + float(np.log(2.0))
-        elif fault == "delta_dropped":
-            out = torch.zeros_like(out)
-        return orig(q, k, v, q_pos, k_pos, out, lse, do, **kw)
+    def patch(mod, name, fn):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
 
-    if fault is not None:
-        attn_mod._flash_backward = faulty
+    if fault in ("lse_off_by_log2", "delta_dropped"):
+        orig = attn_mod._flash_backward
+
+        def faulty(q, k, v, q_pos, k_pos, out, lse, do, **kw):
+            if fault == "lse_off_by_log2":
+                lse = lse + float(np.log(2.0))
+            else:
+                out = torch.zeros_like(out)
+            return orig(q, k, v, q_pos, k_pos, out, lse, do, **kw)
+
+        patch(attn_mod, "_flash_backward", faulty)
+    elif fault == "tie_rule_dropped":
+        stable = moe_mod.topk_stable
+
+        def higher_first(probs, k):      # the higher id first among equals
+            vals, ids = stable(probs.flip(-1), k)
+            return vals, probs.shape[-1] - 1 - ids
+
+        patch(moe_mod, "topk_stable", higher_first)
+    elif fault == "pos_shifted":
+        route = moe_mod.route
+
+        def shifted(probs, k, capacity):
+            r = route(probs, k, capacity)
+            return r._replace(pos=r.pos + 1, keep=r.pos + 1 < capacity)
+
+        patch(moe_mod, "route", shifted)
+    elif fault == "aux_dropped":
+        apply_moe = moe_mod.apply_moe
+
+        def no_aux(*a, **kw):
+            y, aux = apply_moe(*a, **kw)
+            return y, aux * 0.0
+
+        patch(moe_mod, "apply_moe", no_aux)
     try:
         yield
     finally:
-        attn_mod._flash_backward = orig
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
 
 
 def _grads_and_step(model, adamw, opt_cfg, opt, batch) -> tuple:
@@ -3009,19 +3127,30 @@ def _grads_and_step(model, adamw, opt_cfg, opt, batch) -> tuple:
     return float(loss.detach()), grads
 
 
-def _grad_err(a: dict, b: dict) -> float:
-    return max(float((a[n].float().cpu() - b[n].float().cpu()).norm()
+def _grad_errs(a: dict, b: dict) -> dict:
+    return {n: float((a[n].float().cpu() - b[n].float().cpu()).norm()
                      / b[n].float().cpu().norm().clamp_min(1e-30))
-               for n in b)
+            for n in b}
+
+
+def _grad_err(a: dict, b: dict) -> float:
+    return max(_grad_errs(a, b).values())
 
 
 def small_train_matches_cpu(get_config, TrainModel, adamw, data, attn_mod,
-                            fa_kernel, dtype: str, seed: int, dev) -> dict:
+                            fa_kernel, dtype: str, seed: int, dev,
+                            arch: str = "llama3-8b", head_dim: int = 128,
+                            tag: str = "phase 11 (b)") -> dict:
     """Phase 11 (b) for one dtype: the card's run against the CPU's, step
     by step (loss and every gradient); the planted faults on the CPU's
     first step against its sound first step.  On the card every flash
-    call takes the route of the dtype, twice a layer a step (remat)."""
-    cfg = small_train_config(get_config, dtype)
+    call takes the route of the dtype, twice a layer a step (remat).  For
+    an MoE arch the CPU runs first and the card takes its routing
+    (:func:`routing_record`; its own choices may differ only at
+    near-ties), and the MoE faults are planted too."""
+    from repro_torch.models import moe as moe_mod
+    cfg = small_train_config(get_config, dtype, arch, head_dim)
+    faults_of = TRAIN_FAULTS + (MOE_TRAIN_FAULTS if cfg.moe else ())
     cpu = TrainModel(cfg, device="cpu", seed=seed)
     card = copy.deepcopy(cpu).to(dev)
     opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
@@ -3031,27 +3160,32 @@ def small_train_matches_cpu(get_config, TrainModel, adamw, data, attn_mod,
         seed=seed))
     batches = [stream.next_batch() for _ in range(SMALL_STEPS)]
     faults = {}
-    for fault in TRAIN_FAULTS:
-        with planted(attn_mod, fault):
+    for fault in faults_of:
+        with planted(attn_mod, fault, moe_mod):
             m = copy.deepcopy(cpu)
             faults[fault] = _grads_and_step(
                 m, adamw, opt_cfg, adamw.init_state(opt_cfg, m.param_dict()),
                 batches[0])
-    before = dict(fa_kernel.flash_attention_cuda.route_launches)
-    runs = {}
-    for name, model in (("card", card), ("cpu", cpu)):
+    runs, recs = {}, {}
+    for name, model in (("cpu", cpu), ("card", card)):
         opt = adamw.init_state(opt_cfg, model.param_dict())
-        runs[name] = [_grads_and_step(
-            model, adamw, opt_cfg, opt,
-            {k: torch.as_tensor(v, device=model.device)
-             for k, v in b.items()}) for b in batches]
+        before = dict(fa_kernel.flash_attention_cuda.route_launches)
+        with routing_record(moe_mod, recs.get("cpu")) as recs[name]:
+            runs[name] = [_grads_and_step(
+                model, adamw, opt_cfg, opt,
+                {k: torch.as_tensor(v, device=model.device)
+                 for k, v in b.items()}) for b in batches]
     _sync(dev)
     routes = {r: n - before[r] for r, n in
               fa_kernel.flash_attention_cuda.route_launches.items()}
+    flips = routing_flips(recs["card"], recs["cpu"], ROUTE_GAP_EPS[dtype])
     loss_err = max(abs(a[0] - b[0]) for a, b in zip(runs["card"],
                                                       runs["cpu"]))
-    grad_err = max(_grad_err(a[1], b[1]) for a, b in zip(runs["card"],
-                                                           runs["cpu"]))
+    by_master = collections.Counter()
+    for a, b in zip(runs["card"], runs["cpu"]):
+        for n, e in _grad_errs(a[1], b[1]).items():
+            by_master[n] = max(by_master[n], e)
+    grad_err = max(by_master.values())
     sound = runs["cpu"][0]
     fault_err = {f: dict(loss=abs(r[0] - sound[0]),
                          grad=_grad_err(r[1], sound[1]))
@@ -3071,16 +3205,21 @@ def small_train_matches_cpu(get_config, TrainModel, adamw, data, attn_mod,
     for f, e in fault_err.items():
         check(e["grad"] > grad_tol, f"planted fault {f} reads grad err "
               f"{e['grad']:.3e}, within the limit {grad_tol}")
-    log(f"phase 11 (b): small training {dtype} (llama3-8b smoke, head_dim "
+    moe = (f"; {len(recs['cpu'])} MoE calls, the card's own routing "
+           f"differs from the CPU's at {flips[0]} tokens (smallest reference"
+           f" gap {flips[1]:.3e}, limit {ROUTE_GAP_EPS[dtype]})"
+           if recs["cpu"] else "")
+    log(f"{tag}: small training {dtype} ({cfg.name} smoke, head_dim "
         f"{cfg.resolved_head_dim}, {SMALL_STEPS} steps of {SMALL_BATCH} x "
         f"{SMALL_SEQ} tokens, chunks of {SMALL_CHUNK}) card == CPU: loss "
         f"err {loss_err:.3e} (limit {loss_tol}), grad rel-norm err "
         f"{grad_err:.3e} (limit {grad_tol}); planted faults on the CPU "
         + ", ".join(f"{f}: loss {e['loss']:.3e} grad {e['grad']:.3e}"
                     for f, e in fault_err.items())
-        + f"; flash calls by route {json.dumps(routes)}")
+        + f"; flash calls by route {json.dumps(routes)}{moe}; the largest "
+        f"gradient errors {json.dumps(by_master.most_common(3))}")
     return dict(loss_err=loss_err, grad_err=grad_err, faults=fault_err,
-                routes=routes)
+                routes=routes, flips=flips[0])
 
 
 # (c) the full-width cell train_llama3_8b_L8_s4096: llama3-8b's published
@@ -3098,12 +3237,18 @@ def train_cell_config(get_config):
 
 
 def matmul_params(cfg) -> int:
-    """Parameters the step multiplies by (every layer's projections and
-    MLP, and the head; the embedding lookup excluded)."""
+    """Parameters the step multiplies a token by (every layer's
+    projections and MLP, and the head; the embedding lookup excluded).
+    An MoE layer counts its router and the ``top_k`` experts a token
+    takes, not the capacity padding its products also compute."""
     D, H, KV, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
-    layer = D * H * hd + 2 * D * KV * hd + H * hd * D + 3 * D * cfg.d_ff
-    return layer * cfg.n_layers + D * cfg.vocab
+    total = 0
+    for spec in cfg.unit:
+        total += D * H * hd + 2 * D * KV * hd + H * hd * D
+        total += (D * cfg.moe.n_experts + cfg.moe.top_k * 3 * D * cfg.moe.d_ff
+                  if spec.ffn == "moe" else 3 * D * cfg.d_ff)
+    return total * cfg.n_units + D * cfg.vocab
 
 
 def _is_matmul(name: str) -> bool:
@@ -3120,75 +3265,100 @@ def _kernels_under(evt) -> list:
     return out
 
 
-def train_step_split(step, attn_mod, adamw, transformer) -> dict:
-    """One training step under the profiler, its device time split into
-    ``TRAIN_GROUPS``: the flash kernels (the forward, by name); the
-    attention backward (every kernel under ``_flash_backward``, whose
-    products are plain PyTorch); matrix products outside it (cuBLAS
-    kernels by name); cross-entropy (its forward and the backward nodes
-    ``CE_BACKWARD``); AdamW (every kernel under ``update``); the rest.
-    The ranges are ``record_function`` wrappers put around the three
-    functions for this step only.  Returns µs by group, busy and wall
-    µs."""
+def ranged_profile(fn, wrapped) -> dict:
+    """One call of ``fn`` under the profiler, with ``record_function``
+    ranges put around the functions ``wrapped`` (``(module, name,
+    label)``, labels ``p11.*``) for this call only: busy and wall µs, the
+    flash kernels' and the matrix products' µs (by kernel name), for each
+    label the µs of every kernel under its outermost ranges and of the
+    matrix products among them, and the µs under the cross-entropy's
+    backward nodes (``CE_BACKWARD``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    wrapped = ((attn_mod, "_flash_backward", "p11.attn_bwd"),
-               (adamw, "update", "p11.adamw"),
-               (transformer, "cross_entropy", "p11.cross_entropy"))
     saved = []
     for mod, name, label in wrapped:
-        fn = getattr(mod, name)
+        fn_ = getattr(mod, name)
 
-        def ranged(*a, _fn=fn, _label=label, **kw):
+        def ranged(*a, _fn=fn_, _label=label, **kw):
             with record_function(_label):
                 return _fn(*a, **kw)
 
-        saved.append((mod, name, fn))
+        saved.append((mod, name, fn_))
         setattr(mod, name, ranged)
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            step()
+            fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e6
     finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+        for mod, name, fn_ in saved:
+            setattr(mod, name, fn_)
     events = prof.events()
     busy = flash = mm = 0.0
+    by_name = collections.Counter()
     for e in events:
         # the ranges also show on the device timeline (as annotations
         # spanning their kernels): only kernels, copies and fills count
         if e.device_type == DeviceType.CUDA and \
                 not e.name.startswith("p11."):
             busy += e.device_time_total
+            by_name[e.name[:90]] += e.device_time_total
             if any(f in e.name for f in FLASH_KERNELS):
                 flash += e.device_time_total
             elif _is_matmul(e.name):
                 mm += e.device_time_total
-    ranges = {"p11.attn_bwd": 0.0, "p11.adamw": 0.0,
-              "p11.cross_entropy": 0.0}
-    mm_in_bwd = ce_bwd = 0.0
+    ranges = {label: [0.0, 0.0] for _, _, label in wrapped}
+    ce_bwd = 0.0
     for e in events:
         if e.device_type != DeviceType.CPU:
             continue
         if e.name in ranges and not any(
                 a.name == e.name for a in _ancestors(e)):
             under = _kernels_under(e)
-            ranges[e.name] += sum(us for _, us in under)
-            if e.name == "p11.attn_bwd":
-                mm_in_bwd += sum(us for n, us in under if _is_matmul(n))
+            ranges[e.name][0] += sum(us for _, us in under)
+            ranges[e.name][1] += sum(us for n, us in under if _is_matmul(n))
         elif any(n in e.name for n in CE_BACKWARD) and \
                 "evaluate_function" in e.name:
             ce_bwd += sum(us for _, us in _kernels_under(e))
-    split = {"flash_fwd": flash, "attn_bwd": ranges["p11.attn_bwd"],
-             "matmul": mm - mm_in_bwd,
-             "cross_entropy": ranges["p11.cross_entropy"] + ce_bwd,
-             "adamw": ranges["p11.adamw"]}
-    split["other"] = busy - sum(split.values())
-    return dict(split=split, busy_us=busy, wall_us=wall)
+    return dict(busy_us=busy, wall_us=wall, flash_us=flash, mm_us=mm,
+                ranges=ranges, ce_bwd_us=ce_bwd,
+                top=[(n, round(us, 1)) for n, us in by_name.most_common(6)])
+
+
+def train_step_split(step, attn_mod, adamw, transformer,
+                     moe_mod=None) -> dict:
+    """One training step under the profiler (:func:`ranged_profile`), its
+    device time split into ``TRAIN_GROUPS``: the flash kernels (the
+    forward, by name); the attention backward (every kernel under
+    ``_flash_backward``, whose products are plain PyTorch); matrix
+    products outside it (cuBLAS kernels by name); cross-entropy (its
+    forward and the backward nodes ``CE_BACKWARD``); AdamW (every kernel
+    under ``update``); the rest.  With ``moe_mod`` also the MoE layer's
+    forward and its remat recompute (every kernel under ``apply_moe``):
+    its expert products (``moe_products``) apart from its routing,
+    dispatch and combine (``moe_dispatch``); the backward's products
+    count among the matrix products.  Returns µs by group, busy and wall
+    µs."""
+    wrapped = [(attn_mod, "_flash_backward", "p11.attn_bwd"),
+               (adamw, "update", "p11.adamw"),
+               (transformer, "cross_entropy", "p11.cross_entropy")]
+    if moe_mod is not None:
+        wrapped.append((moe_mod, "apply_moe", "p11.moe"))
+    prof = ranged_profile(step, wrapped)
+    r = prof["ranges"]
+    moe_us, moe_mm = r.get("p11.moe", (0.0, 0.0))
+    split = {"flash_fwd": prof["flash_us"], "attn_bwd": r["p11.attn_bwd"][0],
+             "matmul": prof["mm_us"] - r["p11.attn_bwd"][1] - moe_mm,
+             "cross_entropy": r["p11.cross_entropy"][0] + prof["ce_bwd_us"],
+             "adamw": r["p11.adamw"][0]}
+    if moe_mod is not None:
+        split.update(moe_products=moe_mm, moe_dispatch=moe_us - moe_mm)
+    split["other"] = prof["busy_us"] - sum(split.values())
+    return dict(split=split, busy_us=prof["busy_us"],
+                wall_us=prof["wall_us"], top=prof["top"])
 
 
 def _ancestors(evt):
@@ -3226,7 +3396,7 @@ def _attn_library_ms(q, k, v, qp, kp, scale: float, B: int) -> tuple:
 
 
 def train_flash_timings(fa_kernel, fa_ref, attn_mod, cfg, dev,
-                        seed: int) -> dict:
+                        seed: int, tag: str = "phase 11 (c)") -> dict:
     """The flash op at the cell's training shape (bf16, causal): the
     kernel's training launch (with the log-sum-exp) and the serving
     launch (without) in turns, the plain version, the port's plain
@@ -3277,7 +3447,7 @@ def train_flash_timings(fa_kernel, fa_ref, attn_mod, cfg, dev,
                library_fwd_bwd_ms=lib_fwd_bwd,
                bound_ms=max(bound_ops, bound_bytes),
                bound_by="operations" if bound_ops >= bound_bytes else "bytes")
-    log(f"phase 11 (c): flash at the training shape q [{q.shape[0]}, {S}, "
+    log(f"{tag}: flash at the training shape q [{q.shape[0]}, {S}, "
         f"{hd}] x k/v [{k.shape[0]}, {S}, {hd}] bf16 causal: training launch"
         f" (lse) {ms * 1e3:.1f} us, serving launch (no lse) "
         f"{ms_serve * 1e3:.1f} us (medians of 3 rounds in turns, CUDA "
@@ -3294,16 +3464,21 @@ def train_flash_timings(fa_kernel, fa_ref, attn_mod, cfg, dev,
 
 
 def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
-               transformer, fa_kernel, dev, seed: int) -> dict:
-    """Phase 11 (c): ``train_llama3_8b_L8_s4096`` through
-    ``make_train_step`` with remat: one warm-up step and
+               transformer, fa_kernel, dev, seed: int, cfg=None,
+               name: str = "train_llama3_8b_L8_s4096",
+               tag: str = "phase 11 (c)", moe_mod=None) -> dict:
+    """Phase 11 (c): ``train_llama3_8b_L8_s4096`` (or ``name`` at
+    ``cfg``) through ``make_train_step`` with remat: one warm-up step and
     ``TRAIN_TIMED`` timed ones, the flash launches counted over all of
     them (``(1 + TRAIN_TIMED) x 2 x layers``, every one on ``tc``), the
     losses finite, every master changed; step ms (median), tokens/s, MFU
     (6 x the matrix-product parameters x tokens over the step time at
     989 TFLOP/s), peak memory; then one more step profiled for the
-    device split."""
-    cfg = train_cell_config(get_config)
+    device split.  With ``moe_mod`` (an MoE config) each step's aux term
+    (``aux_loss_weight x sum of the layers' aux / n_layers``, from the
+    forward's ``apply_moe`` calls) is logged apart from the
+    cross-entropy."""
+    cfg = cfg or train_cell_config(get_config)
     model = TrainModel(cfg, device=dev, seed=seed)
     params = model.param_dict()
     n_params = sum(t.numel() for t in params.values())
@@ -3317,18 +3492,36 @@ def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
     probe = {n: (t.detach().flatten()[::max(1, t.numel() // 4096)].clone(),
                  float(t.detach().double().sum()))
              for n, t in params.items()}
+    auxes, aux_terms = [], []
+    if moe_mod is not None:
+        apply_moe = moe_mod.apply_moe
+
+        def recording(*a, **kw):
+            y, aux = apply_moe(*a, **kw)
+            auxes.append(aux.detach())
+            return y, aux
+
+        moe_mod.apply_moe = recording
     torch.cuda.reset_peak_memory_stats()
     fa_kernel.reset_counts()
     losses, times = [], []
-    for _ in range(1 + TRAIN_TIMED):
-        batch = {k: torch.as_tensor(v, device=dev)
-                 for k, v in stream.next_batch().items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt, m = step(params, opt, batch)
-        losses.append(float(m["loss"]))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    try:
+        for _ in range(1 + TRAIN_TIMED):
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in stream.next_batch().items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if moe_mod is not None:   # the forward's calls, not remat's
+                aux_terms.append(cfg.moe.aux_loss_weight * float(
+                    sum(auxes[:cfg.n_layers])) / cfg.n_layers)
+                auxes.clear()
+    finally:
+        if moe_mod is not None:
+            moe_mod.apply_moe = apply_moe
     launches = fa_kernel.flash_attention_cuda.launches
     routes = dict(fa_kernel.flash_attention_cuda.route_launches)
     peak = torch.cuda.max_memory_allocated()
@@ -3349,14 +3542,21 @@ def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
     batch = {k: torch.as_tensor(v, device=dev)
              for k, v in stream.next_batch().items()}
     prof = train_step_split(lambda: step(params, opt, batch), attn_mod,
-                            adamw, transformer)
+                            adamw, transformer, moe_mod)
     busy, wall = prof["busy_us"], prof["wall_us"]
     shares = ", ".join(f"{g} {us / 1e3:.1f} ms ({us / busy:.3f})"
                        for g, us in prof["split"].items()) if busy else \
         "not measured (the profiler saw no device time)"
-    log(f"phase 11 (c): train_llama3_8b_L8_s4096: {cfg.n_layers} layers at "
+    experts = (f" ({cfg.moe.n_experts} experts top-{cfg.moe.top_k} of "
+               f"d_ff {cfg.moe.d_ff})" if cfg.moe else "")
+    ce = [round(x - a, 4) for x, a in zip(losses, aux_terms)]
+    aux = (f"; aux terms {json.dumps([round(x, 6) for x in aux_terms])}, "
+           f"cross-entropy (loss less the aux term) {json.dumps(ce)}"
+           if aux_terms else "")
+    log(f"{tag}: {name}: {cfg.n_layers} layers at "
         f"d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} f32 masters; "
+        f"d_ff {cfg.d_ff}{experts}, vocab {cfg.vocab}; {n_params} f32 "
+        f"masters; "
         f"batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens; losses "
         f"{json.dumps([round(x, 4) for x in losses])}; step s "
         f"{json.dumps([round(t, 4) for t in times])} (first: warm-up), "
@@ -3364,12 +3564,14 @@ def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
         f"{mfu:.4f} (6 x {mm} matrix-product params x {tokens} tokens over "
         f"the step at {H100_BF16_FLOPS:.3g} FLOP/s); peak memory "
         f"{peak / 1e9:.2f} GB (max_memory_allocated); flash launches "
-        f"{launches} {json.dumps(routes)}; every master changed")
-    log(f"phase 11 (c): a profiled step: device busy {busy / 1e3:.1f} ms of "
+        f"{launches} {json.dumps(routes)}; every master changed{aux}")
+    log(f"{tag}: a profiled step: device busy {busy / 1e3:.1f} ms of "
         f"{wall / 1e3:.1f} ms wall, idle share "
         f"{(1 - busy / wall) if busy else float('nan'):.4f}; by group: "
-        f"{shares}; clocks, power, temperature {_clocks()}")
-    res = dict(cfg=cfg, losses=losses, times=times, step_ms=step_s * 1e3,
+        f"{shares}; clocks, power, temperature {_clocks()}; the largest "
+        f"kernels (us) {json.dumps(prof['top'])}")
+    res = dict(cfg=cfg, losses=losses, aux_terms=aux_terms, times=times,
+               step_ms=step_s * 1e3,
                tokens_per_s=tokens / step_s, mfu=mfu, mm_params=mm,
                n_params=n_params, peak_bytes=peak, launches=launches,
                routes=routes, split_us=prof["split"], busy_us=busy,
@@ -3520,6 +3722,401 @@ def train_phase(fa_kernel, fa_ref, dev, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the MoE sublayer (granite-moe-3b-a800m)
+# ---------------------------------------------------------------------------
+
+# Where the card's own top-k may differ from the CPU's (whose choice it then
+# takes, routing_record): the CPU's smallest gap between neighbours of its
+# k+1 largest probabilities under this.  float32: an ulp of a router logit
+# summed in another order.  bfloat16: the router's input is a bf16
+# activation that the two devices round at other places; the spread of the
+# probabilities on the smoke configs (tests/test_torch_moe_models.py).
+ROUTE_GAP_EPS = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@contextlib.contextmanager
+def routing_record(moe_mod, follow=None):
+    """Records every MoE call's ``(probs, expert ids)`` (on the CPU) in a
+    list; with ``follow`` (an earlier run's list) each call then takes
+    that run's expert ids of the same call, with its own gate values at
+    them, so that a near-tie cannot send two runs apart.  The records
+    copy to the host: not for timed runs."""
+    rec = []
+    orig = moe_mod.topk_stable
+
+    def recording(probs, k):
+        vals, ids = orig(probs, k)
+        rec.append((probs.detach().float().cpu(), ids.cpu()))
+        if follow is None:
+            return vals, ids
+        ids = follow[len(rec) - 1][1].to(probs.device)
+        vals = probs.gather(-1, ids)
+        return vals / vals.sum(dim=-1, keepdim=True).clamp_min(1e-9), ids
+
+    moe_mod.topk_stable = recording
+    try:
+        yield rec
+    finally:
+        moe_mod.topk_stable = orig
+
+
+def routing_flips(got, want, eps: float) -> tuple:
+    """``got``'s top-k against ``want``'s (two :func:`routing_record`
+    lists), call by call: where a token's experts or their order differ,
+    ``want``'s smallest gap between neighbours of its k+1 largest
+    probabilities must be under ``eps``.  Returns (tokens that differ,
+    the smallest such gap, inf if none)."""
+    check(len(got) == len(want), f"{len(got)} MoE calls against "
+          f"{len(want)}")
+    n, smallest = 0, float("inf")
+    for (pw, iw), (_, ig) in zip(want, got):
+        differ = (iw != ig).any(dim=-1)
+        if not differ.any():
+            continue
+        k = iw.shape[-1]
+        s = torch.sort(pw, dim=-1, descending=True).values
+        gap = (s[:, :k] - s[:, 1:k + 1]).min(dim=-1).values[differ]
+        check(float(gap.max()) < eps, f"a token routed otherwise than on "
+              f"the CPU where the CPU's gap is {float(gap.max()):.3e} "
+              f"(limit {eps})")
+        smallest = min(smallest, float(gap.min()))
+        n += int(differ.sum())
+    return n, smallest
+
+
+# (a) the routing function on the card against the CPU, fed the same f32
+# probabilities: name, tokens, experts, top-k, capacity factor, groups,
+# ties (duplicated columns and whole rows of equal probabilities).  Up to
+# the serve cell's prefill: 13 x 2,048 tokens, top-8 of 40.
+MOE_ROUTE_CASES = (
+    ("ties", 512, 8, 2, 1.25, 1, True),
+    ("drops_cf0.05", 4096, 40, 8, 0.05, 1, False),
+    ("cf1.25_groups2", 4096, 40, 8, 1.25, 2, True),
+    ("cf8", 4096, 40, 8, 8.0, 1, False),
+    ("serve_prefill", 26624, 40, 8, 1.25, 1, True),
+    ("serve_prefill_groups2", 26624, 40, 8, 1.25, 2, False),
+)
+# apply_moe / apply_moe_dense card against CPU, the card on the CPU's
+# routing: the largest error over the output's largest magnitude.  f32:
+# products summed in another order.  bf16: 8 significant bits, rounded at
+# other places (cuBLAS against the CPU's kernels), as the unit tests'
+# limit (tests/test_torch_moe.py); each planted fault must read above it.
+MOE_APPLY_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+MOE_APPLY_FAULTS = ("tie_rule_dropped", "pos_shifted")
+MOE_APPLY_SHAPE = dict(D=256, E=8, F=128, B=4, S=128, K=2)
+
+
+def moe_probs(rng, N: int, E: int, ties: bool) -> torch.Tensor:
+    logits = rng.standard_normal((N, E)).astype(np.float32)
+    if ties:
+        logits[:, E - 1] = logits[:, 0]
+        logits[:, 2] = logits[:, 1]
+        logits[::7] = 0.0
+    return torch.softmax(torch.from_numpy(logits), dim=-1)
+
+
+def moe_routing_vs_cpu(moe_mod, dev, seed: int) -> dict:
+    """Phase 12 (a), routing: ``moe.route`` on the card against the CPU
+    over ``MOE_ROUTE_CASES`` (with groups, each group routed alone at its
+    own capacity): expert ids, capacity ranks, kept slots and counts
+    equal, gate values within 1e-6."""
+    rng = np.random.default_rng(seed + 29)
+    worst, drops = 0.0, {}
+    for name, N, E, K, cf, groups, ties in MOE_ROUTE_CASES:
+        probs = moe_probs(rng, N, E, ties)
+        n = N // groups
+        C = moe_mod._capacity(n, E, K, cf)
+        kept = 0
+        for g in range(groups):
+            p = probs[g * n:(g + 1) * n]
+            cpu = moe_mod.route(p, K, C)
+            card = moe_mod.route(p.to(dev), K, C)
+            for field in ("expert_ids", "pos", "keep", "counts"):
+                check(torch.equal(getattr(card, field).cpu(),
+                                  getattr(cpu, field)),
+                      f"routing {name}, group {g}: {field} differs on the "
+                      f"card from the CPU")
+            err = float((card.gate_vals.cpu() - cpu.gate_vals).abs().max())
+            check(err <= 1e-6, f"routing {name}: gate values differ by "
+                  f"{err:.3e}")
+            worst = max(worst, err)
+            kept += int(cpu.keep.sum())
+        drops[name] = round(1 - kept / (N * K), 6)
+    log(f"phase 12 (a): moe.route card == CPU (expert ids, capacity ranks, "
+        f"kept slots, counts exact; gate values max abs err {worst:.3e}, "
+        f"limit 1e-6) over {len(MOE_ROUTE_CASES)} cases up to 26,624 "
+        f"tokens x top-8 of 40; dropped shares {json.dumps(drops)}")
+    return dict(gate_err=worst, dropped=drops)
+
+
+def moe_apply_inputs(moe_mod, seed: int):
+    """Weights and tokens for (a)'s apply checks, float32 on the CPU: the
+    tokens carry a constant feature that makes expert 0 lead and experts
+    1 and 3 (equal router columns, different weights) tie for second a
+    logit behind (the rest of the router scaled down so that the order
+    holds for every token), so the tie order shows in the output; every
+    token goes to experts 0 and 1, so capacity drops most of them."""
+    from repro_torch.models.layers import KeyGen
+    sh = MOE_APPLY_SHAPE
+    p = moe_mod.init_moe(KeyGen(seed + 31), sh["D"], sh["E"], sh["F"],
+                         torch.float32)
+    r = p["router"]
+    r[1:] *= 0.1
+    r[0] = torch.tensor([1.2, 1.0, -10.0, 1.0] + [-10.0] * (sh["E"] - 4))
+    r[:, 3] = r[:, 1]
+    x = torch.from_numpy(np.random.default_rng(seed + 37).standard_normal(
+        (sh["B"], sh["S"], sh["D"])).astype(np.float32))
+    x[..., 0] = 5.0
+    return p, x
+
+
+def _rel_err(got, want) -> float:
+    want = want.float().cpu()
+    return float((got.float().cpu() - want).abs().max()
+                 / max(1.0, float(want.abs().max())))
+
+
+def moe_apply_vs_cpu(moe_mod, attn_mod, dev, seed: int) -> dict:
+    """Phase 12 (a), the layer: ``apply_moe`` (capacity 1.25: drops) and
+    ``apply_moe_dense`` (one token a sequence) on the card against the
+    CPU in f32 and bf16, the card taking the CPU's routing (its own may
+    differ only at near-ties); the output within ``MOE_APPLY_TOL`` of the
+    largest magnitude, the aux within 1e-5; then the CPU's output with
+    each planted fault (the tie order reversed, every capacity rank one
+    too high) against the card's reads above the limit."""
+    p32, x32 = moe_apply_inputs(moe_mod, seed)
+    K = MOE_APPLY_SHAPE["K"]
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        p = {k: v.to(dt) for k, v in p32.items()}
+        pc = {k: v.to(dev) for k, v in p.items()}
+        for path in ("capacity", "dense"):
+            x = x32.to(dt) if path == "capacity" else x32[:, :1].to(dt)
+
+            def run(params, xx):
+                if path == "dense":
+                    return moe_mod.apply_moe_dense(params, xx, top_k=K)
+                return moe_mod.apply_moe(params, xx, top_k=K,
+                                         capacity_factor=1.25)
+
+            with routing_record(moe_mod) as cpu_rec:
+                y_cpu, a_cpu = run(p, x)
+            with routing_record(moe_mod, follow=cpu_rec) as card_rec:
+                y_card, a_card = run(pc, x.to(dev))
+            _sync(dev)
+            flips = routing_flips(card_rec, cpu_rec, ROUTE_GAP_EPS["float32"])
+            err = _rel_err(y_card, y_cpu)
+            aux_err = abs(float(a_card) - float(a_cpu))
+            tol = MOE_APPLY_TOL[dtype]
+            check(y_card.dtype == dt and err <= tol and aux_err <= 1e-5,
+                  f"{path} MoE {dtype}: card != CPU (err {err:.3e}, limit "
+                  f"{tol}; aux err {aux_err:.3e})")
+            faults = {}
+            for fault in MOE_APPLY_FAULTS:
+                if path == "dense" and fault == "pos_shifted":
+                    continue                     # no capacity to shift
+                with planted(attn_mod, fault, moe_mod):
+                    faults[fault] = _rel_err(run(p, x)[0], y_card)
+                check(faults[fault] > tol, f"{path} MoE {dtype}: planted "
+                      f"fault {fault} reads {faults[fault]:.3e}, within the "
+                      f"limit {tol}")
+            out[f"{path}_{dtype}"] = dict(err=err, aux_err=aux_err,
+                                          flips=flips[0], faults=faults)
+    log("phase 12 (a): apply_moe (capacity 1.25) and apply_moe_dense at "
+        f"{json.dumps(MOE_APPLY_SHAPE)} card == CPU on the CPU's routing, "
+        f"errors over the largest magnitude (limits "
+        f"{json.dumps(MOE_APPLY_TOL)}) with the planted faults' readings: "
+        + json.dumps(out))
+    return out
+
+
+def moe_small_vs_cpu(serve_mod, build_model, get_config, TrainModel, adamw,
+                     data, attn_mod, fa_kernel, seed: int, dev) -> dict:
+    """Phase 12 (b): the granite-moe smoke config served (f32; bf16 at
+    granite's head_dim 64, the ``tc`` and ``decode`` routes) and trained
+    (f32, bf16 at head_dim 64) on the card against the CPU from the same
+    weights, as phases 2 and 11 (b) do for llama3, with the attention and
+    MoE faults planted in the CPU's training; then the bf16 serve of
+    qwen1.5's smoke config (QKV biases, head_dim 128; prompts of 32 so
+    that its prefill, one q head a kv head, has more than the decode
+    route's 16 rows), whose every flash call must take ``tc`` or
+    ``decode``: its biases are held in bf16, so q and k reach the kernel
+    in bf16 (a bias held in f32 widens them, and the prefill then takes
+    ``simt``)."""
+    arch = "granite-moe-3b-a800m"
+    tag = "phase 12 (b)"
+    out = {"serve_f32": small_serve_matches_cpu(
+        serve_mod, build_model, get_config, seed, dev, arch=arch, tag=tag)}
+    n_layers = get_config(arch, smoke=True).n_layers
+    out["serve_bf16"] = routes = small_serve_matches_cpu(
+        serve_mod, build_model, get_config, seed, dev, dtype="bfloat16",
+        head_dim=64, tol=SERVE_BF16_TOL, rtol=0.0, arch=arch, tag=tag)
+    if dev.type == "cuda":
+        check(routes == dict(tc=n_layers, decode=n_layers * 8, simt=0),
+              f"granite bf16 small serve flash routes {routes}")
+    for dt in ("float32", "bfloat16"):
+        out[f"train_{dt}"] = small_train_matches_cpu(
+            get_config, TrainModel, adamw, data, attn_mod, fa_kernel, dt,
+            seed, dev, arch=arch, head_dim=64, tag=tag)
+    qwen = "qwen1.5-32b"
+    out["qwen_serve_bf16"] = routes = small_serve_matches_cpu(
+        serve_mod, build_model, get_config, seed, dev, dtype="bfloat16",
+        head_dim=128, tol=SERVE_BF16_TOL, rtol=0.0, arch=qwen, tag=tag,
+        prompt_len=32)
+    q_layers = get_config(qwen, smoke=True).n_layers
+    if dev.type == "cuda":
+        check(routes == dict(tc=q_layers, decode=q_layers * 8, simt=0),
+              f"qwen1.5 bf16 small serve flash routes {routes}: a simt "
+              f"call means q or k was widened to f32")
+    return out
+
+
+MOE_ARCH = "granite-moe-3b-a800m"
+
+
+def moe_serve_split(lm, moe_mod, dev, seed: int, steps: int = 8,
+                    tag: str = "phase 12 (c)") -> dict:
+    """The granite serve's device split: one prefill and a window of
+    ``steps`` decode steps profiled with ranges around ``apply_moe`` and
+    ``apply_moe_dense``: flash, the MoE layers' expert products and their
+    routing, dispatch and combine, the other matrix products, the rest,
+    and the idle share."""
+    model, cfg, B = lm["model"], lm["cfg"], lm["B"]
+    rng = np.random.default_rng(seed + 13)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (B, LM_PROMPT)),
+                             device=dev)
+    tok = torch.zeros(B, 1, dtype=torch.int32, device=dev)
+    wrapped = [(moe_mod, "apply_moe", "p11.moe"),
+               (moe_mod, "apply_moe_dense", "p11.moe_dense")]
+    out = {}
+    with torch.inference_mode():
+        cache = model.init_cache(B, LM_PROMPT + LM_STEPS)
+
+        def window():
+            for _ in range(steps):
+                model.decode_step(tok, cache)
+
+        runs = (("prefill", lambda: model.prefill(prompt, cache)),
+                ("decode", window))
+        for what, fn in runs:
+            if what == "decode":
+                window()                       # warm
+                cache["index"] = LM_PROMPT
+            prof = ranged_profile(fn, wrapped)
+            moe_us = sum(v[0] for v in prof["ranges"].values())
+            moe_mm = sum(v[1] for v in prof["ranges"].values())
+            busy, wall = prof["busy_us"], prof["wall_us"]
+            groups = {"flash": prof["flash_us"], "moe_products": moe_mm,
+                      "moe_dispatch": moe_us - moe_mm,
+                      "matmul": prof["mm_us"] - moe_mm}
+            groups["other"] = busy - sum(groups.values())
+            out[what] = dict(groups=groups, busy_us=busy, wall_us=wall)
+            shares = ", ".join(f"{g} {us:.1f} us ({us / busy:.3f})"
+                               for g, us in groups.items()) if busy else \
+                "not measured (the profiler saw no device time)"
+            head = (f"one prefill of {B} x {LM_PROMPT} tokens"
+                    if what == "prefill" else
+                    f"decode window of {steps} steps")
+            log(f"{tag}: {head}: device busy {busy:.1f} us of {wall:.1f} us "
+                f"wall, idle share "
+                f"{(1 - busy / wall) if busy else float('nan'):.4f}; by "
+                f"group: {shares}; the largest kernels (us) "
+                f"{json.dumps(prof['top'])}")
+    log(f"{tag}: clocks, power, temperature after it: {_clocks()}")
+    return out
+
+
+def moe_serve_cell(serve_mod, build_model, get_config, pm_ref, fa_ops,
+                   fa_ref, fa_kernel, pm_kernel, moe_mod, seed: int,
+                   dev) -> dict:
+    """Phase 12 (c): ``serve_granite_moe_3b``, phase 5's traffic on
+    granite-moe-3b-a800m at its published width and depth (admission
+    equal to the plain version's, finite logits, 32 ``tc`` + 1,024
+    ``decode`` flash launches, the MoE capacity path at every prefill
+    layer and the dense path at every decode layer, the dropped share);
+    the flash op at its head_dim-64 prefill and decode shapes (phase 6's
+    checks and timings); the device split."""
+    tag = "phase 12 (c)"
+    lm = lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
+                  pm_kernel, seed, dev, arch=MOE_ARCH, tag=tag)
+    ft = flash_timings(fa_ops, fa_ref, fa_kernel, lm, dev, seed, tag=tag)
+    split = moe_serve_split(lm, moe_mod, dev, seed, tag=tag)
+    res = {k: lm[k] for k in ("B", "fa_launches", "fa_routes", "pm_launches",
+                              "pm_routes", "timings", "moe_calls")}
+    res.update(flash=ft, split=split)
+    del lm
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
+                   transformer, fa_kernel, fa_ref, moe_mod, seed: int,
+                   dev) -> dict:
+    """Phase 12 (d): ``train_granite_moe_3b_s4096``, phase 11 (c)'s cell
+    on granite-moe-3b-a800m at its published width and depth (f32 masters
+    drawn on the card, batch 2 x 4,096, remat, AdamW): 320 flash launches
+    on ``tc`` with the log-sum-exp, finite losses, every master changed
+    (the routers too), the aux term beside the cross-entropy, step ms,
+    tokens/s, MFU (the router and the top-k experts a token takes),
+    peak memory and a profiled step's split with the MoE layer's
+    products and dispatch; then the flash op at the head_dim-64 training
+    shape."""
+    cfg = get_config(MOE_ARCH)
+    tag = "phase 12 (d)"
+    cell = train_cell(get_config, TrainModel, adamw, data, steps_mod,
+                      attn_mod, transformer, fa_kernel, dev, seed, cfg=cfg,
+                      name="train_granite_moe_3b_s4096", tag=tag,
+                      moe_mod=moe_mod)
+    cell["timings"] = train_flash_timings(fa_kernel, fa_ref, attn_mod,
+                                          cell.pop("cfg"), dev, seed,
+                                          tag=tag)
+    return cell
+
+
+def moe_phase(serve_mod, build_model, fa_ops, fa_ref, fa_kernel, pm_ref,
+              pm_kernel, dev, seed: int) -> dict:
+    """Phase 12: the MoE sublayer on the card: (a) routing and the layer
+    card against CPU, with planted faults; (b) the granite-moe smoke
+    config served and trained card against CPU, and qwen1.5's bf16 serve
+    on ``tc``/``decode`` only; (c) ``serve_granite_moe_3b``; (d)
+    ``train_granite_moe_3b_s4096``."""
+    import repro_torch.data as data
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import TrainModel
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    log(f"phase 12: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"on the card at the start")
+    out = dict(routing=moe_routing_vs_cpu(moe_mod, dev, seed),
+               apply=moe_apply_vs_cpu(moe_mod, attn_mod, dev, seed))
+    out["small"] = moe_small_vs_cpu(serve_mod, build_model, get_config,
+                                    TrainModel, adamw, data, attn_mod,
+                                    fa_kernel, seed, dev)
+    out["serve"] = moe_serve_cell(serve_mod, build_model, get_config, pm_ref,
+                                  fa_ops, fa_ref, fa_kernel, pm_kernel,
+                                  moe_mod, seed, dev)
+    out["train"] = moe_train_cell(get_config, TrainModel, adamw, data,
+                                  steps_mod, attn_mod, transformer,
+                                  fa_kernel, fa_ref, moe_mod, seed, dev)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 12 took {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    return smi[0] if smi else "unknown"
+
 
 def build_kernels(builders) -> None:
     """Build every kernel's source at once (``builders``: one zero-argument
@@ -3579,10 +4176,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
-    card = smi[0] if smi else "unknown"
+    card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, device "
@@ -3626,6 +4220,10 @@ def main(argv=None) -> int:
     train = train_phase(fa_kernel, fa_ref, dev, args.seed)
     tc, tt = train["cell"], train["timings"]
     log("train: " + json.dumps(train, default=str))
+    moe = moe_phase(serve_mod, build_model, fa_ops, fa_ref, fa_kernel, ref,
+                    kernel, dev, args.seed)
+    ms, mt = moe["serve"], moe["train"]
+    log("moe: " + json.dumps(moe, default=str))
     log(f"the whole smoke took {time.perf_counter() - t_start:.1f} s")
 
     pre, dec = ft["prefill"], ft["decode"]
@@ -3665,6 +4263,8 @@ def main(argv=None) -> int:
                                  for K, t in tree["timings"].items()},
         "chaos_storm_route_launches": chaos_run["storm"]["routes"],
         "chaos_storm_dispatches": chaos_run["storm"]["dispatches"],
+        "moe_serve_launches": ms["pm_launches"],
+        "moe_serve_route_launches": ms["pm_routes"],
         "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -3674,6 +4274,8 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
         "launches": fa_serve["launches"],
         "max_abs_err": max(fa_worst, pre["err"], dec["err"],
+                           ms["flash"]["prefill"]["err"],
+                           ms["flash"]["decode"]["err"],
                            *(w[0] for w in train["lse"]["worst"].values())),
         "ms": pre["ms"], "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
@@ -3687,7 +4289,16 @@ def main(argv=None) -> int:
         "train_bound_by": tt["bound_by"],
         "train_library_ms": tt["library_ms"],
         "train_library_bwd_ms": tt["library_bwd_ms"],
-        "train_plain_bwd_ms": tt["bwd_ms"]}, {
+        "train_plain_bwd_ms": tt["bwd_ms"],
+        "moe_serve_launches": ms["fa_launches"],
+        "moe_serve_route_launches": ms["fa_routes"],
+        "moe_train_launches": mt["launches"],
+        "moe_train_route_launches": mt["routes"],
+        "hd64": {shape: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}
+                 for shape, r in (("prefill", ms["flash"]["prefill"]),
+                                  ("decode", ms["flash"]["decode"]),
+                                  ("train", mt["timings"]))}}, {
         "name": "pmwcas_sim", "route": "cuda",
         "source": "src/repro_torch/csrc/pmwcas_sim.cu",
         "replaces": "src/repro/core/sim.py:175",

@@ -42,9 +42,10 @@ Public surface (import from here or from the subpackages):
 - ``repro_torch.obs`` — metrics registry, span tracer, flush provenance,
   the Chrome-trace/JSONL exporters, the SLO engine and the stats folds.
 - ``repro_torch.configs`` / ``repro_torch.models`` — the architecture
-  registry and the dense attention model stack (forward, bf16 KV
-  cache); ``attn_impl="pallas"`` runs the hand-written Hopper
-  flash-attention kernel on a CUDA tensor.
+  registry and the attention model stack, dense and MoE (forward, bf16
+  KV cache; ``models.moe``: top-k routing with capacity drops, the
+  dropless decode path, the aux loss); ``attn_impl="pallas"`` runs the
+  hand-written Hopper flash-attention kernel on a CUDA tensor.
 - ``repro_torch.launch.serve`` — batched LM serving: KV-page admission
   through ``reserve_slots``, prefill and greedy decode.
 - training — ``TrainModel.train_loss`` (float32 masters, remat, the

@@ -49,9 +49,10 @@ LATER = "not ported yet (ROADMAP Queue 1 #8)"
 
 def init_attention(kg: Optional[KeyGen], d_model: int, n_heads: int,
                    n_kv_heads: int, head_dim: int, dtype,
-                   qkv_bias: bool = False, bias_dtype=torch.float32,
-                   mode: str = "normal",
+                   qkv_bias: bool = False, mode: str = "normal",
                    device=None) -> Dict[str, torch.Tensor]:
+    """``wq wk wv wo`` drawn in ``dtype``; with ``qkv_bias`` the biases
+    ``bq bk bv`` are zeros in ``dtype`` too, as in the reference."""
     gen = kg() if kg is not None else None
     shapes = {"wq": (d_model, n_heads * head_dim),
               "wk": (d_model, n_kv_heads * head_dim),
@@ -61,11 +62,11 @@ def init_attention(kg: Optional[KeyGen], d_model: int, n_heads: int,
          for name, shape in shapes.items()}
     if qkv_bias:
         dev = gen.device if gen is not None else device
-        p["bq"] = torch.zeros(n_heads * head_dim, dtype=bias_dtype,
+        p["bq"] = torch.zeros(n_heads * head_dim, dtype=dtype,
                               device=dev)
-        p["bk"] = torch.zeros(n_kv_heads * head_dim, dtype=bias_dtype,
+        p["bk"] = torch.zeros(n_kv_heads * head_dim, dtype=dtype,
                               device=dev)
-        p["bv"] = torch.zeros(n_kv_heads * head_dim, dtype=bias_dtype,
+        p["bv"] = torch.zeros(n_kv_heads * head_dim, dtype=dtype,
                               device=dev)
     return p
 
@@ -239,9 +240,9 @@ def _sdpa_pallas(q, k, v, q_pos, k_pos, *, chunk: int = 1024, **kw):
     """The kernel: a serving call launches it alone (no log-sum-exp); a
     call that needs gradients goes through :class:`FlashAttention`, whose
     forward launches it with the log-sum-exp.  On the CPU, the kernel's
-    plain version (differentiable as it is)."""
-    dt = torch.promote_types(q.dtype, k.dtype)   # a qkv bias widens q
-    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    plain version (differentiable as it is).  q, k and v share a dtype:
+    the models hold their QKV biases in the compute dtype, as the
+    reference's cast leaves them."""
     if q.is_cuda and torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(

@@ -5,9 +5,10 @@ The reference's ``Model.init_params`` returns a tree of arrays; the
 caller turns it into numpy (``tree_map(np.asarray, params)``), so this
 module never sees the other framework.  Keys follow the reference's
 ``transformer.py``: ``embedding``, ``lm_head`` (untied), ``final_norm``
-and ``units``, whose leaves carry a leading ``n_units`` axis.  The port
-holds one parameter a unit (``units.<u>.layer0.attn.wq``); the tree
-stacks them.
+and ``units``, whose leaves carry a leading ``n_units`` axis
+(``units.layer0.attn.wq``, ``units.layer0.mlp.wo`` or, in an MoE layer,
+``units.layer0.moe.{router,wi_gate,wi_up,wo}``).  The port holds one
+parameter a unit (``units.<u>.layer0.attn.wq``); the tree stacks them.
 
 - :func:`params_from_numpy` builds a serving ``Model`` (or, with
   ``train=True``, a ``TrainModel`` of float32 masters) from such a tree;
@@ -75,8 +76,10 @@ def ref_key(port_name: str) -> Tuple[str, int]:
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, *,
                       device="cuda", train: bool = False) -> AnyModel:
     """A port model holding the same numbers as the reference's parameter
-    tree (numpy arrays): a serving ``Model``, each value cast to the dtype
-    it holds it in (``cfg.dtype`` for 2-D and wider weights), or with
+    tree (numpy arrays): a serving ``Model``, each value rounded to the
+    dtype it holds it in (``cfg.dtype`` for every leaf but the float32
+    ``final_norm``: the reference's ``_cast_params`` of its stacked
+    tree), or with
     ``train=True`` a ``TrainModel`` whose masters keep the tree's float32
     values.  Raises if a key or a shape does not match, or a port
     parameter is left unset."""

@@ -123,8 +123,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with both operands first promoted to a common dtype, as
-    jnp promotes (torch refuses mixed dtypes).  A float32 QKV bias widens
-    the activations of a bf16 model this way in both libraries."""
+    jnp promotes (torch refuses mixed dtypes).  The models hold their
+    weights in the activations' dtype, so on their paths it casts
+    nothing."""
     dt = torch.promote_types(x.dtype, w.dtype)
     return x.to(dt) @ w.to(dt)
 

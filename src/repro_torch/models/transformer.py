@@ -1,34 +1,38 @@
 """Model assembly: embeddings -> unit stack -> logits, for serving and
 for training.
 
-The port of ``repro/models/transformer.py`` for the decoder-only dense
-attention archs (llama3, gemma2 with local windows and softcaps, glm4
-with partial rotary, qwen1.5 with QKV bias).  Both models are
-``nn.Module``s of one layout: ``units`` is an ``nn.ModuleList`` of
+The port of ``repro/models/transformer.py`` for the decoder-only
+attention archs: dense (llama3, gemma2 with local windows and softcaps,
+glm4 with partial rotary, qwen1.5 with QKV bias) and MoE (qwen3-moe,
+granite-moe: ``ffn="moe"``, :mod:`repro_torch.models.moe`).  Both models
+are ``nn.Module``s of one layout: ``units`` is an ``nn.ModuleList`` of
 units, each an ``nn.ModuleDict`` of ``layer{i}`` sublayers, beside the
 embedding (and the untied ``lm_head``) and the final norm.
 
-``Model`` serves.  Its weights of two or more dimensions are held in
-``cfg.dtype``: the reference casts its float32 parameters to the compute
-dtype on every call (``_cast_params``), the port casts once at load.
-1-D norm weights stay float32 and QKV biases stay in
-``cfg.param_dtype``.  The stack runs the units in a Python loop (the
-reference's ``lax.scan``) and the forward only: serve under
-``torch.inference_mode()``.
+``Model`` serves.  It holds what the reference serves with: its
+``prefill``/``decode_step`` cast every floating leaf of two or more
+dimensions to the compute dtype on every call (``_cast_params``), and
+the reference stacks a unit's leaves over the units, so every unit leaf
+(norm weights, QKV biases and the MoE router too), the embedding and
+``lm_head`` are held in ``cfg.dtype``; only the final norm stays
+float32.  The port casts once, at load.  The stack runs the units in a
+Python loop (the reference's ``lax.scan``) and the forward only: serve
+under ``torch.inference_mode()``.  A prefill's MoE layers take the
+capacity path, a decode step's (one token a sequence) the dense one, as
+in the reference; the aux loss is dropped.
 
 ``TrainModel`` trains (``train_loss``).  Its weights are the float32
 masters in ``cfg.param_dtype`` with ``requires_grad``, cast to
 ``cfg.dtype`` on every call as the reference's ``train_loss`` casts its
-tree: every floating leaf of two or more dimensions.  The reference
-stacks a unit's leaves over the units, so every unit leaf (norm weights
-and QKV biases too) is cast; of the top-level leaves only the embedding
-and ``lm_head`` are, the final norm stays float32.  The gradients reach
-the masters through the casts.  With ``remat`` every unit is a
-``torch.utils.checkpoint`` region (the reference's ``jax.checkpoint``
-with ``nothing_saveable``): its forward, attention kernel included, runs
-again in the backward.
+tree, by the same rule: every unit leaf, the embedding and ``lm_head``;
+the final norm stays float32.  The gradients reach the masters through
+the casts.  With ``remat`` every unit is a ``torch.utils.checkpoint``
+region (the reference's ``jax.checkpoint`` with ``nothing_saveable``):
+its forward, attention kernel included, runs again in the backward, and
+it returns its MoE aux loss beside the activations.  With ``cfg.moe``
+the loss adds ``aux_loss_weight * sum(aux) / n_layers``.
 
-MoE, Mamba and xLSTM sublayers, encoder-decoder stacks and modality
+Mamba and xLSTM sublayers, encoder-decoder stacks and modality
 frontends raise ``NotImplementedError`` (ROADMAP Queue 1 #8).
 """
 from __future__ import annotations
@@ -41,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from . import attention as attn_mod
+from . import moe as moe_mod
 from .layers import (KeyGen, apply_mlp, cross_entropy, dtype_of,
                      embed_tokens, init_embed, init_mlp, rms_norm, unembed)
 
@@ -68,39 +73,59 @@ def check_supported(cfg: ModelConfig) -> None:
         if spec.kind != "attn":
             raise NotImplementedError(f"{cfg.name}: {spec.kind} layers are "
                                       f"{LATER}")
-        if spec.ffn != "dense":
+    for spec in cfg.unit:
+        if spec.ffn not in ("dense", "moe"):
             raise NotImplementedError(f"{cfg.name}: ffn={spec.ffn!r} is "
                                       f"{LATER}")
+        if spec.ffn == "moe" and cfg.moe is None:
+            raise ValueError(f"{cfg.name}: ffn='moe' without cfg.moe")
     if cfg.kv_dtype != "bfloat16":
         raise NotImplementedError(f"{cfg.name}: the {cfg.kv_dtype} KV cache "
                                   f"is {LATER}")
 
 
 class Layer(nn.Module):
-    """One pre-norm sublayer: attention, then the dense gated MLP.  Its
-    matrices are drawn in ``dtype``; ``trainable`` sets ``requires_grad``
-    on every weight."""
+    """One pre-norm sublayer: attention, then the dense gated MLP
+    (``mlp``) or the MoE layer (``moe``).  Every weight, norm and bias is
+    held in ``dtype`` (the MoE router drawn in float32 first, as in the
+    reference); ``trainable`` sets ``requires_grad`` on every one."""
 
-    def __init__(self, cfg: ModelConfig, kg: Optional[KeyGen], device,
-                 mode: str, dtype: torch.dtype, trainable: bool = False):
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec,
+                 kg: Optional[KeyGen], device, mode: str,
+                 dtype: torch.dtype, trainable: bool = False):
         super().__init__()
-        self.ln1 = _param(torch.zeros(cfg.d_model, device=device),
-                           trainable)
+        self.ln1 = _param(torch.zeros(cfg.d_model, dtype=dtype,
+                                      device=device), trainable)
         self.attn = _params(attn_mod.init_attention(
             kg, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-            cfg.resolved_head_dim, dtype, cfg.qkv_bias,
-            bias_dtype=dtype_of(cfg.param_dtype), mode=mode, device=device),
-            trainable)
-        self.ln2 = _param(torch.zeros(cfg.d_model, device=device),
-                           trainable)
-        self.mlp = _params(init_mlp(kg, cfg.d_model, cfg.d_ff, dtype,
-                                    mode=mode, device=device), trainable)
+            cfg.resolved_head_dim, dtype, cfg.qkv_bias, mode=mode,
+            device=device), trainable)
+        self.ln2 = _param(torch.zeros(cfg.d_model, dtype=dtype,
+                                      device=device), trainable)
+        if spec.ffn == "moe":
+            self.moe = _params(moe_mod.init_moe(
+                kg, cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff, dtype,
+                router_dtype=dtype, mode=mode, device=device), trainable)
+        else:
+            self.mlp = _params(init_mlp(kg, cfg.d_model, cfg.d_ff, dtype,
+                                        mode=mode, device=device), trainable)
+
+    def weights(self, spec: LayerSpec, dtype=None) -> Dict[str, Any]:
+        """The mapping :func:`apply_layer` reads, every leaf cast to
+        ``dtype`` when given."""
+        ffn = "moe" if spec.ffn == "moe" else "mlp"
+        cast = (lambda w: w) if dtype is None else (lambda w: w.to(dtype))
+        return {"ln1": cast(self.ln1), "ln2": cast(self.ln2),
+                "attn": {k: cast(w) for k, w in self.attn.items()},
+                ffn: {k: cast(w) for k, w in getattr(self, ffn).items()}}
 
 
 def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
                 layer_cache=None, cache_index: int = 0):
     """One sublayer's forward: ``p`` maps ``ln1``, ``attn``, ``ln2`` and
-    ``mlp`` to the weights (a :class:`Layer` or a dict of cast ones)."""
+    ``mlp`` or ``moe`` to the weights (:meth:`Layer.weights`).  Returns
+    ``(x, aux)``: the MoE layer's aux loss (a float32 tensor; 0 after a
+    decode step's dense path), 0.0 after a dense MLP."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     window = cfg.sliding_window if spec.attn_type == "local" else 0
     chunk = cfg.decode_chunk if h.shape[1] == 1 else cfg.attn_chunk
@@ -113,7 +138,16 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
         cache_index=cache_index)
     x = x + y
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h, cfg.act)
+    if spec.ffn != "moe":
+        return x + apply_mlp(p["mlp"], h, cfg.act), 0.0
+    if h.shape[1] == 1:          # decode: the dropless all-experts path
+        y, aux = moe_mod.apply_moe_dense(p["moe"], h, top_k=cfg.moe.top_k,
+                                         act=cfg.act)
+    else:
+        y, aux = moe_mod.apply_moe(
+            p["moe"], h, top_k=cfg.moe.top_k,
+            capacity_factor=cfg.moe.capacity_factor, act=cfg.act)
+    return x + y, aux
 
 
 class Model(nn.Module):
@@ -135,9 +169,9 @@ class Model(nn.Module):
                                         self.dtype, cfg.tie_embeddings,
                                         mode=mode, device=device))
         self.units = nn.ModuleList(
-            nn.ModuleDict({f"layer{i}": Layer(cfg, kg, device, mode,
+            nn.ModuleDict({f"layer{i}": Layer(cfg, spec, kg, device, mode,
                                               self.dtype)
-                           for i in range(len(cfg.unit))})
+                           for i, spec in enumerate(cfg.unit)})
             for _ in range(cfg.n_units))
         self.final_norm = _param(torch.zeros(cfg.d_model, device=device))
 
@@ -165,11 +199,9 @@ class Model(nn.Module):
             for i, spec in enumerate(self.cfg.unit):
                 name = f"layer{i}"
                 c = cache["layers"][name]
-                layer = unit[name]
-                x = apply_layer(
-                    self.cfg, spec, {"ln1": layer.ln1, "attn": layer.attn,
-                                     "ln2": layer.ln2, "mlp": layer.mlp},
-                    x, positions=positions,
+                x, _ = apply_layer(       # serving drops the aux loss
+                    self.cfg, spec, unit[name].weights(spec), x,
+                    positions=positions,
                     layer_cache={"k": c["k"][u], "v": c["v"][u]},
                     cache_index=cache_index)
         return x
@@ -230,9 +262,9 @@ class TrainModel(nn.Module):
                                         pdt, cfg.tie_embeddings,
                                         mode="empty", device=device), True)
         self.units = nn.ModuleList(
-            nn.ModuleDict({f"layer{i}": Layer(cfg, None, device, "empty",
-                                              pdt, trainable=True)
-                           for i in range(len(cfg.unit))})
+            nn.ModuleDict({f"layer{i}": Layer(cfg, spec, None, device,
+                                              "empty", pdt, trainable=True)
+                           for i, spec in enumerate(cfg.unit)})
             for _ in range(cfg.n_units))
         self.final_norm = _param(torch.zeros(cfg.d_model, device=device),
                                   True)
@@ -252,40 +284,46 @@ class TrainModel(nn.Module):
         """Draw every master in place from a ``torch.Generator`` on the
         model's device seeded with ``seed``, in :class:`Model`'s order
         (embedding, ``lm_head``, then each unit's ``wq wk wv wo`` and
-        ``wi_gate wi_up wo``), so a :class:`Model` of the same seed holds
-        these numbers cast to ``cfg.dtype``; norms and biases are zeros.
-        Returns :meth:`param_dict`."""
+        ``wi_gate wi_up wo``, or the MoE layer's ``router wi_gate wi_up
+        wo``), so a :class:`Model` of the same seed holds these numbers
+        cast to ``cfg.dtype``; norms and biases are zeros.  Returns
+        :meth:`param_dict`."""
+        cfg = self.cfg
         kg = KeyGen(seed, self.device)
-        pdt = dtype_of(self.cfg.param_dtype)
-        fresh = init_embed(kg, self.cfg.padded_vocab, self.cfg.d_model, pdt,
-                           self.cfg.tie_embeddings, device=self.device)
+        pdt = dtype_of(cfg.param_dtype)
+        fresh = init_embed(kg, cfg.padded_vocab, cfg.d_model, pdt,
+                           cfg.tie_embeddings, device=self.device)
         for name, t in fresh.items():
             self.embed[name].copy_(t)
         for unit in self.units:
-            for layer in unit.values():
-                fresh = attn_mod.init_attention(
-                    kg, self.cfg.d_model, self.cfg.n_heads,
-                    self.cfg.n_kv_heads, self.cfg.resolved_head_dim, pdt,
-                    self.cfg.qkv_bias, bias_dtype=pdt, device=self.device)
-                for name, t in fresh.items():
-                    layer.attn[name].copy_(t)
-                for name, t in init_mlp(kg, self.cfg.d_model, self.cfg.d_ff,
-                                        pdt, device=self.device).items():
-                    layer.mlp[name].copy_(t)
+            for i, spec in enumerate(cfg.unit):
+                layer = unit[f"layer{i}"]
+                fresh = {"attn": attn_mod.init_attention(
+                    kg, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.resolved_head_dim, pdt, cfg.qkv_bias,
+                    device=self.device)}
+                if spec.ffn == "moe":
+                    fresh["moe"] = moe_mod.init_moe(
+                        kg, cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff,
+                        pdt, device=self.device)
+                else:
+                    fresh["mlp"] = init_mlp(kg, cfg.d_model, cfg.d_ff, pdt,
+                                            device=self.device)
+                for group, tensors in fresh.items():
+                    for name, t in tensors.items():
+                        getattr(layer, group)[name].copy_(t)
                 layer.ln1.zero_()
                 layer.ln2.zero_()
         self.final_norm.zero_()
         return self.param_dict()
 
     def _unit(self, unit: nn.ModuleDict, x, positions):
-        dt = self.dtype
+        aux = 0.0
         for i, spec in enumerate(self.cfg.unit):
-            layer = unit[f"layer{i}"]
-            p = {"ln1": layer.ln1.to(dt), "ln2": layer.ln2.to(dt),
-                 "attn": {k: w.to(dt) for k, w in layer.attn.items()},
-                 "mlp": {k: w.to(dt) for k, w in layer.mlp.items()}}
-            x = apply_layer(self.cfg, spec, p, x, positions=positions)
-        return x
+            p = unit[f"layer{i}"].weights(spec, self.dtype)
+            x, a = apply_layer(self.cfg, spec, p, x, positions=positions)
+            aux = aux + a
+        return x, aux
 
     def train_loss(self, batch: Dict[str, Any],
                    remat: bool = True) -> torch.Tensor:
@@ -298,12 +336,17 @@ class TrainModel(nn.Module):
         emb = {k: w.to(dt) for k, w in self.embed.items()}
         x = embed_tokens(emb, tokens, cfg.scale_embed, cfg.d_model, dt)
         positions = torch.arange(x.shape[1], device=x.device)
+        aux = 0.0
         for unit in self.units:
             if remat:
-                x = checkpoint(self._unit, unit, x, positions,
-                               use_reentrant=False)
+                x, a = checkpoint(self._unit, unit, x, positions,
+                                  use_reentrant=False)
             else:
-                x = self._unit(unit, x, positions)
+                x, a = self._unit(unit, x, positions)
+            aux = aux + a
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         logits = unembed(emb, x, cfg.logit_softcap, cfg.vocab)
-        return cross_entropy(logits, labels)
+        loss = cross_entropy(logits, labels)
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.aux_loss_weight * aux / cfg.n_layers
+        return loss

@@ -24,6 +24,12 @@ equal to it bit for bit; ``FlashAttention``'s gradients on the card
 against the CPU's (relative norm 1e-4 in f32, 5e-2 in bf16); a small
 training run card against CPU within ``chip_smoke.SMALL_TOL``, which
 planted faults exceed; the ``Trainer``'s crash and restart on the card.
+
+MoE: ``moe.route`` card against CPU on the same probabilities (exact),
+``apply_moe``/``apply_moe_dense`` within ``chip_smoke.MOE_APPLY_TOL``
+(planted faults read above it), the granite-moe smoke config served and
+trained card against CPU, and qwen1.5's bf16 serve with no ``simt``
+call.
 """
 import dataclasses
 import importlib.util
@@ -850,3 +856,38 @@ def test_chaos_driver_refuses_cuda_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         chaos.chaos_sweep(seed=0, waves=4)
     assert not list(tmp_path.iterdir()), "a refused driver wrote a pool"
+
+
+# ---------------------------------------------------------------------------
+# the MoE sublayer: routing, the layer, the granite smoke config and
+# qwen1.5's bf16 serve on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def test_moe_route_card_vs_cpu(cuda):
+    from repro_torch.models import moe
+    out = chip_smoke.moe_routing_vs_cpu(moe, cuda, 0)
+    assert out["gate_err"] <= 1e-6
+    assert out["dropped"]["drops_cf0.05"] > 0.5 and out["dropped"]["cf8"] == 0
+
+
+def test_moe_layer_card_vs_cpu_and_planted_faults(cuda):
+    from repro_torch.models import attention, moe
+    out = chip_smoke.moe_apply_vs_cpu(moe, attention, cuda, 0)
+    for key, r in out.items():
+        tol = chip_smoke.MOE_APPLY_TOL[key.split("_")[1]]
+        assert r["err"] <= tol < min(r["faults"].values()), key
+
+
+def test_moe_small_serve_and_train_card_vs_cpu(cuda):
+    import repro_torch.data as data
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import TrainModel
+    from repro_torch.optim import adamw
+    out = chip_smoke.moe_small_vs_cpu(serve_mod, build_model, get_config,
+                                      TrainModel, adamw, data, attention,
+                                      fa_kernel, 0, cuda)
+    n = get_config("granite-moe-3b-a800m", smoke=True).n_layers
+    assert out["serve_bf16"] == dict(tc=n, decode=n * 8, simt=0)
+    assert out["qwen_serve_bf16"]["simt"] == 0
+    for dt in ("float32", "bfloat16"):
+        assert out[f"train_{dt}"]["grad_err"] <= chip_smoke.SMALL_TOL[dt][1]

@@ -251,8 +251,9 @@ def test_weights_held_in_compute_dtype():
     _, params, pm, _ = _pair("qwen15_32b", "bfloat16", "chunked")
     layer = pm.units[0]["layer0"]
     assert layer.attn["wq"].dtype == torch.bfloat16
-    assert layer.attn["bq"].dtype == torch.float32     # 1-D: param dtype
-    assert layer.ln1.dtype == pm.final_norm.dtype == torch.float32
+    # unit leaves are stacked in the reference, so its cast reaches them
+    assert layer.attn["bq"].dtype == layer.ln1.dtype == torch.bfloat16
+    assert pm.final_norm.dtype == torch.float32
     assert pm.embed["embedding"].dtype == torch.bfloat16
     want = np.asarray(params["units"]["layer0"]["attn"]["wq"][1])
     np.testing.assert_array_equal(
@@ -289,7 +290,6 @@ def test_params_from_numpy_refuses_mismatch():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch,what", [
-    ("qwen3_moe_30b_a3b", "ffn='moe'"), ("granite_moe_3b_a800m", "ffn='moe'"),
     ("jamba_v01_52b", "mamba"), ("xlstm_125m", "lstm"),
     ("seamless_m4t_medium", "encoder-decoder"), ("paligemma_3b", "frontend")])
 def test_unported_archs_raise(arch, what):
