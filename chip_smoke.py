@@ -183,7 +183,32 @@ Phases, in order; any failure exits non-zero:
    published size (320 ``tc`` launches with the log-sum-exp, every
    master changed, the aux term logged beside the cross-entropy, MFU
    over the router and the top-8 experts a token takes) and the flash op
-   at the head_dim-64 training shape.
+   at the head_dim-64 training shape;
+13. the xLSTM and Mamba sublayers (``models/xlstm.py``,
+   ``models/ssm.py``; xlstm-125m, jamba-v0.1) — (a) ``apply_mlstm``
+   (chunkwise, a decode step from its state, sequential) and
+   ``apply_slstm`` (from its init state, and from a state its
+   normalizer floor binds from) at xlstm-125m's widths, ``apply_mamba``
+   (a 300-token prefill from a state, two decode steps) at jamba's, on
+   the card against the CPU in f32 and bf16 within ``BLOCK_TOL``, which
+   the planted faults (mLSTM's forget-gate bias lost, and in f32 on
+   strong input gates its stabilizer without the running maximum;
+   sLSTM's floor removed; Mamba's conv state read one step off) exceed;
+   (b) the xlstm-125m and jamba smoke configs served (f32; bf16, jamba's
+   attention at head_dim 128 on ``tc`` + ``decode``, its MoE on the CPU's
+   routing) and trained (xlstm f32 and bf16, jamba f32) card against
+   CPU, each recurrent block's fault beside phases 11-12's planted in the
+   CPU's training; (c) ``serve_xlstm_125m``: phase 5's traffic on
+   xlstm-125m at its published size (admission equal to the plain
+   version's, no flash launch, the chunkwise mLSTM at prefill and the
+   sequential one at decode) with a profiled prefill and decode window
+   split by block; (d) ``train_xlstm_125m_s4096``: phase 11 (c)'s cell on
+   xlstm-125m at its published size (no flash launch; MFU over the
+   blocks' projections and the head); (e) ``serve_jamba_v01_L16``: phase
+   5's traffic on jamba-v0.1 at its published width cut to 16 layers (2
+   ``tc`` + 64 ``decode`` flash launches, the MoE paths), the flash op at
+   its head_dim-128, g = 4 shapes, and the split by Mamba, MoE, flash,
+   other products and the rest.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``{"kernels": [...]}`` record, and the line before that the
@@ -1169,33 +1194,73 @@ LM_REQUESTS, LM_STEPS, LM_PROMPT = 128, 32, 2048
 LM_PAGE, LM_PAGES = 256, 1024
 
 
+def layer_counts(cfg) -> collections.Counter:
+    """Layers of the whole stack by mixer kind (``attn``, ``mamba``,
+    ``mlstm``, ``slstm``) and by ffn (``ffn_dense``, ``ffn_moe``,
+    ``ffn_none``)."""
+    c = collections.Counter()
+    for spec in cfg.unit:
+        c[spec.kind] += cfg.n_units
+        c[f"ffn_{spec.ffn}"] += cfg.n_units
+    return c
+
+
+def n_params_gap(cfg) -> int:
+    """What ``cfg.n_params``' formula leaves out of the port's (and the
+    reference's) parameter count besides the norms and the padded vocab:
+    a Mamba layer's ``conv_b`` and ``dt_proj_b``; an mLSTM layer's
+    gates and ``out_norm`` (the formula counts ``4 d_in^2`` where the
+    block holds ``wq wk wv``); an sLSTM layer's recurrent matrices and
+    biases (the formula counts ``2 D d_in + 4 d_in^2``)."""
+    D, H = cfg.d_model, cfg.n_heads
+    gap = 0
+    for spec in cfg.unit:
+        if spec.kind == "mamba":
+            gap += 2 * (cfg.mamba.expand * D)
+        elif spec.kind in ("mlstm", "slstm"):
+            d_in = int(cfg.xlstm.proj_factor * D)
+            gap += (-d_in * d_in + 2 * d_in * H + 2 * H + d_in
+                    if spec.kind == "mlstm"
+                    else -D * d_in + 4 * d_in * d_in + 4 * d_in)
+    return gap * cfg.n_units
+
+
 def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
              pm_kernel, seed: int, dev, arch: str = "llama3-8b",
-             tag: str = "phase 5"):
-    """``arch`` at full width and depth, random bf16 weights from a seeded
-    generator on the card, served through ``serve``: admission by the
-    PMwCAS kernel, attention by the flash kernel.  For an MoE arch also
-    the MoE layer's calls by path (the capacity path at every prefill
-    layer, the dense path at every decode layer) and the share of the
-    prefill's assignments dropped at capacity."""
+             tag: str = "phase 5", cfg=None):
+    """``arch`` (or ``cfg``) at full width and depth, random bf16 weights
+    from a seeded generator on the card, served through ``serve``:
+    admission by the PMwCAS kernel, attention by the flash kernel (at
+    every attention layer: ``tc`` at the prefill, ``decode`` at every
+    step).  For an MoE arch also the MoE layer's calls by path (the
+    capacity path at every prefill layer, the dense path at every decode
+    layer) and the share of the prefill's assignments dropped at
+    capacity; the peak memory of the serve."""
     from repro_torch.models import moe as moe_mod
-    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+    cfg = dataclasses.replace(cfg or get_config(arch), attn_impl="pallas")
+    counts = layer_counts(cfg)
+    n_attn, n_moe = counts["attn"], counts["ffn_moe"]
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, seed=seed)
     _sync(dev)
     n_params = sum(p.numel() for p in model.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    norms = (2 * cfg.n_layers + 1) * cfg.d_model
+    norms = (cfg.n_layers + cfg.n_layers - counts["ffn_none"] + 1) * \
+        cfg.d_model
     # the embedding's rows past the vocab (padded to a multiple of 256)
     pad = (cfg.padded_vocab - cfg.vocab) * cfg.d_model * (
         1 if cfg.tie_embeddings else 2)
-    check(n_params - norms - pad == cfg.n_params, f"{n_params} parameters")
+    gap = n_params_gap(cfg)
+    check(n_params - norms - pad - gap == cfg.n_params,
+          f"{n_params} parameters")
     experts = (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
                f"{cfg.moe.d_ff}" if cfg.moe else "")
-    log(f"{tag}: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
-        f"d_ff {cfg.d_ff}{experts}, vocab {cfg.vocab}): {cfg.n_params} "
-        f"weights + {norms} norm weights + {pad} padded-vocab weights, "
+    kinds = ", ".join(f"{n} {k}" for k, n in sorted(counts.items()))
+    log(f"{tag}: {cfg.name} ({cfg.n_layers} layers: {kinds}; d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}{experts}, vocab "
+        f"{cfg.vocab}): {cfg.n_params} weights + {norms} norm weights + "
+        f"{pad} padded-vocab weights + {gap} the formula leaves out, "
         f"{n_bytes / 1e9:.2f} GB on the "
         f"card, drawn in {time.perf_counter() - t0:.3f} s")
 
@@ -1220,6 +1285,8 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
     pm_kernel.reset_counts()
     moe_mod.reset_counts()
     moe_mod.route = counted_route
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     try:
         res = serve_mod.serve(cfg, requests=LM_REQUESTS, steps=LM_STEPS,
                               prompt_len=LM_PROMPT, page_size=LM_PAGE,
@@ -1242,12 +1309,12 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
     check(res.generated.shape == (B, LM_STEPS)
           and (res.generated >= 0).all()
           and (res.generated < cfg.vocab).all(), "generated tokens")
-    want_fa = cfg.n_layers * (1 + LM_STEPS)
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    want_fa = n_attn * (1 + LM_STEPS)
     check(fa_launches == want_fa,
-          f"flash launches {fa_launches} != {cfg.n_layers} x (1 + "
+          f"flash launches {fa_launches} != {n_attn} x (1 + "
           f"{LM_STEPS}) = {want_fa}")
-    want_routes = dict(tc=cfg.n_layers, decode=cfg.n_layers * LM_STEPS,
-                       simt=0)
+    want_routes = dict(tc=n_attn, decode=n_attn * LM_STEPS, simt=0)
     check(fa_routes == want_routes, f"flash routes {fa_routes} != "
           f"{want_routes} (tc at every prefill, decode at every step)")
     check(pm_launches == 1 and pm_routes == {"smem": 1, "global": 0},
@@ -1255,7 +1322,7 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
           "on the smem route")
     moe = ""
     if cfg.moe:
-        want_moe = dict(capacity=cfg.n_layers, dense=cfg.n_layers * LM_STEPS)
+        want_moe = dict(capacity=n_moe, dense=n_moe * LM_STEPS)
         check(moe_calls == want_moe, f"MoE calls by path {moe_calls} != "
               f"{want_moe} (capacity at every prefill layer, dense at every "
               f"decode layer)")
@@ -1266,10 +1333,16 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
         moe = (f"; MoE calls by path {json.dumps(moe_calls)}; the prefill "
                f"dropped {n_drop} of {n_all} assignments at capacity {C} "
                f"({n_drop / n_all:.4f})")
-    kv_bytes = 2 * cfg.n_layers * B * cfg.n_kv_heads * (
+    kv_bytes = 2 * n_attn * B * cfg.n_kv_heads * (
         LM_PROMPT + LM_STEPS) * cfg.resolved_head_dim * 2
+    state_bytes = 4 * sum(
+        t.numel() for spec, c in zip(cfg.unit, model.init_cache(
+            B, 1)["layers"].values()) if spec.kind != "attn"
+        for t in c.values())
     t = res.timings
-    log(f"{tag}: KV cache bf16 {kv_bytes / 1e9:.2f} GB; prefill of "
+    log(f"{tag}: KV cache bf16 {kv_bytes / 1e9:.2f} GB, recurrent states "
+        f"f32 {state_bytes / 1e9:.3f} GB, peak memory of the serve "
+        f"{peak / 1e9:.2f} GB (max_memory_allocated); prefill of "
         f"{B} x {LM_PROMPT} tokens {t['prefill_s']:.3f} s; decode "
         f"{t['decode_ms_per_step']:.3f} ms/step over {LM_STEPS} steps "
         f"({t['decode_tokens_per_s']:.1f} tokens/s decoding, "
@@ -1279,7 +1352,8 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
         f"{json.dumps(pm_routes)}){moe}")
     return dict(model=model, cfg=cfg, B=B, fa_launches=fa_launches,
                 fa_routes=fa_routes, pm_launches=pm_launches,
-                pm_routes=pm_routes, timings=t, moe_calls=moe_calls)
+                pm_routes=pm_routes, timings=t, moe_calls=moe_calls,
+                peak_bytes=peak)
 
 
 def _visible_pairs(qp, kp) -> int:
@@ -3046,6 +3120,34 @@ SMALL_STEPS, SMALL_SEQ, SMALL_BATCH, SMALL_CHUNK = 3, 64, 2, 16
 SMALL_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 5e-2)}
 TRAIN_FAULTS = ("lse_off_by_log2", "delta_dropped")
 MOE_TRAIN_FAULTS = ("pos_shifted", "aux_dropped")
+# a fault planted in the CPU's training for each recurrent block an arch
+# has: mLSTM's forget-gate bias lost (left at zero), sLSTM's recurrent
+# matrices applied transposed, Mamba's conv taps in reverse order
+BLOCK_TRAIN_FAULTS = {"mlstm": "b_f_dropped", "slstm": "r_transposed",
+                      "mamba": "conv_flipped"}
+# The xLSTM blocks' input-gate biases: a block's output hardly moves when
+# all of a head's input-gate preactivations shift (the shift cancels
+# between numerator and denominator, save where a floor binds or at the
+# init state), so their gradients are sums that cancel to ~1e-3 of their
+# terms, and float32 runs of one mLSTM lie 1e-3 from a float64 one
+# (tests/test_torch_hybrid_models.py).  Card against CPU, relative to its
+# own norm, mLSTM's read 6.7e-3 in float32 and 5.8e-2 and 0.22 in bf16 on
+# two H100 runs, sLSTM's 4.4e-2 in bf16 (PERF.md section 6): rounding
+# noise.  So a bias's difference is measured against the norm of the same
+# layer's input-gate weight gradient and held to the other masters' limit.
+def _b_i_scale(name: str) -> str:
+    for block in (".mlstm.", ".slstm."):
+        if block + "b_i" in name:
+            return name.replace(block + "b_i", block + "w_i")
+    return name
+
+
+# an arch with mLSTM layers, float32: the block's other gradients pass
+# through its normalizer max(|q.n|, exp(-m)), whose |q.n| cancels; float32
+# runs of either library lie up to 1.5e-3 from float64 there
+# (tests/test_torch_xlstm.py), and card against CPU read 7.3e-4 (wq),
+# 6.3e-4 (wk), 5.3e-4 (up_proj) over three steps (PERF.md section 6)
+MLSTM_F32_GRAD_TOL = 2e-3
 
 
 def small_train_config(get_config, dtype: str, arch: str = "llama3-8b",
@@ -3064,7 +3166,15 @@ def planted(attn_mod, fault: Optional[str], moe_mod=None):
     dropped (the backward fed a zero output, so ``sum(do * out)`` is 0);
     in the MoE layer (``moe_mod``), the tie order of the top-k reversed
     (``tie_rule_dropped``), every capacity rank one too high
-    (``pos_shifted``) or the aux loss dropped (``aux_dropped``)."""
+    (``pos_shifted``) or the aux loss dropped (``aux_dropped``); in the
+    recurrent blocks, mLSTM's stabilizer without its running maximum
+    (``no_cummax``) or its forget-gate bias lost (``b_f_dropped``),
+    sLSTM's normalizer floor removed (``no_n_floor``)
+    or its recurrent matrices applied transposed (``r_transposed``),
+    Mamba's cached conv state read one step off (``conv_state_shifted``)
+    or its conv taps in reverse order (``conv_flipped``)."""
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import xlstm as xlstm_mod
     saved = []
 
     def patch(mod, name, fn):
@@ -3106,6 +3216,38 @@ def planted(attn_mod, fault: Optional[str], moe_mod=None):
             return y, aux * 0.0
 
         patch(moe_mod, "apply_moe", no_aux)
+    elif fault == "no_cummax":
+        patch(xlstm_mod, "_running_max", lambda a: a)
+    elif fault == "b_f_dropped":
+        apply_mlstm = xlstm_mod.apply_mlstm
+
+        def no_forget_bias(p, *a, **kw):
+            return apply_mlstm(dict(p, b_f=p["b_f"] * 0.0), *a,
+                               **kw)
+
+        patch(xlstm_mod, "apply_mlstm", no_forget_bias)
+    elif fault == "no_n_floor":
+        patch(xlstm_mod, "N_FLOOR", 0.0)
+    elif fault == "r_transposed":
+        apply_slstm = xlstm_mod.apply_slstm
+
+        def transposed(p, *a, **kw):
+            p = dict(p, **{f"r_{g}": p[f"r_{g}"].T for g in "zifo"})
+            return apply_slstm(p, *a, **kw)
+
+        patch(xlstm_mod, "apply_slstm", transposed)
+    elif fault in ("conv_state_shifted", "conv_flipped"):
+        apply_mamba = ssm_mod.apply_mamba
+
+        def faulty_mamba(p, x, **kw):
+            state = kw.get("state")
+            if fault == "conv_flipped":
+                p = dict(p, conv_w=p["conv_w"].flip(0))
+            elif state is not None:         # read one step off
+                kw["state"] = dict(state, conv=state["conv"].roll(1, 1))
+            return apply_mamba(p, x, **kw)
+
+        patch(ssm_mod, "apply_mamba", faulty_mamba)
     try:
         yield
     finally:
@@ -3128,8 +3270,10 @@ def _grads_and_step(model, adamw, opt_cfg, opt, batch) -> tuple:
 
 
 def _grad_errs(a: dict, b: dict) -> dict:
+    """Every master's ``||a - b|| / ||b||`` (mLSTM's ``b_i`` over its
+    layer's ``w_i`` gradient instead, :func:`_b_i_scale`)."""
     return {n: float((a[n].float().cpu() - b[n].float().cpu()).norm()
-                     / b[n].float().cpu().norm().clamp_min(1e-30))
+                     / b[_b_i_scale(n)].float().cpu().norm().clamp_min(1e-30))
             for n in b}
 
 
@@ -3140,17 +3284,26 @@ def _grad_err(a: dict, b: dict) -> float:
 def small_train_matches_cpu(get_config, TrainModel, adamw, data, attn_mod,
                             fa_kernel, dtype: str, seed: int, dev,
                             arch: str = "llama3-8b", head_dim: int = 128,
-                            tag: str = "phase 11 (b)") -> dict:
+                            tag: str = "phase 11 (b)",
+                            faults_of: Optional[tuple] = None) -> dict:
     """Phase 11 (b) for one dtype: the card's run against the CPU's, step
     by step (loss and every gradient); the planted faults on the CPU's
     first step against its sound first step.  On the card every flash
-    call takes the route of the dtype, twice a layer a step (remat).  For
-    an MoE arch the CPU runs first and the card takes its routing
-    (:func:`routing_record`; its own choices may differ only at
-    near-ties), and the MoE faults are planted too."""
+    call takes the route of the dtype, twice an attention layer a step
+    (remat).  For an MoE arch the CPU runs first and the card takes its
+    routing (:func:`routing_record`; its own choices may differ only at
+    near-ties), and the MoE faults are planted too; for each recurrent
+    block an arch has, its ``BLOCK_TRAIN_FAULTS`` fault (the attention
+    faults only where there is attention); ``faults_of`` names the
+    faults instead."""
     from repro_torch.models import moe as moe_mod
     cfg = small_train_config(get_config, dtype, arch, head_dim)
-    faults_of = TRAIN_FAULTS + (MOE_TRAIN_FAULTS if cfg.moe else ())
+    counts = layer_counts(cfg)
+    if faults_of is None:
+        faults_of = ((TRAIN_FAULTS if counts["attn"] else ())
+                     + (MOE_TRAIN_FAULTS if cfg.moe else ())
+                     + tuple(f for k, f in BLOCK_TRAIN_FAULTS.items()
+                             if counts[k]))
     cpu = TrainModel(cfg, device="cpu", seed=seed)
     card = copy.deepcopy(cpu).to(dev)
     opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
@@ -3191,9 +3344,11 @@ def small_train_matches_cpu(get_config, TrainModel, adamw, data, attn_mod,
                          grad=_grad_err(r[1], sound[1]))
                  for f, r in faults.items()}
     loss_tol, grad_tol = SMALL_TOL[dtype]
+    if counts["mlstm"]:
+        grad_tol = max(grad_tol, MLSTM_F32_GRAD_TOL)
     route = "tc" if dtype == "bfloat16" else "simt"
     want = dict.fromkeys(fa_kernel.ROUTES, 0)
-    want[route] = 2 * cfg.n_layers * SMALL_STEPS
+    want[route] = 2 * counts["attn"] * SMALL_STEPS
     if dev.type == "cuda":
         check(routes == want, f"small training {dtype}: flash routes "
               f"{routes}, not {want}")
@@ -3201,7 +3356,8 @@ def small_train_matches_cpu(get_config, TrainModel, adamw, data, attn_mod,
           f"small training {dtype}: non-finite loss on the card")
     check(loss_err <= loss_tol and grad_err <= grad_tol,
           f"small training {dtype}: card != CPU (loss err {loss_err:.3e}, "
-          f"limit {loss_tol}; grad err {grad_err:.3e}, limit {grad_tol})")
+          f"limit {loss_tol}; grad err {grad_err:.3e}, limit {grad_tol}; the "
+          f"largest {json.dumps(by_master.most_common(4))})")
     for f, e in fault_err.items():
         check(e["grad"] > grad_tol, f"planted fault {f} reads grad err "
               f"{e['grad']:.3e}, within the limit {grad_tol}")
@@ -3240,14 +3396,31 @@ def matmul_params(cfg) -> int:
     """Parameters the step multiplies a token by (every layer's
     projections and MLP, and the head; the embedding lookup excluded).
     An MoE layer counts its router and the ``top_k`` experts a token
-    takes, not the capacity padding its products also compute."""
+    takes, not the capacity padding its products also compute; a Mamba
+    layer its four projections (not the depthwise conv or the scan); an
+    sLSTM layer its input and recurrent products (float32 ones, counted
+    like the rest against the bf16 peak); an mLSTM layer its projections
+    (not the chunk's attention-like products)."""
     D, H, KV, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
     total = 0
     for spec in cfg.unit:
-        total += D * H * hd + 2 * D * KV * hd + H * hd * D
-        total += (D * cfg.moe.n_experts + cfg.moe.top_k * 3 * D * cfg.moe.d_ff
-                  if spec.ffn == "moe" else 3 * D * cfg.d_ff)
+        if spec.kind == "attn":
+            total += D * H * hd + 2 * D * KV * hd + H * hd * D
+        elif spec.kind == "mamba":       # in_proj, x_proj, dt_proj, out_proj
+            d_in, N = cfg.mamba.expand * D, cfg.mamba.d_state
+            r = cfg.mamba.dt_rank or -(-D // 16)
+            total += D * 2 * d_in + d_in * (r + 2 * N) + r * d_in + d_in * D
+        else:                            # the xLSTM blocks' projections
+            d_in = int(cfg.xlstm.proj_factor * D)
+            total += (D * 2 * d_in + 3 * d_in * d_in + 2 * d_in * H
+                      + d_in * D if spec.kind == "mlstm"
+                      else D * d_in + 8 * d_in * d_in + d_in * D)
+        if spec.ffn == "moe":
+            total += D * cfg.moe.n_experts + cfg.moe.top_k * 3 * D * \
+                cfg.moe.d_ff
+        elif spec.ffn == "dense":
+            total += 3 * D * cfg.d_ff
     return total * cfg.n_units + D * cfg.vocab
 
 
@@ -3265,14 +3438,16 @@ def _kernels_under(evt) -> list:
     return out
 
 
-def ranged_profile(fn, wrapped) -> dict:
+def ranged_profile(fn, wrapped, fast: bool = False) -> dict:
     """One call of ``fn`` under the profiler, with ``record_function``
     ranges put around the functions ``wrapped`` (``(module, name,
     label)``, labels ``p11.*``) for this call only: busy and wall µs, the
     flash kernels' and the matrix products' µs (by kernel name), for each
     label the µs of every kernel under its outermost ranges and of the
     matrix products among them, and the µs under the cross-entropy's
-    backward nodes (``CE_BACKWARD``)."""
+    backward nodes (``CE_BACKWARD``).  ``fast`` reads the raw events
+    instead (:func:`_fast_split`): for runs of millions of eager launches,
+    whose event tree takes longer to build than the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     saved = []
@@ -3296,6 +3471,8 @@ def ranged_profile(fn, wrapped) -> dict:
     finally:
         for mod, name, fn_ in saved:
             setattr(mod, name, fn_)
+    if fast:
+        return _fast_split(prof, [label for _, _, label in wrapped], wall)
     events = prof.events()
     busy = flash = mm = 0.0
     by_name = collections.Counter()
@@ -3328,8 +3505,55 @@ def ranged_profile(fn, wrapped) -> dict:
                 top=[(n, round(us, 1)) for n, us in by_name.most_common(6)])
 
 
+def _fast_split(prof, labels, wall: float) -> dict:
+    """:func:`ranged_profile`'s numbers from the profiler's raw events,
+    without building its event tree: a kernel (or copy, or fill) belongs
+    to a label when it starts inside one of that label's spans on the
+    device timeline (a ``record_function`` range shows there as an
+    annotation spanning the kernels launched inside it; one stream runs
+    them in launch order).  The cross-entropy's backward nodes are not
+    told apart (``ce_bwd_us`` 0: they fall among the rest);
+    ``range_spans`` counts each label's spans, so a label that saw none
+    reads as not measured rather than as zero."""
+    import bisect
+    from torch.autograd import DeviceType
+    events = prof.profiler.kineto_results.events()
+    spans, kernels = [], []
+    for e in events:
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = e.name()
+        if name.startswith("p11."):
+            if name in labels:
+                spans.append((e.start_ns(), e.end_ns(), name))
+        else:
+            kernels.append((e.start_ns(), e.duration_ns() / 1e3, name))
+    spans.sort()
+    starts = [sp[0] for sp in spans]
+    busy = flash = mm = 0.0
+    by_name = collections.Counter()
+    ranges = {label: [0.0, 0.0] for label in labels}
+    for start, us, name in kernels:
+        busy += us
+        by_name[name[:90]] += us
+        is_mm = _is_matmul(name)
+        if any(f in name for f in FLASH_KERNELS):
+            flash += us
+        elif is_mm:
+            mm += us
+        i = bisect.bisect_right(starts, start) - 1
+        if i >= 0 and start <= spans[i][1]:
+            r = ranges[spans[i][2]]
+            r[0] += us
+            r[1] += us if is_mm else 0.0
+    return dict(busy_us=busy, wall_us=wall, flash_us=flash, mm_us=mm,
+                ranges=ranges, ce_bwd_us=0.0,
+                range_spans=dict(collections.Counter(sp[2] for sp in spans)),
+                top=[(n, round(us, 1)) for n, us in by_name.most_common(6)])
+
+
 def train_step_split(step, attn_mod, adamw, transformer,
-                     moe_mod=None) -> dict:
+                     moe_mod=None, recurrent=(), fast: bool = False) -> dict:
     """One training step under the profiler (:func:`ranged_profile`), its
     device time split into ``TRAIN_GROUPS``: the flash kernels (the
     forward, by name); the attention backward (every kernel under
@@ -3340,25 +3564,33 @@ def train_step_split(step, attn_mod, adamw, transformer,
     forward and its remat recompute (every kernel under ``apply_moe``):
     its expert products (``moe_products``) apart from its routing,
     dispatch and combine (``moe_dispatch``); the backward's products
-    count among the matrix products.  Returns µs by group, busy and wall
-    µs."""
+    count among the matrix products.  With ``recurrent`` also the
+    recurrent blocks' forward and remat recompute (``recurrent_fwd``,
+    every kernel under their calls; their backward falls among the
+    rest).  Returns µs by group, busy and wall µs."""
     wrapped = [(attn_mod, "_flash_backward", "p11.attn_bwd"),
                (adamw, "update", "p11.adamw"),
                (transformer, "cross_entropy", "p11.cross_entropy")]
     if moe_mod is not None:
         wrapped.append((moe_mod, "apply_moe", "p11.moe"))
-    prof = ranged_profile(step, wrapped)
+    wrapped += [(mod, name, "p11.recurrent") for mod, name in recurrent]
+    prof = ranged_profile(step, wrapped, fast)
     r = prof["ranges"]
     moe_us, moe_mm = r.get("p11.moe", (0.0, 0.0))
+    rec_us, rec_mm = r.get("p11.recurrent", (0.0, 0.0))
     split = {"flash_fwd": prof["flash_us"], "attn_bwd": r["p11.attn_bwd"][0],
-             "matmul": prof["mm_us"] - r["p11.attn_bwd"][1] - moe_mm,
+             "matmul": prof["mm_us"] - r["p11.attn_bwd"][1] - moe_mm
+             - rec_mm,
              "cross_entropy": r["p11.cross_entropy"][0] + prof["ce_bwd_us"],
              "adamw": r["p11.adamw"][0]}
     if moe_mod is not None:
         split.update(moe_products=moe_mm, moe_dispatch=moe_us - moe_mm)
+    if recurrent:
+        split.update(recurrent_fwd=rec_us)
     split["other"] = prof["busy_us"] - sum(split.values())
     return dict(split=split, busy_us=prof["busy_us"],
-                wall_us=prof["wall_us"], top=prof["top"])
+                wall_us=prof["wall_us"], top=prof["top"],
+                range_spans=prof.get("range_spans"))
 
 
 def _ancestors(evt):
@@ -3466,7 +3698,8 @@ def train_flash_timings(fa_kernel, fa_ref, attn_mod, cfg, dev,
 def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
                transformer, fa_kernel, dev, seed: int, cfg=None,
                name: str = "train_llama3_8b_L8_s4096",
-               tag: str = "phase 11 (c)", moe_mod=None) -> dict:
+               tag: str = "phase 11 (c)", moe_mod=None,
+               recurrent=()) -> dict:
     """Phase 11 (c): ``train_llama3_8b_L8_s4096`` (or ``name`` at
     ``cfg``) through ``make_train_step`` with remat: one warm-up step and
     ``TRAIN_TIMED`` timed ones, the flash launches counted over all of
@@ -3525,7 +3758,7 @@ def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
     launches = fa_kernel.flash_attention_cuda.launches
     routes = dict(fa_kernel.flash_attention_cuda.route_launches)
     peak = torch.cuda.max_memory_allocated()
-    want = 2 * cfg.n_layers * (1 + TRAIN_TIMED)
+    want = 2 * layer_counts(cfg)["attn"] * (1 + TRAIN_TIMED)
     check(launches == want and routes["tc"] == want,
           f"training cell: {launches} flash launches by route {routes}, not "
           f"{want} on tc")
@@ -3542,7 +3775,8 @@ def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
     batch = {k: torch.as_tensor(v, device=dev)
              for k, v in stream.next_batch().items()}
     prof = train_step_split(lambda: step(params, opt, batch), attn_mod,
-                            adamw, transformer, moe_mod)
+                            adamw, transformer, moe_mod, recurrent,
+                            fast=bool(recurrent))
     busy, wall = prof["busy_us"], prof["wall_us"]
     shares = ", ".join(f"{g} {us / 1e3:.1f} ms ({us / busy:.3f})"
                        for g, us in prof["split"].items()) if busy else \
@@ -3565,7 +3799,10 @@ def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
         f"the step at {H100_BF16_FLOPS:.3g} FLOP/s); peak memory "
         f"{peak / 1e9:.2f} GB (max_memory_allocated); flash launches "
         f"{launches} {json.dumps(routes)}; every master changed{aux}")
-    log(f"{tag}: a profiled step: device busy {busy / 1e3:.1f} ms of "
+    spans = (f"; device spans by range {json.dumps(prof['range_spans'])}"
+             f" (the cross-entropy's backward among the rest)"
+             if prof["range_spans"] is not None else "")
+    log(f"{tag}: a profiled step{spans}: device busy {busy / 1e3:.1f} ms of "
         f"{wall / 1e3:.1f} ms wall, idle share "
         f"{(1 - busy / wall) if busy else float('nan'):.4f}; by group: "
         f"{shares}; clocks, power, temperature {_clocks()}; the largest "
@@ -4109,6 +4346,409 @@ def moe_phase(serve_mod, build_model, fa_ops, fa_ref, fa_kernel, pm_ref,
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the xLSTM and Mamba sublayers (xlstm-125m, jamba-v0.1)
+# ---------------------------------------------------------------------------
+
+XLSTM_ARCH, JAMBA_ARCH = "xlstm-125m", "jamba-v0.1-52b"
+# (a) each block on the card against the CPU on the same weights and
+# inputs, at full width: the largest error over the output's (or the
+# state's) largest magnitude, at least 1.  float32: cuBLAS and the CPU's
+# products sum in another order, and the recurrences carry that over
+# their steps; the mLSTM's normalizer |q.n| cancels where one input gate
+# dominates, and with its preactivations spanning +-100 the sequential
+# form's output read 2.4e-4 on the H100 (PERF.md section 6); bf16: 8
+# significant bits, the products rounded at other places.  Each planted
+# fault (BLOCK_FAULTS, in the CPU's run) must read above the limit.
+BLOCK_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+BLOCK_FAULTS = {"mlstm": "b_f_dropped", "slstm": "no_n_floor",
+                "mamba": "conv_state_shifted"}
+# mLSTM's stabilizer without its running maximum is read on weights whose
+# input gate is scaled up, so that its preactivations span about +-100
+# and only the running maximum keeps exp() finite; in float32 only: in
+# bf16 such gates round to half-units, and the sound card and CPU runs
+# part by 0.665 of the output's scale (PERF.md section 6)
+MLSTM_GATE_SCALE = 30.0
+XLSTM_BLOCK = dict(B=2, S=256, S_seq=100)    # 4 chunks of 64; sequential
+MAMBA_BLOCK = dict(B=1, S=300, decode=2)     # chunks of 256 and 44
+# (b) the bf16 small serve of jamba's smoke config: eight layers (Mamba,
+# attention, MoE, MLP) round in bf16 where the llama3 smoke's two do, and
+# the reference's own jitted and op-by-op runs of one set of weights part
+# by up to 0.158 in a logit (tests/test_torch_hybrid_models.py)
+JAMBA_SERVE_BF16_TOL = 0.2
+# (e) jamba at its published width, depth cut from 32 to 16 layers: 32
+# layers are 103 GB of bf16 weights, 16 are 52.1 GB
+JAMBA_SERVE_LAYERS = 16
+
+
+def _block_err(got, want) -> float:
+    """The largest error over ``want``'s largest magnitude (at least 1);
+    inf where ``got`` is not finite."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if not torch.isfinite(got).all():
+        return float("inf")
+    return float((got - want).abs().max()
+                 / max(1.0, float(want.abs().max())))
+
+
+def _to(tree, dev=None, dtype=None):
+    return {k: v.to(device=dev, dtype=dtype if v.is_floating_point()
+                    else None) for k, v in tree.items()}
+
+
+def xlstm_block_runs(xlstm_mod, p, x, state0, slstm_state):
+    """The runs (a) holds for the xLSTM blocks: mLSTM chunkwise over
+    ``x`` from ``state0`` (its output and state), then one decode step
+    from that state, and the sequential form over the first ``S_seq``
+    tokens; sLSTM over ``x`` from its init state, and over the first 16
+    tokens from ``slstm_state``."""
+    H = 4
+    out = {}
+    y, st = xlstm_mod.apply_mlstm(p["mlstm"], x, n_heads=H, chunk=64,
+                                  state=state0)
+    out["mlstm_chunkwise"] = y
+    out.update({f"mlstm_state_{k}": v for k, v in st.items()})
+    out["mlstm_decode"], _ = xlstm_mod.apply_mlstm(
+        p["mlstm"], x[:, -1:], n_heads=H, chunk=64, state=st)
+    out["mlstm_sequential"], _ = xlstm_mod.apply_mlstm(
+        p["mlstm"], x[:, :XLSTM_BLOCK["S_seq"]], n_heads=H, chunk=64,
+        state=state0)
+    B, D = x.shape[0], x.shape[2]
+    y, st = xlstm_mod.apply_slstm(p["slstm"], x, state=_to(
+        xlstm_mod.init_slstm_state(B, D), x.device))
+    out["slstm"] = y
+    out.update({f"slstm_state_{k}": v for k, v in st.items()})
+    out["slstm_floor"], _ = xlstm_mod.apply_slstm(
+        p["slstm"], x[:, :16], state=_to(slstm_state, x.device))
+    return out
+
+
+def mamba_block_runs(ssm_mod, p, x, state0):
+    """Mamba over ``x`` from ``state0`` (prefill: its output and state),
+    then ``MAMBA_BLOCK["decode"]`` decode steps from that state."""
+    out = {}
+    y, st = ssm_mod.apply_mamba(p, x, chunk=256, state=state0)
+    out["mamba_prefill"] = y
+    out.update({f"mamba_state_{k}": v for k, v in st.items()})
+    for t in range(MAMBA_BLOCK["decode"]):
+        y, st = ssm_mod.apply_mamba(p, x[:, t:t + 1], chunk=256, state=st)
+        out[f"mamba_decode{t}"] = y
+    out.update({f"mamba_decoded_{k}": v for k, v in st.items()})
+    return out
+
+
+def block_inputs(xlstm_mod, ssm_mod, get_config, seed: int):
+    """(a)'s float32 weights and inputs on the CPU: xlstm-125m's mLSTM and
+    sLSTM (d_model 768, d_in 1,536, 4 heads of 384; the biases moved off
+    their constants), an sLSTM state the normalizer floor binds from (``n`` 0,
+    ``m`` 30: from its init ``n`` stays at least 1, so the floor never
+    binds there), and jamba's Mamba (d_model 4,096, d_in 8,192, d_state
+    16, d_conv 4, dt_rank 256)."""
+    from repro_torch.models.layers import KeyGen
+    xc, jc = get_config(XLSTM_ARCH), get_config(JAMBA_ARCH)
+    D, H = xc.d_model, xc.n_heads
+    rng = np.random.default_rng(seed + 41)
+    xl = {"mlstm": xlstm_mod.init_mlstm(KeyGen(seed + 41), D, H,
+                                        torch.float32),
+          "slstm": xlstm_mod.init_slstm(KeyGen(seed + 42), D, H,
+                                        torch.float32)}
+    for block in xl.values():
+        for k, v in block.items():
+            if v.ndim == 1:
+                v += torch.from_numpy(0.2 * rng.standard_normal(
+                    v.shape).astype(np.float32))
+    B, S = XLSTM_BLOCK["B"], XLSTM_BLOCK["S"]
+    x = torch.from_numpy(rng.standard_normal((B, S, D)).astype(np.float32))
+    d_in = 2 * D
+    floor_state = {"c": torch.from_numpy(0.3 * rng.standard_normal(
+        (B, d_in)).astype(np.float32)),
+        "n": torch.zeros(B, d_in), "m": torch.full((B, d_in), 30.0),
+        "h": torch.from_numpy(0.3 * rng.standard_normal(
+            (B, d_in)).astype(np.float32))}
+    m = jc.mamba
+    mp = ssm_mod.init_mamba(KeyGen(seed + 43), jc.d_model, torch.float32,
+                            m.d_state, m.d_conv, m.expand, m.dt_rank)
+    for k, v in mp.items():
+        if v.ndim == 1:
+            v += torch.from_numpy(0.1 * rng.standard_normal(
+                v.shape).astype(np.float32))
+    mx = torch.from_numpy(rng.standard_normal(
+        (MAMBA_BLOCK["B"], MAMBA_BLOCK["S"], jc.d_model)).astype(np.float32))
+    mstate = {k: torch.from_numpy(0.3 * rng.standard_normal(tuple(v.shape))
+                                  .astype(np.float32))
+              for k, v in ssm_mod.init_mamba_state(
+                  MAMBA_BLOCK["B"], jc.d_model, m.d_state, m.d_conv,
+                  m.expand).items()}
+    return xl, x, floor_state, mp, mx, mstate
+
+
+def mlstm_gate_check(xlstm_mod, attn_mod, xl, x, state0, dev) -> dict:
+    """(a)'s float32 mLSTM run on an input gate scaled by
+    ``MLSTM_GATE_SCALE``: chunkwise, card against CPU within the limit,
+    and the CPU without the running maximum (``no_cummax``) above it."""
+    p = dict(xl["mlstm"], w_i=xl["mlstm"]["w_i"] * MLSTM_GATE_SCALE)
+
+    def run(d):
+        return xlstm_mod.apply_mlstm(_to(p, d), x.to(d), n_heads=4,
+                                     chunk=64, state=_to(state0, d))[0]
+
+    cpu, card = run(torch.device("cpu")), run(dev)
+    err = _block_err(card, cpu)
+    with planted(attn_mod, "no_cummax"):
+        fault = _block_err(run(torch.device("cpu")), card)
+    tol = BLOCK_TOL["float32"]
+    check(err <= tol < fault, f"mLSTM on strong input gates: card err "
+          f"{err:.3e}, no_cummax reads {fault:.3e}, limit {tol}")
+    return dict(err=err, faults={"no_cummax": fault})
+
+
+def ssm_blocks_vs_cpu(xlstm_mod, ssm_mod, attn_mod, get_config, dev,
+                      seed: int) -> dict:
+    """Phase 13 (a): ``apply_mlstm`` (chunkwise, a decode step from its
+    state, sequential), ``apply_slstm`` (from its init state and from a
+    state the floor binds from) at xlstm-125m's widths and
+    ``apply_mamba`` (a 300-token prefill, two decode steps from its
+    state) at jamba's, on the card against the CPU in f32 and bf16 (every
+    weight cast, as the serving model holds them), outputs and states
+    within ``BLOCK_TOL``; then each block's planted fault
+    (``BLOCK_FAULTS``) in the CPU's run read against the card's, above
+    the limit, and in float32 mLSTM's stabilizer without its running
+    maximum on strong input gates (:func:`mlstm_gate_check`)."""
+    xl, x, floor_state, mp, mx, mstate = block_inputs(xlstm_mod, ssm_mod,
+                                                      get_config, seed)
+    B, D, H = x.shape[0], x.shape[2], 4
+    state0 = {k: v + 0.1 * torch.randn(v.shape, generator=torch.Generator()
+                                       .manual_seed(seed + 44))
+              for k, v in xlstm_mod.init_mlstm_state(B, D, H).items()}
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        runs = {
+            "xlstm": lambda d: xlstm_block_runs(
+                xlstm_mod, {k: _to(v, d, dt) for k, v in xl.items()},
+                x.to(d, dt), _to(state0, d), floor_state),
+            "mamba": lambda d: mamba_block_runs(
+                ssm_mod, _to(mp, d, dt), mx.to(d, dt), _to(mstate, d))}
+        res = {}
+        for name, run in runs.items():
+            t0 = time.perf_counter()
+            cpu = run(torch.device("cpu"))
+            card = run(dev)
+            _sync(dev)
+            errs = {k: _block_err(card[k], cpu[k]) for k in cpu}
+            bad = {k: e for k, e in errs.items() if not e <= BLOCK_TOL[dtype]}
+            check(not bad, f"{name} blocks {dtype}: card != CPU beyond "
+                  f"{BLOCK_TOL[dtype]}: {bad}")
+            check(all(card[k].dtype == cpu[k].dtype for k in cpu),
+                  f"{name} blocks {dtype}: dtypes differ")
+            faults = {}
+            for kind in (("mlstm", "slstm") if name == "xlstm"
+                         else ("mamba",)):
+                fault = BLOCK_FAULTS[kind]
+                with planted(attn_mod, fault):
+                    bad_cpu = run(torch.device("cpu"))
+                faults[fault] = max(_block_err(bad_cpu[k], card[k])
+                                    for k in card if k.startswith(kind))
+                check(faults[fault] > BLOCK_TOL[dtype], f"{name} {dtype}: "
+                      f"planted fault {fault} reads {faults[fault]:.3e}, "
+                      f"within the limit {BLOCK_TOL[dtype]}")
+            res[name] = dict(err=max(errs.values()), errs=errs,
+                             faults=faults,
+                             wall_s=time.perf_counter() - t0)
+        if dtype == "float32":
+            res["mlstm_gates"] = mlstm_gate_check(xlstm_mod, attn_mod, xl,
+                                                  x, state0, dev)
+        out[dtype] = res
+    log(f"phase 13 (a): xLSTM blocks at xlstm-125m's widths (d_model {D}, "
+        f"d_in {2 * D}, {H} heads of {2 * D // H}; B {B}, S "
+        f"{XLSTM_BLOCK['S']} chunkwise, {XLSTM_BLOCK['S_seq']} sequential) "
+        f"and Mamba at jamba's (d_model 4096, d_in 8192, d_state 16, "
+        f"dt_rank 256; B {MAMBA_BLOCK['B']}, S {MAMBA_BLOCK['S']} then "
+        f"{MAMBA_BLOCK['decode']} decode steps) card == CPU, errors over "
+        f"the largest magnitude (limits {json.dumps(BLOCK_TOL)}) with the "
+        f"planted faults' readings: " + json.dumps(
+            {dt: {n: dict(err=r["err"], faults=r["faults"],
+                          wall_s=round(r.get("wall_s", 0.0), 2))
+                  for n, r in res.items()} for dt, res in out.items()}))
+    return out
+
+
+def ssm_small_vs_cpu(serve_mod, build_model, get_config, TrainModel, adamw,
+                     data, attn_mod, fa_kernel, seed: int, dev) -> dict:
+    """Phase 13 (b): the xlstm-125m and jamba smoke configs served on the
+    card against the CPU from the same weights (f32; bf16, jamba's at
+    head_dim 128 so that its attention layer takes ``tc`` and
+    ``decode``), jamba's MoE layers on the CPU's routing; then trained
+    card against CPU (xlstm f32 and bf16, jamba f32) with the faults
+    phases 11 (b) and 12 (b) plant and each recurrent block's
+    (``BLOCK_TRAIN_FAULTS``) in the CPU's training."""
+    tag = "phase 13 (b)"
+    out = {}
+    for arch, hd, tol in ((XLSTM_ARCH, 0, SERVE_BF16_TOL),
+                          (JAMBA_ARCH, 128, JAMBA_SERVE_BF16_TOL)):
+        n_attn = layer_counts(get_config(arch, smoke=True))["attn"]
+        out[f"{arch} serve_f32"] = small_serve_matches_cpu(
+            serve_mod, build_model, get_config, seed, dev, arch=arch,
+            tag=tag)
+        out[f"{arch} serve_bf16"] = routes = small_serve_matches_cpu(
+            serve_mod, build_model, get_config, seed, dev, dtype="bfloat16",
+            head_dim=hd, tol=tol, rtol=0.0, arch=arch, tag=tag)
+        if dev.type == "cuda":
+            check(routes == dict(tc=n_attn, decode=n_attn * 8, simt=0),
+                  f"{arch} bf16 small serve flash routes {routes}")
+    # jamba's smoke training drops no assignment at capacity (4 experts,
+    # capacity 80 for 128 tokens x 2), so a rank shifted by one reads
+    # nothing there: its MoE fault is the aux loss dropped
+    jamba_faults = TRAIN_FAULTS + ("aux_dropped",
+                                   BLOCK_TRAIN_FAULTS["mamba"])
+    for arch, dtypes, faults in (
+            (XLSTM_ARCH, ("float32", "bfloat16"), None),
+            (JAMBA_ARCH, ("float32",), jamba_faults)):
+        for dt in dtypes:
+            out[f"{arch} train_{dt}"] = small_train_matches_cpu(
+                get_config, TrainModel, adamw, data, attn_mod, fa_kernel, dt,
+                seed, dev, arch=arch, tag=tag, faults_of=faults)
+    return out
+
+
+def serve_split(lm, wrapped, dev, seed: int, steps: int = 8,
+                tag: str = "phase 13 (c)") -> dict:
+    """A serve cell's device split: one prefill and a window of ``steps``
+    decode steps profiled with ranges around the functions ``wrapped``
+    (``(module, name, label)``, labels ``p11.*``; read from the raw
+    events, :func:`_fast_split`): flash, every kernel under each label,
+    the other matrix products, the rest, and the idle share."""
+    model, cfg, B = lm["model"], lm["cfg"], lm["B"]
+    rng = np.random.default_rng(seed + 13)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (B, LM_PROMPT)),
+                             device=dev)
+    tok = torch.zeros(B, 1, dtype=torch.int32, device=dev)
+    out = {}
+    with torch.inference_mode():
+        cache = model.init_cache(B, LM_PROMPT + LM_STEPS)
+
+        def window():
+            for _ in range(steps):
+                model.decode_step(tok, cache)
+
+        runs = (("prefill", lambda: model.prefill(prompt, cache)),
+                ("decode", window))
+        for what, fn in runs:
+            if what == "decode":
+                window()                       # warm
+                cache["index"] = LM_PROMPT
+            prof = ranged_profile(fn, wrapped, fast=True)
+            busy, wall = prof["busy_us"], prof["wall_us"]
+            groups = {"flash": prof["flash_us"]}
+            mm = prof["mm_us"]
+            for label, (us, mm_in) in prof["ranges"].items():
+                groups[label[len("p11."):]] = us
+                mm -= mm_in
+            groups["matmul"] = mm
+            groups["other"] = busy - sum(groups.values())
+            out[what] = dict(groups=groups, busy_us=busy, wall_us=wall,
+                             top=prof["top"], spans=prof["range_spans"])
+            shares = ", ".join(f"{g} {us:.1f} us ({us / busy:.3f})"
+                               for g, us in groups.items()) if busy else \
+                "not measured (the profiler saw no device time)"
+            head = (f"one prefill of {B} x {LM_PROMPT} tokens"
+                    if what == "prefill" else
+                    f"decode window of {steps} steps")
+            log(f"{tag}: {head}: device busy {busy:.1f} us of {wall:.1f} us "
+                f"wall, idle share "
+                f"{(1 - busy / wall) if busy else float('nan'):.4f}; by "
+                f"group: {shares}; device spans by range "
+                f"{json.dumps(prof['range_spans'])}; the largest kernels "
+                f"(us) {json.dumps(prof['top'])}")
+    log(f"{tag}: clocks, power, temperature after it: {_clocks()}")
+    return out
+
+
+def ssm_serve_cell(serve_mod, build_model, get_config, pm_ref, fa_ops,
+                   fa_ref, fa_kernel, pm_kernel, seed: int, dev,
+                   cfg, tag: str, wrapped) -> dict:
+    """Phase 13 (c) / (e): phase 5's traffic on ``cfg`` at its published
+    width (admission equal to the plain version's, finite logits, the
+    flash launches of its attention layers, the MoE paths); for an arch
+    with attention the flash op at its prefill and decode shapes (phase
+    6's checks and timings); the device split with ranges around
+    ``wrapped``."""
+    lm = lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
+                  pm_kernel, seed, dev, tag=tag, cfg=cfg)
+    res = {k: lm[k] for k in ("B", "fa_launches", "fa_routes", "pm_launches",
+                              "pm_routes", "timings", "moe_calls",
+                              "peak_bytes")}
+    if layer_counts(cfg)["attn"]:
+        res["flash"] = flash_timings(fa_ops, fa_ref, fa_kernel, lm, dev,
+                                     seed, tag=tag)
+    res["split"] = serve_split(lm, wrapped, dev, seed, tag=tag)
+    del lm
+    torch.cuda.empty_cache()
+    return res
+
+
+def ssm_phase(serve_mod, build_model, fa_ops, fa_ref, fa_kernel, pm_ref,
+              pm_kernel, dev, seed: int) -> dict:
+    """Phase 13: the xLSTM and Mamba sublayers on the card: (a) the blocks
+    at full width card against CPU, with planted faults; (b) the
+    xlstm-125m and jamba smoke configs served and trained card against
+    CPU; (c) ``serve_xlstm_125m``; (d) ``train_xlstm_125m_s4096``; (e)
+    ``serve_jamba_v01_L16``."""
+    import repro_torch.data as data
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer
+    from repro_torch.models import xlstm as xlstm_mod
+    from repro_torch.models.transformer import TrainModel
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    log(f"phase 13: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"on the card at the start")
+    marks = [("start", time.perf_counter())]
+
+    def mark(part):
+        marks.append((part, time.perf_counter()))
+        log(f"phase 13 {part} took {marks[-1][1] - marks[-2][1]:.1f} s")
+
+    out = dict(blocks=ssm_blocks_vs_cpu(xlstm_mod, ssm_mod, attn_mod,
+                                        get_config, dev, seed))
+    mark("(a)")
+    out["small"] = ssm_small_vs_cpu(serve_mod, build_model, get_config,
+                                    TrainModel, adamw, data, attn_mod,
+                                    fa_kernel, seed, dev)
+    mark("(b)")
+    xlstm_ranges = [(xlstm_mod, "apply_mlstm", "p11.mlstm"),
+                    (xlstm_mod, "apply_slstm", "p11.slstm")]
+    out["serve_xlstm"] = ssm_serve_cell(
+        serve_mod, build_model, get_config, pm_ref, fa_ops, fa_ref,
+        fa_kernel, pm_kernel, seed, dev, get_config(XLSTM_ARCH),
+        "phase 13 (c)", xlstm_ranges)
+    mark("(c)")
+    cell = train_cell(get_config, TrainModel, adamw, data, steps_mod,
+                      attn_mod, transformer, fa_kernel, dev, seed,
+                      cfg=get_config(XLSTM_ARCH),
+                      name="train_xlstm_125m_s4096", tag="phase 13 (d)",
+                      recurrent=[(m, n) for m, n, _ in xlstm_ranges])
+    cell.pop("cfg")
+    out["train_xlstm"] = cell
+    mark("(d)")
+    jamba = dataclasses.replace(get_config(JAMBA_ARCH),
+                                n_layers=JAMBA_SERVE_LAYERS)
+    out["serve_jamba"] = ssm_serve_cell(
+        serve_mod, build_model, get_config, pm_ref, fa_ops, fa_ref,
+        fa_kernel, pm_kernel, seed, dev, jamba, "phase 13 (e)",
+        [(ssm_mod, "apply_mamba", "p11.mamba"),
+         (moe_mod, "apply_moe", "p11.moe"),
+         (moe_mod, "apply_moe_dense", "p11.moe_dense")])
+    mark("(e)")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 13 took {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
@@ -4224,6 +4864,10 @@ def main(argv=None) -> int:
                     kernel, dev, args.seed)
     ms, mt = moe["serve"], moe["train"]
     log("moe: " + json.dumps(moe, default=str))
+    ssm = ssm_phase(serve_mod, build_model, fa_ops, fa_ref, fa_kernel, ref,
+                    kernel, dev, args.seed)
+    sx, sj = ssm["serve_xlstm"], ssm["serve_jamba"]
+    log("ssm: " + json.dumps(ssm, default=str))
     log(f"the whole smoke took {time.perf_counter() - t_start:.1f} s")
 
     pre, dec = ft["prefill"], ft["decode"]
@@ -4265,6 +4909,8 @@ def main(argv=None) -> int:
         "chaos_storm_dispatches": chaos_run["storm"]["dispatches"],
         "moe_serve_launches": ms["pm_launches"],
         "moe_serve_route_launches": ms["pm_routes"],
+        "xlstm_serve_launches": sx["pm_launches"],
+        "jamba_serve_launches": sj["pm_launches"],
         "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -4276,6 +4922,8 @@ def main(argv=None) -> int:
         "max_abs_err": max(fa_worst, pre["err"], dec["err"],
                            ms["flash"]["prefill"]["err"],
                            ms["flash"]["decode"]["err"],
+                           sj["flash"]["prefill"]["err"],
+                           sj["flash"]["decode"]["err"],
                            *(w[0] for w in train["lse"]["worst"].values())),
         "ms": pre["ms"], "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
@@ -4294,6 +4942,12 @@ def main(argv=None) -> int:
         "moe_serve_route_launches": ms["fa_routes"],
         "moe_train_launches": mt["launches"],
         "moe_train_route_launches": mt["routes"],
+        "jamba_serve_launches": sj["fa_launches"],
+        "jamba_serve_route_launches": sj["fa_routes"],
+        "jamba_hd128_g4": {shape: {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for shape, r in sj["flash"].items()
+            if shape in ("prefill", "decode")},
         "hd64": {shape: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")}
                  for shape, r in (("prefill", ms["flash"]["prefill"]),

@@ -5,9 +5,12 @@ The reference's ``Model.init_params`` returns a tree of arrays; the
 caller turns it into numpy (``tree_map(np.asarray, params)``), so this
 module never sees the other framework.  Keys follow the reference's
 ``transformer.py``: ``embedding``, ``lm_head`` (untied), ``final_norm``
-and ``units``, whose leaves carry a leading ``n_units`` axis
-(``units.layer0.attn.wq``, ``units.layer0.mlp.wo`` or, in an MoE layer,
-``units.layer0.moe.{router,wi_gate,wi_up,wo}``).  The port holds one
+and ``units``, whose leaves carry a leading ``n_units`` axis: a
+sublayer's ``ln1``, its mixer (``units.layer0.attn.wq``,
+``units.layer0.mamba.a_log``, ``units.layer0.mlstm.b_f``,
+``units.layer1.slstm.r_z``) and, unless its ``ffn`` is ``"none"`` (no
+``ln2`` then, as in xlstm-125m), ``ln2`` and ``mlp`` or ``moe``
+(``units.layer0.moe.{router,wi_gate,wi_up,wo}``).  The port holds one
 parameter a unit (``units.<u>.layer0.attn.wq``); the tree stacks them.
 
 - :func:`params_from_numpy` builds a serving ``Model`` (or, with

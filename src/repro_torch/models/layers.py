@@ -53,6 +53,16 @@ def make_param(gen: Optional[torch.Generator], shape, dtype: torch.dtype,
     return x.mul_(std).to(dtype)
 
 
+def make_const(shape, value: float, dtype, mode: str = "normal",
+               device=None) -> torch.Tensor:
+    """A constant leaf (a bias, a gate's opening value): made in float32
+    and cast to ``dtype``; ``mode="empty"`` only allocates it."""
+    if mode == "empty":
+        return torch.empty(shape, dtype=dtype, device=device)
+    return torch.full(shape, value, dtype=torch.float32,
+                      device=device).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Norms / activations
 # ---------------------------------------------------------------------------
@@ -69,6 +79,47 @@ def act_fn(name: str):
     # jax.nn.gelu defaults to the tanh approximation
     return {"silu": F.silu,
             "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
+
+
+class _Sigmoid(torch.autograd.Function):
+    """``1 / (1 + exp(-x))``, each step rounded in ``x``'s dtype, as XLA
+    expands ``jax.nn.sigmoid`` (in bf16 ``torch.sigmoid`` rounds once and
+    reads one ulp off for about a third of the inputs); the backward is
+    ``s * (1 - s)``, as jax's, which stays finite where ``exp(-x)``
+    overflows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` to the bit (see :class:`_Sigmoid`)."""
+    return _Sigmoid.apply(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)``."""
+    return x * sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, ``logaddexp(x, 0)``: ``max(x, 0) +
+    log1p(exp(-|x|))`` (``F.softplus`` takes ``log1p(exp(x))`` and reads
+    an ulp off in bf16)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -1,25 +1,35 @@
 """Model assembly: embeddings -> unit stack -> logits, for serving and
 for training.
 
-The port of ``repro/models/transformer.py`` for the decoder-only
-attention archs: dense (llama3, gemma2 with local windows and softcaps,
-glm4 with partial rotary, qwen1.5 with QKV bias) and MoE (qwen3-moe,
-granite-moe: ``ffn="moe"``, :mod:`repro_torch.models.moe`).  Both models
+The port of ``repro/models/transformer.py`` for the decoder-only archs:
+dense attention (llama3, gemma2 with local windows and softcaps, glm4
+with partial rotary, qwen1.5 with QKV bias), MoE (qwen3-moe,
+granite-moe: ``ffn="moe"``, :mod:`repro_torch.models.moe`), xLSTM
+(xlstm-125m: ``mlstm``/``slstm`` sublayers with ``ffn="none"``,
+:mod:`repro_torch.models.xlstm`) and the hybrid jamba (``mamba``
+sublayers beside attention, :mod:`repro_torch.models.ssm`).  Both models
 are ``nn.Module``s of one layout: ``units`` is an ``nn.ModuleList`` of
 units, each an ``nn.ModuleDict`` of ``layer{i}`` sublayers, beside the
-embedding (and the untied ``lm_head``) and the final norm.
+embedding (and the untied ``lm_head``) and the final norm.  A sublayer
+holds ``ln1``, its mixer (``attn``, ``mamba``, ``mlstm`` or ``slstm``) and,
+unless its ``ffn`` is ``"none"``, ``ln2`` and ``mlp`` or ``moe``.
 
 ``Model`` serves.  It holds what the reference serves with: its
 ``prefill``/``decode_step`` cast every floating leaf of two or more
 dimensions to the compute dtype on every call (``_cast_params``), and
 the reference stacks a unit's leaves over the units, so every unit leaf
-(norm weights, QKV biases and the MoE router too), the embedding and
-``lm_head`` are held in ``cfg.dtype``; only the final norm stays
-float32.  The port casts once, at load.  The stack runs the units in a
-Python loop (the reference's ``lax.scan``) and the forward only: serve
-under ``torch.inference_mode()``.  A prefill's MoE layers take the
-capacity path, a decode step's (one token a sequence) the dense one, as
-in the reference; the aux loss is dropped.
+(norm weights, QKV biases, the MoE router, the xLSTM gate biases and
+``out_norm``, Mamba's ``a_log``, ``dt_proj_b``, ``d_skip`` and
+``conv_b``), the embedding and ``lm_head`` are held in ``cfg.dtype``;
+only the final norm stays float32.  The port casts once, at load.  The
+stack runs the units in a Python loop (the reference's ``lax.scan``) and
+the forward only: serve under ``torch.inference_mode()``.  The decode
+cache holds one entry a unit position, stacked over the units: the KV
+pair of an attention layer (written in place), the recurrent state of a
+Mamba or xLSTM layer (replaced after every call).  A prefill starts from
+the cache's states (fresh: the zero states).  A prefill's MoE layers
+take the capacity path, a decode step's (one token a sequence) the dense
+one, as in the reference; the aux loss is dropped.
 
 ``TrainModel`` trains (``train_loss``).  Its weights are the float32
 masters in ``cfg.param_dtype`` with ``requires_grad``, cast to
@@ -30,26 +40,31 @@ the casts.  With ``remat`` every unit is a ``torch.utils.checkpoint``
 region (the reference's ``jax.checkpoint`` with ``nothing_saveable``):
 its forward, attention kernel included, runs again in the backward, and
 it returns its MoE aux loss beside the activations.  With ``cfg.moe``
-the loss adds ``aux_loss_weight * sum(aux) / n_layers``.
+the loss adds ``aux_loss_weight * sum(aux) / n_layers``.  Training runs
+no cache: recurrent layers start from the zero states.
 
-Mamba and xLSTM sublayers, encoder-decoder stacks and modality
-frontends raise ``NotImplementedError`` (ROADMAP Queue 1 #8).
+Encoder-decoder stacks, modality frontends and the int8 KV cache raise
+``NotImplementedError`` (ROADMAP Queue 1 A #4-#5).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.configs.base import LayerSpec, MambaConfig, ModelConfig
 from . import attention as attn_mod
 from . import moe as moe_mod
+from . import ssm as ssm_mod
+from . import xlstm as xlstm_mod
 from .layers import (KeyGen, apply_mlp, cross_entropy, dtype_of,
                      embed_tokens, init_embed, init_mlp, rms_norm, unembed)
 
-LATER = "not ported yet (ROADMAP Queue 1 #8)"
+LATER = "not ported yet (ROADMAP Queue 1 A)"
+KINDS = ("attn", "mamba", "mlstm", "slstm")
+FFNS = ("dense", "moe", "none")
 
 
 def _param(t: torch.Tensor, trainable: bool = False) -> nn.Parameter:
@@ -70,25 +85,62 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
                                   f"is {LATER}")
     for spec in cfg.unit:
-        if spec.kind != "attn":
-            raise NotImplementedError(f"{cfg.name}: {spec.kind} layers are "
-                                      f"{LATER}")
-    for spec in cfg.unit:
-        if spec.ffn not in ("dense", "moe"):
-            raise NotImplementedError(f"{cfg.name}: ffn={spec.ffn!r} is "
-                                      f"{LATER}")
+        if spec.kind not in KINDS:
+            raise ValueError(f"{cfg.name}: unknown layer kind {spec.kind!r}")
+        if spec.ffn not in FFNS:
+            raise ValueError(f"{cfg.name}: unknown ffn {spec.ffn!r}")
         if spec.ffn == "moe" and cfg.moe is None:
             raise ValueError(f"{cfg.name}: ffn='moe' without cfg.moe")
+        if spec.kind in ("mlstm", "slstm") and cfg.xlstm is None:
+            raise ValueError(f"{cfg.name}: {spec.kind} layers without "
+                             f"cfg.xlstm")
     if cfg.kv_dtype != "bfloat16":
         raise NotImplementedError(f"{cfg.name}: the {cfg.kv_dtype} KV cache "
                                   f"is {LATER}")
 
 
+def init_layer(cfg: ModelConfig, spec: LayerSpec, kg: Optional[KeyGen],
+               dtype: torch.dtype, vec_dtype: torch.dtype = torch.float32,
+               mode: str = "normal",
+               device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A sublayer's weight groups, drawn in the reference's order: the
+    mixer (``attn``, ``mamba``, ``mlstm`` or ``slstm``), then the ffn
+    (``mlp`` or ``moe``; none with ``ffn="none"``).  Weights in ``dtype``;
+    the leaves the reference makes in float32 (the MoE router, the gate
+    biases, ``out_norm``, Mamba's ``a_log``, ``dt_proj_b``, ``d_skip``)
+    in ``vec_dtype``.  The norms are not drawn."""
+    kw = dict(mode=mode, device=device)
+    if spec.kind == "attn":
+        mixer = attn_mod.init_attention(
+            kg, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim, dtype, cfg.qkv_bias, **kw)
+    elif spec.kind == "mamba":
+        m = cfg.mamba or MambaConfig()
+        mixer = ssm_mod.init_mamba(kg, cfg.d_model, dtype, m.d_state,
+                                   m.d_conv, m.expand, m.dt_rank,
+                                   vec_dtype=vec_dtype, **kw)
+    else:
+        init = (xlstm_mod.init_mlstm if spec.kind == "mlstm"
+                else xlstm_mod.init_slstm)
+        mixer = init(kg, cfg.d_model, cfg.n_heads, dtype,
+                     cfg.xlstm.proj_factor, vec_dtype=vec_dtype, **kw)
+    groups = {spec.kind: mixer}
+    if spec.ffn == "moe":
+        groups["moe"] = moe_mod.init_moe(
+            kg, cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff, dtype,
+            router_dtype=vec_dtype, **kw)
+    elif spec.ffn == "dense":
+        groups["mlp"] = init_mlp(kg, cfg.d_model, cfg.d_ff, dtype, **kw)
+    return groups
+
+
 class Layer(nn.Module):
-    """One pre-norm sublayer: attention, then the dense gated MLP
-    (``mlp``) or the MoE layer (``moe``).  Every weight, norm and bias is
-    held in ``dtype`` (the MoE router drawn in float32 first, as in the
-    reference); ``trainable`` sets ``requires_grad`` on every one."""
+    """One pre-norm sublayer: ``ln1`` and the mixer (attention, Mamba,
+    mLSTM or sLSTM), then, unless ``ffn="none"``, ``ln2`` and the dense
+    gated MLP (``mlp``) or the MoE layer (``moe``): :func:`init_layer`'s
+    groups, in the reference's key order.  Every weight, norm and bias is
+    held in ``dtype`` (the leaves the reference makes in float32 drawn in
+    float32 first); ``trainable`` sets ``requires_grad`` on every one."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec,
                  kg: Optional[KeyGen], device, mode: str,
@@ -96,50 +148,66 @@ class Layer(nn.Module):
         super().__init__()
         self.ln1 = _param(torch.zeros(cfg.d_model, dtype=dtype,
                                       device=device), trainable)
-        self.attn = _params(attn_mod.init_attention(
-            kg, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-            cfg.resolved_head_dim, dtype, cfg.qkv_bias, mode=mode,
-            device=device), trainable)
-        self.ln2 = _param(torch.zeros(cfg.d_model, dtype=dtype,
-                                      device=device), trainable)
-        if spec.ffn == "moe":
-            self.moe = _params(moe_mod.init_moe(
-                kg, cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff, dtype,
-                router_dtype=dtype, mode=mode, device=device), trainable)
-        else:
-            self.mlp = _params(init_mlp(kg, cfg.d_model, cfg.d_ff, dtype,
-                                        mode=mode, device=device), trainable)
+        groups = init_layer(cfg, spec, kg, dtype, vec_dtype=dtype, mode=mode,
+                            device=device)
+        self.groups = tuple(groups)
+        for i, (name, tensors) in enumerate(groups.items()):
+            if i == 1:                            # the ffn's norm before it
+                self.ln2 = _param(torch.zeros(cfg.d_model, dtype=dtype,
+                                              device=device), trainable)
+            setattr(self, name, _params(tensors, trainable))
 
-    def weights(self, spec: LayerSpec, dtype=None) -> Dict[str, Any]:
+    def norms(self) -> Tuple[str, ...]:
+        return ("ln1", "ln2") if len(self.groups) > 1 else ("ln1",)
+
+    def weights(self, dtype=None) -> Dict[str, Any]:
         """The mapping :func:`apply_layer` reads, every leaf cast to
         ``dtype`` when given."""
-        ffn = "moe" if spec.ffn == "moe" else "mlp"
         cast = (lambda w: w) if dtype is None else (lambda w: w.to(dtype))
-        return {"ln1": cast(self.ln1), "ln2": cast(self.ln2),
-                "attn": {k: cast(w) for k, w in self.attn.items()},
-                ffn: {k: cast(w) for k, w in getattr(self, ffn).items()}}
+        out: Dict[str, Any] = {n: cast(getattr(self, n))
+                               for n in self.norms()}
+        for name in self.groups:
+            out[name] = {k: cast(w) for k, w in getattr(self, name).items()}
+        return out
 
 
 def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
                 layer_cache=None, cache_index: int = 0):
-    """One sublayer's forward: ``p`` maps ``ln1``, ``attn``, ``ln2`` and
-    ``mlp`` or ``moe`` to the weights (:meth:`Layer.weights`).  Returns
-    ``(x, aux)``: the MoE layer's aux loss (a float32 tensor; 0 after a
-    decode step's dense path), 0.0 after a dense MLP."""
+    """One sublayer's forward: ``p`` maps ``ln1``, the mixer and, unless
+    ``ffn="none"``, ``ln2`` and ``mlp`` or ``moe`` to the weights
+    (:meth:`Layer.weights`).  ``layer_cache`` is the layer's slice of the
+    decode cache: an attention layer's KV pair (written in place) or a
+    recurrent layer's state (None: the zero state, and no state back).
+    Returns ``(x, aux, state)``: the MoE layer's aux loss (a float32
+    tensor; 0 after a decode step's dense path), 0.0 without one; the
+    recurrent layer's new state, None for attention."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    window = cfg.sliding_window if spec.attn_type == "local" else 0
-    chunk = cfg.decode_chunk if h.shape[1] == 1 else cfg.attn_chunk
-    y, _ = attn_mod.attention(
-        p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim, positions=positions,
-        window=window, rotary_fraction=cfg.rotary_fraction,
-        rope_theta=cfg.rope_theta, attn_cap=cfg.attn_softcap,
-        impl=cfg.attn_impl, chunk=chunk, layer_cache=layer_cache,
-        cache_index=cache_index)
+    state = None
+    if spec.kind == "attn":
+        window = cfg.sliding_window if spec.attn_type == "local" else 0
+        chunk = cfg.decode_chunk if h.shape[1] == 1 else cfg.attn_chunk
+        y, _ = attn_mod.attention(
+            p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim, positions=positions,
+            window=window, rotary_fraction=cfg.rotary_fraction,
+            rope_theta=cfg.rope_theta, attn_cap=cfg.attn_softcap,
+            impl=cfg.attn_impl, chunk=chunk, layer_cache=layer_cache,
+            cache_index=cache_index)
+    elif spec.kind == "mamba":
+        y, state = ssm_mod.apply_mamba(p["mamba"], h, chunk=cfg.mamba_chunk,
+                                       state=layer_cache)
+    elif spec.kind == "mlstm":
+        y, state = xlstm_mod.apply_mlstm(p["mlstm"], h, n_heads=cfg.n_heads,
+                                         chunk=cfg.xlstm.chunk,
+                                         state=layer_cache)
+    else:
+        y, state = xlstm_mod.apply_slstm(p["slstm"], h, state=layer_cache)
     x = x + y
+    if spec.ffn == "none":
+        return x, 0.0, state
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    if spec.ffn != "moe":
-        return x + apply_mlp(p["mlp"], h, cfg.act), 0.0
+    if spec.ffn == "dense":
+        return x + apply_mlp(p["mlp"], h, cfg.act), 0.0, state
     if h.shape[1] == 1:          # decode: the dropless all-experts path
         y, aux = moe_mod.apply_moe_dense(p["moe"], h, top_k=cfg.moe.top_k,
                                          act=cfg.act)
@@ -147,7 +215,23 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
         y, aux = moe_mod.apply_moe(
             p["moe"], h, top_k=cfg.moe.top_k,
             capacity_factor=cfg.moe.capacity_factor, act=cfg.act)
-    return x + y, aux
+    return x + y, aux, state
+
+
+def init_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
+               device=None) -> Dict[str, torch.Tensor]:
+    """A recurrent layer's zero state for ``batch`` sequences (float32):
+    Mamba ``{conv, ssm}``, mLSTM ``{C, n, m}``, sLSTM ``{c, n, m, h}``."""
+    if spec.kind == "mamba":
+        m = cfg.mamba or MambaConfig()
+        return ssm_mod.init_mamba_state(batch, cfg.d_model, m.d_state,
+                                        m.d_conv, m.expand, device=device)
+    if spec.kind == "mlstm":
+        return xlstm_mod.init_mlstm_state(batch, cfg.d_model, cfg.n_heads,
+                                          cfg.xlstm.proj_factor,
+                                          device=device)
+    return xlstm_mod.init_slstm_state(batch, cfg.d_model,
+                                      cfg.xlstm.proj_factor, device=device)
 
 
 class Model(nn.Module):
@@ -181,15 +265,24 @@ class Model(nn.Module):
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
-        """Decode cache: one bf16 ``[n_units, B, KV, max_len, hd]`` pair
-        per unit position, and the write index."""
+        """Decode cache: one entry a unit position, stacked over the units
+        (a leading ``n_units`` axis): a bf16 ``{k, v}`` pair ``[n_units,
+        B, KV, max_len, hd]`` for attention, the zero state
+        (:func:`init_state`) for a recurrent layer; and the write
+        index."""
         cfg = self.cfg
         layers = {}
-        for i in range(len(cfg.unit)):
-            c = attn_mod.init_kv_cache(batch, cfg.n_kv_heads, max_len,
-                                       cfg.resolved_head_dim, cfg.kv_dtype,
-                                       cfg.n_units, device=self.device)
-            c.pop("index")
+        for i, spec in enumerate(cfg.unit):
+            if spec.kind == "attn":
+                c = attn_mod.init_kv_cache(batch, cfg.n_kv_heads, max_len,
+                                           cfg.resolved_head_dim,
+                                           cfg.kv_dtype, cfg.n_units,
+                                           device=self.device)
+                c.pop("index")
+            else:
+                c = {k: t.expand(cfg.n_units, *t.shape).clone()
+                     for k, t in init_state(cfg, spec, batch,
+                                            self.device).items()}
             layers[f"layer{i}"] = c
         return {"layers": layers, "index": 0}
 
@@ -199,11 +292,13 @@ class Model(nn.Module):
             for i, spec in enumerate(self.cfg.unit):
                 name = f"layer{i}"
                 c = cache["layers"][name]
-                x, _ = apply_layer(       # serving drops the aux loss
-                    self.cfg, spec, unit[name].weights(spec), x,
+                x, _, state = apply_layer(   # serving drops the aux loss
+                    self.cfg, spec, unit[name].weights(), x,
                     positions=positions,
-                    layer_cache={"k": c["k"][u], "v": c["v"][u]},
+                    layer_cache={k: t[u] for k, t in c.items()},
                     cache_index=cache_index)
+                for k, t in (state or {}).items():
+                    c[k][u] = t
         return x
 
     # ----------------------------------------------------------- entrypoints
@@ -283,11 +378,10 @@ class TrainModel(nn.Module):
     def init_params(self, seed: int) -> Dict[str, torch.Tensor]:
         """Draw every master in place from a ``torch.Generator`` on the
         model's device seeded with ``seed``, in :class:`Model`'s order
-        (embedding, ``lm_head``, then each unit's ``wq wk wv wo`` and
-        ``wi_gate wi_up wo``, or the MoE layer's ``router wi_gate wi_up
-        wo``), so a :class:`Model` of the same seed holds these numbers
-        cast to ``cfg.dtype``; norms and biases are zeros.  Returns
-        :meth:`param_dict`."""
+        (embedding, ``lm_head``, then each sublayer's :func:`init_layer`
+        groups), so a :class:`Model` of the same seed holds these numbers
+        cast to ``cfg.dtype``; norms are zeros, the other constants the
+        reference's.  Returns :meth:`param_dict`."""
         cfg = self.cfg
         kg = KeyGen(seed, self.device)
         pdt = dtype_of(cfg.param_dtype)
@@ -298,30 +392,20 @@ class TrainModel(nn.Module):
         for unit in self.units:
             for i, spec in enumerate(cfg.unit):
                 layer = unit[f"layer{i}"]
-                fresh = {"attn": attn_mod.init_attention(
-                    kg, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                    cfg.resolved_head_dim, pdt, cfg.qkv_bias,
-                    device=self.device)}
-                if spec.ffn == "moe":
-                    fresh["moe"] = moe_mod.init_moe(
-                        kg, cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff,
-                        pdt, device=self.device)
-                else:
-                    fresh["mlp"] = init_mlp(kg, cfg.d_model, cfg.d_ff, pdt,
-                                            device=self.device)
-                for group, tensors in fresh.items():
+                groups = init_layer(cfg, spec, kg, pdt, device=self.device)
+                for group, tensors in groups.items():
                     for name, t in tensors.items():
                         getattr(layer, group)[name].copy_(t)
-                layer.ln1.zero_()
-                layer.ln2.zero_()
+                for norm in layer.norms():
+                    getattr(layer, norm).zero_()
         self.final_norm.zero_()
         return self.param_dict()
 
     def _unit(self, unit: nn.ModuleDict, x, positions):
         aux = 0.0
         for i, spec in enumerate(self.cfg.unit):
-            p = unit[f"layer{i}"].weights(spec, self.dtype)
-            x, a = apply_layer(self.cfg, spec, p, x, positions=positions)
+            p = unit[f"layer{i}"].weights(self.dtype)
+            x, a, _ = apply_layer(self.cfg, spec, p, x, positions=positions)
             aux = aux + a
         return x, aux
 

@@ -30,6 +30,11 @@ MoE: ``moe.route`` card against CPU on the same probabilities (exact),
 (planted faults read above it), the granite-moe smoke config served and
 trained card against CPU, and qwen1.5's bf16 serve with no ``simt``
 call.
+
+xLSTM and Mamba: the blocks at full width (xlstm-125m's mLSTM and sLSTM,
+jamba's Mamba) card against CPU within ``chip_smoke.BLOCK_TOL`` (planted
+faults read above it), the xlstm-125m and jamba smoke configs served and
+trained card against CPU.
 """
 import dataclasses
 import importlib.util
@@ -891,3 +896,43 @@ def test_moe_small_serve_and_train_card_vs_cpu(cuda):
     assert out["qwen_serve_bf16"]["simt"] == 0
     for dt in ("float32", "bfloat16"):
         assert out[f"train_{dt}"]["grad_err"] <= chip_smoke.SMALL_TOL[dt][1]
+
+
+# ---------------------------------------------------------------------------
+# the xLSTM and Mamba sublayers: the blocks at full width, the xlstm-125m
+# and jamba smoke configs on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def test_ssm_blocks_card_vs_cpu_and_planted_faults(cuda):
+    """``apply_mlstm``/``apply_slstm`` at xlstm-125m's widths and
+    ``apply_mamba`` at jamba's, f32 and bf16, within
+    ``chip_smoke.BLOCK_TOL``; each block's planted fault reads above it
+    (the recurrent products in f32 need TF32 off, as the smoke sets)."""
+    from repro_torch.models import attention, ssm, xlstm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = chip_smoke.ssm_blocks_vs_cpu(xlstm, ssm, attention, get_config,
+                                       cuda, 0)
+    for dtype, res in out.items():
+        tol = chip_smoke.BLOCK_TOL[dtype]
+        for name, r in res.items():
+            assert r["err"] <= tol < min(r["faults"].values()), (dtype, name)
+
+
+def test_ssm_small_serve_and_train_card_vs_cpu(cuda):
+    import repro_torch.data as data
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import TrainModel
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = chip_smoke.ssm_small_vs_cpu(serve_mod, build_model, get_config,
+                                      TrainModel, adamw, data, attention,
+                                      fa_kernel, 0, cuda)
+    assert out["jamba-v0.1-52b serve_bf16"] == dict(tc=1, decode=8, simt=0)
+    assert out["xlstm-125m serve_bf16"] == dict(tc=0, decode=0, simt=0)
+    for key, r in out.items():
+        if "train_" in key:
+            dt = key.split("train_")[1]
+            tol = chip_smoke.SMALL_TOL[dt][1]
+            if key.startswith("xlstm"):
+                tol = max(tol, chip_smoke.MLSTM_F32_GRAD_TOL)
+            assert r["grad_err"] <= tol, key

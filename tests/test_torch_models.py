@@ -290,7 +290,6 @@ def test_params_from_numpy_refuses_mismatch():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch,what", [
-    ("jamba_v01_52b", "mamba"), ("xlstm_125m", "lstm"),
     ("seamless_m4t_medium", "encoder-decoder"), ("paligemma_3b", "frontend")])
 def test_unported_archs_raise(arch, what):
     with pytest.raises(NotImplementedError, match=what):
