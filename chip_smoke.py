@@ -203,12 +203,41 @@ Phases, in order; any failure exits non-zero:
    version's, no flash launch, the chunkwise mLSTM at prefill and the
    sequential one at decode) with a profiled prefill and decode window
    split by block; (d) ``train_xlstm_125m_s4096``: phase 11 (c)'s cell on
-   xlstm-125m at its published size (no flash launch; MFU over the
-   blocks' projections and the head); (e) ``serve_jamba_v01_L16``: phase
+   xlstm-125m at its published size with one timed step
+   (``XLSTM_TRAIN_TIMED``; the AdamW schedule of every training cell;
+   no flash launch; MFU over the blocks' projections and the head); (e) ``serve_jamba_v01_L16``: phase
    5's traffic on jamba-v0.1 at its published width cut to 16 layers (2
    ``tc`` + 64 ``decode`` flash launches, the MoE paths), the flash op at
    its head_dim-128, g = 4 shapes, and the split by Mamba, MoE, flash,
-   other products and the rest.
+   other products and the rest;
+14. encoder-decoder stacks, cross-attention and the frontends
+   (seamless-m4t-medium, paligemma-3b) — (a) the flash op at every call
+   form of the three cells, at full size (``encdec_flash_shapes``: the
+   encoder and the cross-attention's prefill non-causal at hd 64, the
+   decoder's self prefill over the 3,104-key cache, both decode rows,
+   paligemma's MQA at hd 256 with g = 8, seamless's training launches
+   with the log-sum-exp), kernel against plain in f32 (2e-5) and bf16
+   (2e-2, ``FA_ROW_TOL`` per row) on the route the plan gives, planted
+   faults (a causal mask on a non-causal call; the last visible key
+   tile dropped) read above the row limit, and the kernel's, the plain
+   version's and SDPA's times beside the bound; (b) the seamless and
+   paligemma smoke configs served (f32; bf16 at hd 64 / 256 on ``tc`` +
+   ``decode``) and trained (f32, bf16) card against CPU, with phase 11's
+   faults and seamless's cross-attention made causal planted in the
+   CPU's training; (c) ``serve_seamless_m4t_medium``: phase 5's traffic
+   at its published size with 1,024 frame embeddings a request (the
+   reference launcher's ``0.02 * ones``): admission equal to the plain
+   version's, 36 ``tc`` + 768 ``decode`` launches, the cross K/V once a
+   unit at the prefill, and a profiled prefill and decode window split
+   into the encoder's, the decoder's and the cross-attention's flash
+   time, the matrix products and the rest; (d) ``serve_paligemma_3b``:
+   the same with a 256-embedding vision prefix (18 ``tc`` + 576
+   ``decode``); (e) ``train_seamless_m4t_medium_s4096``: phase 11 (c)'s
+   cell at seamless's published size with seeded frames (360 ``tc``
+   launches with the log-sum-exp, every master changed, MFU over the
+   frames' and the tokens' products); each form's flash launches in
+   the three cells counted on their paths (``launches_by_form``) and
+   held to what (a)'s shape list expects.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``{"kernels": [...]}`` record, and the line before that the
@@ -957,6 +986,25 @@ FA_CHECK_CASES = [
     *(FACase(f"decode_hd{hd}_wrap" + (f"_splits{n}" if n else ""), 1, 2,
              4, 1, 2080, hd, True, 0, 0.0, "decode", splits=n)
       for hd in (64, 256) for n in (1, 2, None)),
+    # the encoder-decoder's and paligemma's call forms (phase 14), cut
+    # down, with a ragged Sk: the encoder (non-causal, Sq = Sk), the
+    # cross-attention's prefill (non-causal, Sq > Sk) and decode row
+    # (non-causal: a row at position 0 sees every key), the decoder self
+    # prefill over a cache longer than the prompt, paligemma's MQA at hd
+    # 256 with g = 8 (prefill rows at the last keys; a decode step)
+    FACase("enc_hd64_ragged", 1, 4, 1, 200, 200, 64, False, 0, 0.0, "tc"),
+    FACase("cross_prefill_hd64_ragged", 2, 2, 1, 1100, 1000, 64, False, 0,
+           0.0, "tc"),
+    FACase("cross_decode_hd64_ragged", 2, 4, 1, 1, 1000, 64, False, 0, 0.0,
+           "decode"),
+    FACase("cross_decode_hd64_1split", 2, 4, 1, 1, 1000, 64, False, 0, 0.0,
+           "decode", splits=1),
+    FACase("self_prefill_hd64_long_cache", 1, 4, 1, 600, 800, 64, True, 0,
+           0.0, "tc"),
+    FACase("mqa_hd256_g8_prefill", 1, 1, 8, 100, 300, 256, True, 0, 0.0,
+           "tc", q_at=200.0),
+    FACase("mqa_hd256_g8_decode", 2, 1, 8, 1, 1000, 256, True, 0, 0.0,
+           "decode"),
 ]
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # bf16 is also held per row: the largest ||got_r - want_r|| / ||want_r||
@@ -1099,11 +1147,12 @@ def serve_logits_agree(card, cpu, tol: float, rtol: float,
 
 
 def small_serve_config(get_config, dtype: str, head_dim: int = 0,
-                       arch: str = "llama3-8b"):
+                       arch: str = "llama3-8b", over: Optional[dict] = None):
     """``arch``'s smoke config in ``dtype`` with attn_impl "pallas", its
-    head_dim set to ``head_dim`` when given."""
+    head_dim set to ``head_dim`` when given, and the fields of ``over``
+    replaced."""
     cfg = dataclasses.replace(get_config(arch, smoke=True),
-                              dtype=dtype, attn_impl="pallas")
+                              dtype=dtype, attn_impl="pallas", **(over or {}))
     return dataclasses.replace(cfg, head_dim=head_dim) if head_dim else cfg
 
 
@@ -1118,7 +1167,7 @@ def small_serve_matches_cpu(serve_mod, build_model, get_config, seed: int,
                             dev, dtype: str = "float32", head_dim: int = 0,
                             tol: float = 1e-3, rtol: Optional[float] = None,
                             arch: str = "llama3-8b", tag: str = "phase 2",
-                            prompt_len: int = 0):
+                            prompt_len: int = 0, over: Optional[dict] = None):
     """A small serve (:func:`small_serve_config`, the same weights on both
     devices) on the card against the CPU: the same admitted set, and
     logits and tokens as :func:`serve_logits_agree` checks them (``rtol``
@@ -1126,10 +1175,11 @@ def small_serve_matches_cpu(serve_mod, build_model, get_config, seed: int,
     another order and the bf16 KV cache, which turns a last-bit
     difference into one bf16 ulp.  The CPU runs first; an MoE layer on
     the card then takes the CPU's routing (:func:`routing_record`), and
-    its own choices may differ only at near-ties.  Returns the flash
-    calls the card run made, by route."""
+    its own choices may differ only at near-ties.  ``over`` replaces
+    fields of the config.  Returns the flash calls the card run made, by
+    route."""
     from repro_torch.models import moe as moe_mod
-    cfg = small_serve_config(get_config, dtype, head_dim, arch)
+    cfg = small_serve_config(get_config, dtype, head_dim, arch, over)
     cpu_model = build_model(cfg, device="cpu", seed=seed)
     card_model = copy.deepcopy(cpu_model).to(dev)
     kw = small_serve_kwargs(seed)
@@ -1205,13 +1255,36 @@ def layer_counts(cfg) -> collections.Counter:
     return c
 
 
+def flash_calls(cfg) -> tuple:
+    """``(calls over a prompt, calls a decode step)`` of the flash op in
+    one forward: one an attention layer, and for an encoder-decoder also
+    one a decoder layer's cross-attention and, over the prompt only, one
+    an encoder layer."""
+    n = layer_counts(cfg)["attn"]
+    if cfg.enc_dec:
+        return 2 * n + cfg.n_enc_layers, 2 * n
+    return n, n
+
+
+def n_norm_weights(cfg) -> int:
+    """The norms' weights: ``ln1`` a layer, ``ln2`` a layer with an ffn,
+    the final norm; an encoder-decoder's ``ln_cross`` a decoder layer, two
+    an encoder layer and ``enc_norm``."""
+    c = layer_counts(cfg)
+    n = cfg.n_layers + cfg.n_layers - c["ffn_none"] + 1
+    if cfg.enc_dec:
+        n += cfg.n_layers + 2 * cfg.n_enc_layers + 1
+    return n * cfg.d_model
+
+
 def n_params_gap(cfg) -> int:
     """What ``cfg.n_params``' formula leaves out of the port's (and the
     reference's) parameter count besides the norms and the padded vocab:
     a Mamba layer's ``conv_b`` and ``dt_proj_b``; an mLSTM layer's
     gates and ``out_norm`` (the formula counts ``4 d_in^2`` where the
     block holds ``wq wk wv``); an sLSTM layer's recurrent matrices and
-    biases (the formula counts ``2 D d_in + 4 d_in^2``)."""
+    biases (the formula counts ``2 D d_in + 4 d_in^2``); a frontend's
+    ``frontend_proj``."""
     D, H = cfg.d_model, cfg.n_heads
     gap = 0
     for spec in cfg.unit:
@@ -1222,7 +1295,58 @@ def n_params_gap(cfg) -> int:
             gap += (-d_in * d_in + 2 * d_in * H + 2 * H + d_in
                     if spec.kind == "mlstm"
                     else -D * d_in + 4 * d_in * d_in + 4 * d_in)
-    return gap * cfg.n_units
+    proj = cfg.frontend_dim * D if cfg.frontend != "none" else 0
+    return gap * cfg.n_units + proj
+
+
+def plain_grants(serve_mod, pm_ref, seed: int, dev) -> torch.Tensor:
+    """The plain ``reserve_slots`` verdicts (``bool[LM_REQUESTS]``) on the
+    serve cells' page proposals, drawn as ``serve`` draws them."""
+    pages_per_req = -(-(LM_PROMPT + LM_STEPS) // LM_PAGE)
+    r = torch.as_tensor(serve_mod.propose_pages(
+        LM_REQUESTS, pages_per_req, LM_PAGES, np.random.default_rng(seed)),
+        device=dev)
+    _, granted = pm_ref.pmwcas_apply(
+        torch.ones(LM_PAGES, dtype=torch.int32, device=dev), r,
+        torch.ones_like(r), torch.zeros_like(r))
+    return granted
+
+
+def attention_form(*a, **kw) -> str:
+    """The label of an attention call by its form: the encoder's
+    (non-causal self-attention), the decoder's self-attention, or
+    cross-attention (``kv=``)."""
+    if kw.get("kv") is not None:
+        return "p11.cross_attn"
+    return "p11.self_attn" if kw.get("causal", True) else "p11.enc_attn"
+
+
+attention_form.labels = ("p11.enc_attn", "p11.self_attn", "p11.cross_attn")
+
+
+@contextlib.contextmanager
+def launches_by_form(attn_mod, fa_kernel):
+    """Within the block each call of ``attn_mod.attention`` adds the flash
+    launches it made, by route, to ``counts["<form> <route>"]`` (the form
+    by :func:`attention_form`: ``enc``, ``self`` or ``cross``; a remat
+    recompute calls it again); yields ``counts``."""
+    attention = attn_mod.attention
+    counts = collections.Counter()
+
+    def counted(*a, **kw):
+        before = dict(fa_kernel.flash_attention_cuda.route_launches)
+        out = attention(*a, **kw)
+        form = attention_form(*a, **kw)[len("p11."):-len("_attn")]
+        for route, n in fa_kernel.flash_attention_cuda.route_launches.items():
+            if n != before[route]:
+                counts[f"{form} {route}"] += n - before[route]
+        return out
+
+    attn_mod.attention = counted
+    try:
+        yield counts
+    finally:
+        attn_mod.attention = attention
 
 
 def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
@@ -1236,17 +1360,18 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
     capacity path at every prefill layer, the dense path at every decode
     layer) and the share of the prefill's assignments dropped at
     capacity; the peak memory of the serve."""
+    from repro_torch.models import attention as attn_mod
     from repro_torch.models import moe as moe_mod
     cfg = dataclasses.replace(cfg or get_config(arch), attn_impl="pallas")
     counts = layer_counts(cfg)
     n_attn, n_moe = counts["attn"], counts["ffn_moe"]
+    fa_prompt, fa_step = flash_calls(cfg)
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, seed=seed)
     _sync(dev)
     n_params = sum(p.numel() for p in model.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    norms = (cfg.n_layers + cfg.n_layers - counts["ffn_none"] + 1) * \
-        cfg.d_model
+    norms = n_norm_weights(cfg)
     # the embedding's rows past the vocab (padded to a multiple of 256)
     pad = (cfg.padded_vocab - cfg.vocab) * cfg.d_model * (
         1 if cfg.tie_embeddings else 2)
@@ -1256,6 +1381,12 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
     experts = (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
                f"{cfg.moe.d_ff}" if cfg.moe else "")
     kinds = ", ".join(f"{n} {k}" for k, n in sorted(counts.items()))
+    if cfg.enc_dec:
+        kinds += (f"; {cfg.n_enc_layers} encoder layers over "
+                  f"{cfg.frontend_len} frames, cross-attention in every "
+                  f"decoder layer")
+    elif cfg.frontend != "none":
+        kinds += f"; a {cfg.frontend_len}-embedding {cfg.frontend} prefix"
     log(f"{tag}: {cfg.name} ({cfg.n_layers} layers: {kinds}; d_model "
         f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
         f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}{experts}, vocab "
@@ -1264,36 +1395,39 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
         f"{n_bytes / 1e9:.2f} GB on the "
         f"card, drawn in {time.perf_counter() - t0:.3f} s")
 
-    # the plain reserve_slots on the same proposals
     pages_per_req = -(-(LM_PROMPT + LM_STEPS) // LM_PAGE)
-    proposals = serve_mod.propose_pages(LM_REQUESTS, pages_per_req, LM_PAGES,
-                                        np.random.default_rng(seed))
-    r = torch.as_tensor(proposals, device=dev)
-    _, want = pm_ref.pmwcas_apply(torch.ones(LM_PAGES, dtype=torch.int32,
-                                             device=dev), r,
-                                  torch.ones_like(r), torch.zeros_like(r))
+    want = plain_grants(serve_mod, pm_ref, seed, dev)
 
-    dropped = []
+    dropped, cross_kv = [], []
     route = moe_mod.route
+    precompute = attn_mod.precompute_cross_kv
 
     def counted_route(probs, k, capacity):  # drops summed on the card
         r = route(probs, k, capacity)
         dropped.append(((~r.keep).sum(), r.keep.numel()))
         return r
 
+    def counted_cross_kv(*a, **kw):
+        cross_kv.append(1)
+        return precompute(*a, **kw)
+
     fa_kernel.reset_counts()                        # count this path only
     pm_kernel.reset_counts()
     moe_mod.reset_counts()
     moe_mod.route = counted_route
+    attn_mod.precompute_cross_kv = counted_cross_kv
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     try:
-        res = serve_mod.serve(cfg, requests=LM_REQUESTS, steps=LM_STEPS,
-                              prompt_len=LM_PROMPT, page_size=LM_PAGE,
-                              n_pages=LM_PAGES, device=dev, seed=seed,
-                              model=model)
+        with launches_by_form(attn_mod, fa_kernel) as forms:
+            res = serve_mod.serve(cfg, requests=LM_REQUESTS, steps=LM_STEPS,
+                                  prompt_len=LM_PROMPT, page_size=LM_PAGE,
+                                  n_pages=LM_PAGES, device=dev, seed=seed,
+                                  model=model)
     finally:
         moe_mod.route = route
+        attn_mod.precompute_cross_kv = precompute
+    fa_forms = dict(forms)
     moe_calls = dict(moe_mod.calls)
     fa_launches = fa_kernel.flash_attention_cuda.launches
     fa_routes = dict(fa_kernel.flash_attention_cuda.route_launches)
@@ -1310,13 +1444,18 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
           and (res.generated >= 0).all()
           and (res.generated < cfg.vocab).all(), "generated tokens")
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
-    want_fa = n_attn * (1 + LM_STEPS)
+    want_fa = fa_prompt + fa_step * LM_STEPS
     check(fa_launches == want_fa,
-          f"flash launches {fa_launches} != {n_attn} x (1 + "
-          f"{LM_STEPS}) = {want_fa}")
-    want_routes = dict(tc=n_attn, decode=n_attn * LM_STEPS, simt=0)
+          f"flash launches {fa_launches} != {fa_prompt} + {fa_step} x "
+          f"{LM_STEPS} = {want_fa}")
+    want_routes = dict(tc=fa_prompt, decode=fa_step * LM_STEPS, simt=0)
     check(fa_routes == want_routes, f"flash routes {fa_routes} != "
           f"{want_routes} (tc at every prefill, decode at every step)")
+    check(sum(fa_forms.values()) == fa_launches, f"flash launches by call "
+          f"form {fa_forms} do not add up to {fa_launches}")
+    check(len(cross_kv) == (cfg.n_units if cfg.enc_dec else 0),
+          f"the cross K/V computed {len(cross_kv)} times, not once a unit "
+          f"at the prefill")
     check(pm_launches == 1 and pm_routes == {"smem": 1, "global": 0},
           f"page-grant launches {pm_launches} by route {pm_routes} != 1 "
           "on the smem route")
@@ -1333,14 +1472,23 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
         moe = (f"; MoE calls by path {json.dumps(moe_calls)}; the prefill "
                f"dropped {n_drop} of {n_all} assignments at capacity {C} "
                f"({n_drop / n_all:.4f})")
-    kv_bytes = 2 * n_attn * B * cfg.n_kv_heads * (
-        LM_PROMPT + LM_STEPS) * cfg.resolved_head_dim * 2
+    kv_len = LM_PROMPT + LM_STEPS + cfg.frontend_len   # as serve sizes it
+    kv_bytes = 2 * n_attn * B * cfg.n_kv_heads * kv_len * \
+        cfg.resolved_head_dim * 2
+    cross_bytes = (2 * cfg.n_units * B * cfg.n_kv_heads * cfg.frontend_len
+                   * cfg.resolved_head_dim
+                   * torch.finfo(model.dtype).bits // 8
+                   if cfg.enc_dec else 0)
     state_bytes = 4 * sum(
         t.numel() for spec, c in zip(cfg.unit, model.init_cache(
             B, 1)["layers"].values()) if spec.kind != "attn"
         for t in c.values())
     t = res.timings
-    log(f"{tag}: KV cache bf16 {kv_bytes / 1e9:.2f} GB, recurrent states "
+    cross = (f", cross K/V {cross_bytes / 1e9:.2f} GB ({cfg.frontend_len} "
+             f"frames, computed once a unit at the prefill)"
+             if cfg.enc_dec else "")
+    log(f"{tag}: KV cache bf16 {kv_bytes / 1e9:.2f} GB ({kv_len} "
+        f"positions){cross}, recurrent states "
         f"f32 {state_bytes / 1e9:.3f} GB, peak memory of the serve "
         f"{peak / 1e9:.2f} GB (max_memory_allocated); prefill of "
         f"{B} x {LM_PROMPT} tokens {t['prefill_s']:.3f} s; decode "
@@ -1348,12 +1496,15 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
         f"({t['decode_tokens_per_s']:.1f} tokens/s decoding, "
         f"{t['tokens_per_s']:.1f} generated tokens/s with the prefill); "
         f"launches on this path: flash {fa_launches} (by route "
-        f"{json.dumps(fa_routes)}), pmwcas {pm_launches} (by route "
+        f"{json.dumps(fa_routes)}; by call form and route "
+        f"{json.dumps(fa_forms)}), pmwcas {pm_launches} (by route "
         f"{json.dumps(pm_routes)}){moe}")
     return dict(model=model, cfg=cfg, B=B, fa_launches=fa_launches,
-                fa_routes=fa_routes, pm_launches=pm_launches,
+                fa_routes=fa_routes, fa_forms=fa_forms,
+                pm_launches=pm_launches,
                 pm_routes=pm_routes, timings=t, moe_calls=moe_calls,
-                peak_bytes=peak)
+                peak_bytes=peak, kv_bytes=kv_bytes, cross_bytes=cross_bytes,
+                cross_kv_calls=len(cross_kv))
 
 
 def _visible_pairs(qp, kp) -> int:
@@ -1370,14 +1521,17 @@ def _clocks() -> str:
         check=True).stdout.strip()
 
 
-def _sdpa_library(q, k, v, qp, kp, scale: float, B: int):
+def _sdpa_library(q, k, v, qp, kp, scale: float, B: int,
+                  causal: bool = True):
     """One PyTorch call computing the same function: SDPA with GQA and an
-    explicit boolean mask from the positions (timed here, never called by
-    the port)."""
+    explicit boolean mask from the positions (valid keys, and causal when
+    ``causal``; timed here, never called by the port)."""
     import torch.nn.functional as F
     H, Sq, hd = q.shape
     HK, Sk, _ = k.shape
-    ok = (kp < 2.0 ** 29)[None, :] & (qp[:, None] >= kp[None, :])
+    ok = (kp < 2.0 ** 29)[None, :].expand(Sq, Sk)
+    if causal:
+        ok = ok & (qp[:, None] >= kp[None, :])
     q4 = q.view(B, H // B, Sq, hd)
     k4, v4 = k.view(B, HK // B, Sk, hd), v.view(B, HK // B, Sk, hd)
     return lambda: F.scaled_dot_product_attention(
@@ -1455,13 +1609,15 @@ def fa_fault_errs(fa_ref, args, kw, want, tile: int, stages: int) -> dict:
     the keys must span more than ``stages`` tiles.  ``drop``: a middle
     key tile (at least the ring's second lap) skipped; ``stale``: that
     tile's K and V served from its ring slot's previous tile (``stages``
-    tiles back); ``last``: the tile holding the last row's own key
-    skipped."""
+    tiles back); ``last``: the tile holding the last row's own key (the
+    last key, for a row past every key) skipped; for a non-causal call
+    where a row has keys after its position, ``causal``: a causal mask
+    applied."""
     q, k, v, qp, kp = args
     j = max(stages, k.shape[1] // tile // 2)
     mid = slice(j * tile, (j + 1) * tile)
     old = slice((j - stages) * tile, (j - stages + 1) * tile)
-    last = int(qp.max()) // tile * tile
+    last = min(int(qp.max()), k.shape[1] - 1) // tile * tile
 
     def masked(keys):
         kpf = kp.clone()
@@ -1470,11 +1626,13 @@ def fa_fault_errs(fa_ref, args, kw, want, tile: int, stages: int) -> dict:
 
     ks, vs = k.clone(), v.clone()
     ks[:, mid], vs[:, mid] = k[:, old], v[:, old]
-    runs = {"drop": (k, v, masked(mid)), "stale": (ks, vs, kp),
-            "last": (k, v, masked(slice(last, last + tile)))}
+    runs = {"drop": (k, v, masked(mid), kw), "stale": (ks, vs, kp, kw),
+            "last": (k, v, masked(slice(last, last + tile)), kw)}
+    if not kw["causal"] and bool((kp[None, :] > qp[:, None]).any()):
+        runs["causal"] = (k, v, kp, dict(kw, causal=True))
     return {name: fa_row_err(fa_ref.flash_attention_flat(q, kf, vf, qp, kpf,
-                                                         **kw), want)
-            for name, (kf, vf, kpf) in runs.items()}
+                                                         **kw_), want)
+            for name, (kf, vf, kpf, kw_) in runs.items()}
 
 
 def flash_timings(fa_ops, fa_ref, fa_kernel, lm, dev, seed: int,
@@ -3172,7 +3330,8 @@ def planted(attn_mod, fault: Optional[str], moe_mod=None):
     sLSTM's normalizer floor removed (``no_n_floor``)
     or its recurrent matrices applied transposed (``r_transposed``),
     Mamba's cached conv state read one step off (``conv_state_shifted``)
-    or its conv taps in reverse order (``conv_flipped``)."""
+    or its conv taps in reverse order (``conv_flipped``); the decoder's
+    cross-attention made causal (``cross_causal``)."""
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.models import xlstm as xlstm_mod
     saved = []
@@ -3236,6 +3395,15 @@ def planted(attn_mod, fault: Optional[str], moe_mod=None):
             return apply_slstm(p, *a, **kw)
 
         patch(xlstm_mod, "apply_slstm", transposed)
+    elif fault == "cross_causal":
+        attention = attn_mod.attention
+
+        def causal_cross(*a, **kw):
+            if kw.get("kv") is not None:
+                kw["causal"] = True
+            return attention(*a, **kw)
+
+        patch(attn_mod, "attention", causal_cross)
     elif fault in ("conv_state_shifted", "conv_flipped"):
         apply_mamba = ssm_mod.apply_mamba
 
@@ -3253,6 +3421,18 @@ def planted(attn_mod, fault: Optional[str], moe_mod=None):
     finally:
         for mod, name, fn in reversed(saved):
             setattr(mod, name, fn)
+
+
+def with_frames(cfg, batch: dict, seed: int) -> dict:
+    """``batch`` with ``frontend_embeds [B, frontend_len, frontend_dim]``
+    (float32 normals from numpy, seeded) for an arch with a frontend; the
+    synthetic stream makes tokens only, as the reference's does."""
+    if cfg.frontend == "none":
+        return batch
+    B = np.asarray(batch["tokens"]).shape[0]
+    fe = np.random.default_rng(seed).standard_normal(
+        (B, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32)
+    return dict(batch, frontend_embeds=fe)
 
 
 def _grads_and_step(model, adamw, opt_cfg, opt, batch) -> tuple:
@@ -3311,7 +3491,8 @@ def small_train_matches_cpu(get_config, TrainModel, adamw, data, attn_mod,
     stream = data.SyntheticStream(data.DataConfig(
         vocab=cfg.vocab, seq_len=SMALL_SEQ, global_batch=SMALL_BATCH,
         seed=seed))
-    batches = [stream.next_batch() for _ in range(SMALL_STEPS)]
+    batches = [with_frames(cfg, stream.next_batch(), seed + i)
+               for i in range(SMALL_STEPS)]
     faults = {}
     for fault in faults_of:
         with planted(attn_mod, fault, moe_mod):
@@ -3348,7 +3529,7 @@ def small_train_matches_cpu(get_config, TrainModel, adamw, data, attn_mod,
         grad_tol = max(grad_tol, MLSTM_F32_GRAD_TOL)
     route = "tc" if dtype == "bfloat16" else "simt"
     want = dict.fromkeys(fa_kernel.ROUTES, 0)
-    want[route] = 2 * counts["attn"] * SMALL_STEPS
+    want[route] = 2 * flash_calls(cfg)[0] * SMALL_STEPS
     if dev.type == "cuda":
         check(routes == want, f"small training {dtype}: flash routes "
               f"{routes}, not {want}")
@@ -3400,7 +3581,9 @@ def matmul_params(cfg) -> int:
     layer its four projections (not the depthwise conv or the scan); an
     sLSTM layer its input and recurrent products (float32 ones, counted
     like the rest against the bf16 peak); an mLSTM layer its projections
-    (not the chunk's attention-like products)."""
+    (not the chunk's attention-like products); an encoder-decoder's
+    decoder layer also its cross-attention's q and o (its k and v act on
+    the frames, :func:`frame_params`)."""
     D, H, KV, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
     total = 0
@@ -3421,7 +3604,38 @@ def matmul_params(cfg) -> int:
                 cfg.moe.d_ff
         elif spec.ffn == "dense":
             total += 3 * D * cfg.d_ff
+        if cfg.enc_dec:
+            total += 2 * D * H * hd
     return total * cfg.n_units + D * cfg.vocab
+
+
+def frame_params(cfg) -> int:
+    """Parameters an encoder-decoder multiplies a frame by: the frontend
+    projection, every encoder layer's attention and MLP, and every
+    decoder layer's cross-attention k and v."""
+    D, H, KV, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.resolved_head_dim)
+    enc = D * H * hd + 2 * D * KV * hd + H * hd * D + 3 * D * cfg.d_ff
+    return (cfg.frontend_dim * D + cfg.n_enc_layers * enc
+            + cfg.n_layers * 2 * D * KV * hd)
+
+
+def train_flops(cfg, batch: int, seq: int) -> int:
+    """A training step's matrix-product FLOPs, 6 x parameters x the rows
+    they act on: :func:`matmul_params` over the ``batch x seq`` tokens;
+    an encoder-decoder's :func:`frame_params` over ``batch x
+    frontend_len`` frames; a vision prefix's projection and decoder
+    layers (not the head: its loss skips the prefix) over its
+    embeddings."""
+    mm = matmul_params(cfg)
+    flops = 6 * mm * batch * seq
+    frames = batch * cfg.frontend_len
+    if cfg.enc_dec:
+        flops += 6 * frame_params(cfg) * frames
+    elif cfg.frontend != "none":
+        flops += 6 * (mm - cfg.d_model * cfg.vocab
+                      + cfg.frontend_dim * cfg.d_model) * frames
+    return flops
 
 
 def _is_matmul(name: str) -> bool:
@@ -3441,21 +3655,26 @@ def _kernels_under(evt) -> list:
 def ranged_profile(fn, wrapped, fast: bool = False) -> dict:
     """One call of ``fn`` under the profiler, with ``record_function``
     ranges put around the functions ``wrapped`` (``(module, name,
-    label)``, labels ``p11.*``) for this call only: busy and wall µs, the
-    flash kernels' and the matrix products' µs (by kernel name), for each
-    label the µs of every kernel under its outermost ranges and of the
-    matrix products among them, and the µs under the cross-entropy's
-    backward nodes (``CE_BACKWARD``).  ``fast`` reads the raw events
+    label)``, labels ``p11.*``; a label may be a function of the call's
+    arguments that returns one of its ``labels``) for this call only:
+    busy and wall µs, the flash kernels' and the matrix products' µs (by
+    kernel name), for each label the µs of every kernel under its
+    outermost ranges, of the matrix products and of the flash op's
+    kernels (``FLASH_GROUP``) among them, and the µs under the
+    cross-entropy's backward nodes (``CE_BACKWARD``).  ``fast`` reads the raw events
     instead (:func:`_fast_split`): for runs of millions of eager launches,
     whose event tree takes longer to build than the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    saved = []
+    saved, labels = [], []
     for mod, name, label in wrapped:
         fn_ = getattr(mod, name)
+        labels += list(label.labels) if callable(label) else [label]
+        pick = label if callable(label) else \
+            (lambda *a, _label=label, **kw: _label)
 
-        def ranged(*a, _fn=fn_, _label=label, **kw):
-            with record_function(_label):
+        def ranged(*a, _fn=fn_, _pick=pick, **kw):
+            with record_function(_pick(*a, **kw)):
                 return _fn(*a, **kw)
 
         saved.append((mod, name, fn_))
@@ -3472,7 +3691,7 @@ def ranged_profile(fn, wrapped, fast: bool = False) -> dict:
         for mod, name, fn_ in saved:
             setattr(mod, name, fn_)
     if fast:
-        return _fast_split(prof, [label for _, _, label in wrapped], wall)
+        return _fast_split(prof, labels, wall)
     events = prof.events()
     busy = flash = mm = 0.0
     by_name = collections.Counter()
@@ -3487,7 +3706,7 @@ def ranged_profile(fn, wrapped, fast: bool = False) -> dict:
                 flash += e.device_time_total
             elif _is_matmul(e.name):
                 mm += e.device_time_total
-    ranges = {label: [0.0, 0.0] for _, _, label in wrapped}
+    ranges = {label: [0.0, 0.0, 0.0] for label in labels}
     ce_bwd = 0.0
     for e in events:
         if e.device_type != DeviceType.CPU:
@@ -3497,6 +3716,8 @@ def ranged_profile(fn, wrapped, fast: bool = False) -> dict:
             under = _kernels_under(e)
             ranges[e.name][0] += sum(us for _, us in under)
             ranges[e.name][1] += sum(us for n, us in under if _is_matmul(n))
+            ranges[e.name][2] += sum(us for n, us in under
+                                     if any(f in n for f in FLASH_GROUP))
         elif any(n in e.name for n in CE_BACKWARD) and \
                 "evaluate_function" in e.name:
             ce_bwd += sum(us for _, us in _kernels_under(e))
@@ -3532,7 +3753,7 @@ def _fast_split(prof, labels, wall: float) -> dict:
     starts = [sp[0] for sp in spans]
     busy = flash = mm = 0.0
     by_name = collections.Counter()
-    ranges = {label: [0.0, 0.0] for label in labels}
+    ranges = {label: [0.0, 0.0, 0.0] for label in labels}
     for start, us, name in kernels:
         busy += us
         by_name[name[:90]] += us
@@ -3546,6 +3767,7 @@ def _fast_split(prof, labels, wall: float) -> dict:
             r = ranges[spans[i][2]]
             r[0] += us
             r[1] += us if is_mm else 0.0
+            r[2] += us if any(f in name for f in FLASH_GROUP) else 0.0
     return dict(busy_us=busy, wall_us=wall, flash_us=flash, mm_us=mm,
                 ranges=ranges, ce_bwd_us=0.0,
                 range_spans=dict(collections.Counter(sp[2] for sp in spans)),
@@ -3576,8 +3798,8 @@ def train_step_split(step, attn_mod, adamw, transformer,
     wrapped += [(mod, name, "p11.recurrent") for mod, name in recurrent]
     prof = ranged_profile(step, wrapped, fast)
     r = prof["ranges"]
-    moe_us, moe_mm = r.get("p11.moe", (0.0, 0.0))
-    rec_us, rec_mm = r.get("p11.recurrent", (0.0, 0.0))
+    moe_us, moe_mm = r.get("p11.moe", (0.0, 0.0))[:2]
+    rec_us, rec_mm = r.get("p11.recurrent", (0.0, 0.0))[:2]
     split = {"flash_fwd": prof["flash_us"], "attn_bwd": r["p11.attn_bwd"][0],
              "matmul": prof["mm_us"] - r["p11.attn_bwd"][1] - moe_mm
              - rec_mm,
@@ -3699,15 +3921,16 @@ def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
                transformer, fa_kernel, dev, seed: int, cfg=None,
                name: str = "train_llama3_8b_L8_s4096",
                tag: str = "phase 11 (c)", moe_mod=None,
-               recurrent=()) -> dict:
+               recurrent=(), timed: int = TRAIN_TIMED) -> dict:
     """Phase 11 (c): ``train_llama3_8b_L8_s4096`` (or ``name`` at
     ``cfg``) through ``make_train_step`` with remat: one warm-up step and
-    ``TRAIN_TIMED`` timed ones, the flash launches counted over all of
-    them (``(1 + TRAIN_TIMED) x 2 x layers``, every one on ``tc``), the
-    losses finite, every master changed; step ms (median), tokens/s, MFU
-    (6 x the matrix-product parameters x tokens over the step time at
+    ``timed`` timed ones, the flash launches counted over all of
+    them (``(1 + timed) x 2 x`` the forward's flash calls, every
+    one on ``tc``), the losses finite, every master changed; step ms
+    (median), tokens/s, MFU (:func:`train_flops` over the step time at
     989 TFLOP/s), peak memory; then one more step profiled for the
-    device split.  With ``moe_mod`` (an MoE config) each step's aux term
+    device split.  An arch with a frontend gets seeded frame embeddings
+    in every batch (:func:`with_frames`).  With ``moe_mod`` (an MoE config) each step's aux term
     (``aux_loss_weight x sum of the layers' aux / n_layers``, from the
     forward's ``apply_moe`` calls) is logged apart from the
     cross-entropy."""
@@ -3715,6 +3938,7 @@ def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
     model = TrainModel(cfg, device=dev, seed=seed)
     params = model.param_dict()
     n_params = sum(t.numel() for t in params.values())
+    # one schedule for every training cell, however many steps it times
     opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2,
                                 total_steps=1 + TRAIN_TIMED)
     opt = adamw.init_state(opt_cfg, params)
@@ -3739,29 +3963,34 @@ def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
     fa_kernel.reset_counts()
     losses, times = [], []
     try:
-        for _ in range(1 + TRAIN_TIMED):
-            batch = {k: torch.as_tensor(v, device=dev)
-                     for k, v in stream.next_batch().items()}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, opt, m = step(params, opt, batch)
-            losses.append(float(m["loss"]))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            if moe_mod is not None:   # the forward's calls, not remat's
-                aux_terms.append(cfg.moe.aux_loss_weight * float(
-                    sum(auxes[:cfg.n_layers])) / cfg.n_layers)
-                auxes.clear()
+        with launches_by_form(attn_mod, fa_kernel) as forms:
+            for i in range(1 + timed):
+                batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                         with_frames(cfg, stream.next_batch(),
+                                     seed + i).items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, batch)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if moe_mod is not None:   # the forward's calls, not remat's
+                    aux_terms.append(cfg.moe.aux_loss_weight * float(
+                        sum(auxes[:cfg.n_layers])) / cfg.n_layers)
+                    auxes.clear()
     finally:
         if moe_mod is not None:
             moe_mod.apply_moe = apply_moe
     launches = fa_kernel.flash_attention_cuda.launches
     routes = dict(fa_kernel.flash_attention_cuda.route_launches)
+    forms = dict(forms)
     peak = torch.cuda.max_memory_allocated()
-    want = 2 * layer_counts(cfg)["attn"] * (1 + TRAIN_TIMED)
+    want = 2 * flash_calls(cfg)[0] * (1 + timed)
     check(launches == want and routes["tc"] == want,
           f"training cell: {launches} flash launches by route {routes}, not "
           f"{want} on tc")
+    check(sum(forms.values()) == launches, f"training cell: flash launches "
+          f"by call form {forms} do not add up to {launches}")
     check(all(np.isfinite(losses)), f"training cell: losses {losses}")
     unchanged = [n for n, t in params.items()
                  if torch.equal(t.detach().flatten()[
@@ -3771,9 +4000,13 @@ def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
     step_s = float(np.median(times[1:]))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     mm = matmul_params(cfg)
-    mfu = 6 * mm * tokens / step_s / H100_BF16_FLOPS
-    batch = {k: torch.as_tensor(v, device=dev)
-             for k, v in stream.next_batch().items()}
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    frames = (f" + 6 x {frame_params(cfg)} params x "
+              f"{TRAIN_BATCH * cfg.frontend_len} frames"
+              if cfg.enc_dec else "")
+    mfu = flops / step_s / H100_BF16_FLOPS
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             with_frames(cfg, stream.next_batch(), seed + 99).items()}
     prof = train_step_split(lambda: step(params, opt, batch), attn_mod,
                             adamw, transformer, moe_mod, recurrent,
                             fast=bool(recurrent))
@@ -3795,10 +4028,12 @@ def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
         f"{json.dumps([round(x, 4) for x in losses])}; step s "
         f"{json.dumps([round(t, 4) for t in times])} (first: warm-up), "
         f"median {step_s * 1e3:.1f} ms, {tokens / step_s:.1f} tokens/s, MFU "
-        f"{mfu:.4f} (6 x {mm} matrix-product params x {tokens} tokens over "
-        f"the step at {H100_BF16_FLOPS:.3g} FLOP/s); peak memory "
+        f"{mfu:.4f} ({flops} matrix-product FLOPs: 6 x {mm} params x "
+        f"{tokens} tokens{frames} over the step at "
+        f"{H100_BF16_FLOPS:.3g} FLOP/s); peak memory "
         f"{peak / 1e9:.2f} GB (max_memory_allocated); flash launches "
-        f"{launches} {json.dumps(routes)}; every master changed{aux}")
+        f"{launches} {json.dumps(routes)} (by call form and route "
+        f"{json.dumps(forms)}); every master changed{aux}")
     spans = (f"; device spans by range {json.dumps(prof['range_spans'])}"
              f" (the cross-entropy's backward among the rest)"
              if prof["range_spans"] is not None else "")
@@ -3808,10 +4043,11 @@ def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
         f"{shares}; clocks, power, temperature {_clocks()}; the largest "
         f"kernels (us) {json.dumps(prof['top'])}")
     res = dict(cfg=cfg, losses=losses, aux_terms=aux_terms, times=times,
-               step_ms=step_s * 1e3,
+               step_ms=step_s * 1e3, flops=flops,
                tokens_per_s=tokens / step_s, mfu=mfu, mm_params=mm,
                n_params=n_params, peak_bytes=peak, launches=launches,
-               routes=routes, split_us=prof["split"], busy_us=busy,
+               routes=routes, forms=forms, split_us=prof["split"],
+               busy_us=busy,
                wall_us=wall)
     del model, params, opt, step, batch, probe
     torch.cuda.empty_cache()
@@ -4378,6 +4614,11 @@ JAMBA_SERVE_BF16_TOL = 0.2
 # (e) jamba at its published width, depth cut from 32 to 16 layers: 32
 # layers are 103 GB of bf16 weights, 16 are 52.1 GB
 JAMBA_SERVE_LAYERS = 16
+# (d) one timed step after the warm-up (and the profiled step): the eager
+# sLSTM loop makes a step the host's, 16-55 s on the H100 machines, and
+# the smoke must finish within its time limit (the whole smoke took
+# 1,049.9 s with four timed steps, PERF.md section 6)
+XLSTM_TRAIN_TIMED = 1
 
 
 def _block_err(got, want) -> float:
@@ -4610,55 +4851,75 @@ def ssm_small_vs_cpu(serve_mod, build_model, get_config, TrainModel, adamw,
     return out
 
 
-def serve_split(lm, wrapped, dev, seed: int, steps: int = 8,
-                tag: str = "phase 13 (c)") -> dict:
-    """A serve cell's device split: one prefill and a window of ``steps``
-    decode steps profiled with ranges around the functions ``wrapped``
-    (``(module, name, label)``, labels ``p11.*``; read from the raw
-    events, :func:`_fast_split`): flash, every kernel under each label,
-    the other matrix products, the rest, and the idle share."""
+def profile_serve_windows(lm, wrapped, dev, seed: int,
+                          steps: int = 8) -> dict:
+    """One prefill of a serve cell's batch (seeded prompts; an arch with a
+    frontend gets the launcher's ``0.02 * ones`` embeddings and a cache
+    ``frontend_len`` longer) and a window of ``steps`` decode steps after
+    it (warmed once, then from the prefill's index again), each profiled
+    with ranges around the functions ``wrapped`` (:func:`ranged_profile`,
+    read from the raw events).  The decode tokens are arbitrary: the work
+    depends only on the shapes and positions."""
     model, cfg, B = lm["model"], lm["cfg"], lm["B"]
     rng = np.random.default_rng(seed + 13)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (B, LM_PROMPT)),
                              device=dev)
+    fe = (torch.full((B, cfg.frontend_len, cfg.frontend_dim), 0.02,
+                     device=dev) if cfg.frontend != "none" else None)
     tok = torch.zeros(B, 1, dtype=torch.int32, device=dev)
     out = {}
     with torch.inference_mode():
-        cache = model.init_cache(B, LM_PROMPT + LM_STEPS)
+        cache = model.init_cache(B, LM_PROMPT + LM_STEPS + cfg.frontend_len)
 
         def window():
             for _ in range(steps):
                 model.decode_step(tok, cache)
 
-        runs = (("prefill", lambda: model.prefill(prompt, cache)),
-                ("decode", window))
-        for what, fn in runs:
-            if what == "decode":
-                window()                       # warm
-                cache["index"] = LM_PROMPT
-            prof = ranged_profile(fn, wrapped, fast=True)
-            busy, wall = prof["busy_us"], prof["wall_us"]
-            groups = {"flash": prof["flash_us"]}
-            mm = prof["mm_us"]
-            for label, (us, mm_in) in prof["ranges"].items():
-                groups[label[len("p11."):]] = us
-                mm -= mm_in
-            groups["matmul"] = mm
-            groups["other"] = busy - sum(groups.values())
-            out[what] = dict(groups=groups, busy_us=busy, wall_us=wall,
-                             top=prof["top"], spans=prof["range_spans"])
-            shares = ", ".join(f"{g} {us:.1f} us ({us / busy:.3f})"
-                               for g, us in groups.items()) if busy else \
-                "not measured (the profiler saw no device time)"
-            head = (f"one prefill of {B} x {LM_PROMPT} tokens"
-                    if what == "prefill" else
-                    f"decode window of {steps} steps")
-            log(f"{tag}: {head}: device busy {busy:.1f} us of {wall:.1f} us "
-                f"wall, idle share "
-                f"{(1 - busy / wall) if busy else float('nan'):.4f}; by "
-                f"group: {shares}; device spans by range "
-                f"{json.dumps(prof['range_spans'])}; the largest kernels "
-                f"(us) {json.dumps(prof['top'])}")
+        out["prefill"] = ranged_profile(
+            lambda: model.prefill(prompt, cache, fe), wrapped, fast=True)
+        start = cache["index"]
+        window()                                   # warm
+        cache["index"] = start
+        out["decode"] = ranged_profile(window, wrapped, fast=True)
+    return out
+
+
+def _log_window(tag: str, what: str, B: int, steps: int, prof: dict,
+                groups: dict, extra: str = "") -> dict:
+    """Log one profiled window's split (:func:`profile_serve_windows`) and
+    return its record."""
+    busy, wall = prof["busy_us"], prof["wall_us"]
+    shares = ", ".join(f"{g} {us:.1f} us ({us / busy:.3f})"
+                       for g, us in groups.items()) if busy else \
+        "not measured (the profiler saw no device time)"
+    head = (f"one prefill of {B} x {LM_PROMPT} tokens" if what == "prefill"
+            else f"decode window of {steps} steps")
+    log(f"{tag}: {head}: device busy {busy:.1f} us of {wall:.1f} us wall, "
+        f"idle share {(1 - busy / wall) if busy else float('nan'):.4f}; by "
+        f"group: {shares}{extra}; device spans by range "
+        f"{json.dumps(prof['range_spans'])}; the largest kernels (us) "
+        f"{json.dumps(prof['top'])}")
+    return dict(groups=groups, busy_us=busy, wall_us=wall, top=prof["top"],
+                spans=prof["range_spans"])
+
+
+def serve_split(lm, wrapped, dev, seed: int, steps: int = 8,
+                tag: str = "phase 13 (c)") -> dict:
+    """A serve cell's device split (:func:`profile_serve_windows`): flash,
+    every kernel under each label of ``wrapped`` (``(module, name,
+    label)``, labels ``p11.*``), the other matrix products, the rest, and
+    the idle share."""
+    out = {}
+    for what, prof in profile_serve_windows(lm, wrapped, dev, seed,
+                                            steps).items():
+        groups = {"flash": prof["flash_us"]}
+        mm = prof["mm_us"]
+        for label, (us, mm_in, _) in prof["ranges"].items():
+            groups[label[len("p11."):]] = us
+            mm -= mm_in
+        groups["matmul"] = mm
+        groups["other"] = prof["busy_us"] - sum(groups.values())
+        out[what] = _log_window(tag, what, lm["B"], steps, prof, groups)
     log(f"{tag}: clocks, power, temperature after it: {_clocks()}")
     return out
 
@@ -4730,7 +4991,8 @@ def ssm_phase(serve_mod, build_model, fa_ops, fa_ref, fa_kernel, pm_ref,
                       attn_mod, transformer, fa_kernel, dev, seed,
                       cfg=get_config(XLSTM_ARCH),
                       name="train_xlstm_125m_s4096", tag="phase 13 (d)",
-                      recurrent=[(m, n) for m, n, _ in xlstm_ranges])
+                      recurrent=[(m, n) for m, n, _ in xlstm_ranges],
+                      timed=XLSTM_TRAIN_TIMED)
     cell.pop("cfg")
     out["train_xlstm"] = cell
     mark("(d)")
@@ -4745,6 +5007,372 @@ def ssm_phase(serve_mod, build_model, fa_ops, fa_ref, fa_kernel, pm_ref,
     mark("(e)")
     out["wall_s"] = time.perf_counter() - t0
     log(f"phase 13 took {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: encoder-decoder stacks, cross-attention and the frontends
+# (seamless-m4t-medium, paligemma-3b)
+# ---------------------------------------------------------------------------
+
+SEAMLESS_ARCH, PALIGEMMA_ARCH = "seamless-m4t-medium", "paligemma-3b"
+ENCDEC_FAULTS = TRAIN_FAULTS + ("cross_causal",)
+# (b) the bf16 small serves: seamless's smoke config at head_dim 64 with
+# 32 frames and 32-token prompts (so the encoder, the decoder's prefill
+# and the cross-attention's prefill take tc, one head per kv head), and
+# paligemma's at head_dim 256 (its 8-embedding prefix and 16 tokens x 4
+# heads of one kv head: tc; a decode step's 4 rows: decode)
+ENCDEC_SMALL = {SEAMLESS_ARCH: dict(head_dim=64, prompt_len=32,
+                                    over=dict(frontend_len=32)),
+                PALIGEMMA_ARCH: dict(head_dim=256, prompt_len=16, over={})}
+
+
+class FlashShape(NamedTuple):
+    """One call form of phase 14 (a) at its full size: flat ``q [B *
+    heads, Sq, hd]`` at positions ``q_at + arange(Sq)``, ``k/v [B *
+    kv_heads, Sk, hd]`` at ``arange(Sk)``; ``lse`` a training launch;
+    ``want`` its launches on ``cell``'s path, where the calls of ``form``
+    (:func:`launches_by_form`) on ``route`` are counted."""
+    name: str
+    B: int
+    heads: int
+    kv_heads: int
+    Sq: int
+    Sk: int
+    hd: int
+    causal: bool
+    q_at: int
+    route: str
+    lse: bool
+    cell: str
+    form: str
+    want: int
+
+
+def encdec_flash_shapes(get_config, B: int) -> list:
+    """The call forms the three cells give the flash op, at ``B`` admitted
+    requests (the serves) and ``TRAIN_BATCH`` sequences (training): the
+    decode rows at the last step's position."""
+    sm, pg = get_config(SEAMLESS_ARCH), get_config(PALIGEMMA_ARCH)
+    F, L = sm.frontend_len, LM_PROMPT + LM_STEPS
+    last = L - 1
+    n_train = 2 * (1 + TRAIN_TIMED)             # remat: twice a step
+    sh = (sm.n_heads, sm.n_kv_heads)
+    pgh = (pg.n_heads, pg.n_kv_heads)
+    ss, sp, st = "serve_seamless", "serve_paligemma", "train_seamless"
+    return [
+        FlashShape("seamless_encoder", B, *sh, F, F, 64, False, 0, "tc",
+                   False, ss, "enc", sm.n_enc_layers),
+        FlashShape("seamless_cross_prefill", B, *sh, LM_PROMPT, F, 64, False,
+                   0, "tc", False, ss, "cross", sm.n_layers),
+        FlashShape("seamless_self_prefill", B, *sh, LM_PROMPT, L + F, 64,
+                   True, 0, "tc", False, ss, "self", sm.n_layers),
+        FlashShape("seamless_cross_decode", B, *sh, 1, F, 64, False, last,
+                   "decode", False, ss, "cross", sm.n_layers * LM_STEPS),
+        FlashShape("seamless_self_decode", B, *sh, 1, L + F, 64, True, last,
+                   "decode", False, ss, "self", sm.n_layers * LM_STEPS),
+        FlashShape("paligemma_prefill", B, *pgh, LM_PROMPT + pg.frontend_len,
+                   L + pg.frontend_len, 256, True, 0, "tc", False, sp,
+                   "self", pg.n_layers),
+        FlashShape("paligemma_decode", B, *pgh, 1, L + pg.frontend_len, 256,
+                   True, L + pg.frontend_len - 1, "decode", False, sp,
+                   "self", pg.n_layers * LM_STEPS),
+        FlashShape("seamless_train_cross", TRAIN_BATCH, *sh, TRAIN_SEQ, F,
+                   64, False, 0, "tc", True, st, "cross",
+                   sm.n_layers * n_train),
+        FlashShape("seamless_train_encoder", TRAIN_BATCH, *sh, F, F, 64,
+                   False, 0, "tc", True, st, "enc", sm.n_enc_layers * n_train),
+    ]
+
+
+def encdec_flash_vs_plain(fa_ref, fa_kernel, get_config, B: int, dev,
+                          seed: int) -> dict:
+    """Phase 14 (a): the flash op at every call form of the three cells
+    (:func:`encdec_flash_shapes`).  The kernel (the training launches
+    with the log-sum-exp) against the plain version: bf16 on as many
+    requests as the free memory lets the plain version hold (2e-2 and
+    ``FA_ROW_TOL`` per row; lse within ``FA_LSE_TOL``), f32 at one
+    request (2e-5); each call on its route.  Planted faults
+    (:func:`fa_fault_errs`: a middle key tile dropped or served stale,
+    the tile of the last row's key dropped, and a causal mask on a
+    non-causal call where a row has later keys) must read above the row
+    limit.  Then
+    the kernel's, the plain version's and SDPA's stream time per call
+    (CUDA events) beside the bound: the bf16 FLOPs of the visible pairs
+    at 989 TFLOP/s or the bytes the call needs (q, out and lse once, K
+    and V of the keys some row sees) at 3.35 TB/s, whichever is
+    larger."""
+    out = {}
+    for shape in encdec_flash_shapes(get_config, B):
+        s = shape
+        H, HK, G = s.B * s.heads, s.B * s.kv_heads, s.heads // s.kv_heads
+        rng = np.random.default_rng(seed + 23)
+        mk = (lambda *sz: torch.from_numpy(rng.standard_normal(
+            sz, dtype=np.float32)).to(device=dev))
+        q32, k32, v32 = mk(H, s.Sq, s.hd), mk(HK, s.Sk, s.hd), \
+            mk(HK, s.Sk, s.hd)
+        qp = torch.arange(s.Sq, device=dev, dtype=torch.float32) + s.q_at
+        kp = torch.arange(s.Sk, device=dev, dtype=torch.float32)
+        kw = dict(g=G, scale=1.0 / np.sqrt(s.hd), causal=s.causal, window=0,
+                  attn_cap=0.0)
+        plain = (fa_ref.flash_attention_flat_lse if s.lse
+                 else fa_ref.flash_attention_flat)
+        # f32 at one request
+        a32 = (q32[:s.heads], k32[:s.kv_heads], v32[:s.kv_heads], qp, kp)
+        got = fa_kernel.flash_attention_cuda(*a32, **kw, lse=s.lse)
+        want = plain(*a32, **kw)
+        _sync(dev)
+        if s.lse:
+            (got, lse32), (want, want_lse32) = got, want
+            lerr32 = float((lse32 - want_lse32).abs().max())
+            check(lerr32 <= FA_LSE_TOL[torch.float32],
+                  f"{s.name} f32 lse err {lerr32}")
+        ok, err32 = fa_close(got, want, torch.float32)
+        check(ok, f"flash {s.name}: kernel != plain in f32: {err32}")
+        del got, want
+        q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
+        del q32, k32, v32
+        before = dict(fa_kernel.flash_attention_cuda.route_launches)
+        got = fa_kernel.flash_attention_cuda(q, k, v, qp, kp, **kw,
+                                             lse=s.lse)
+        after = fa_kernel.flash_attention_cuda.route_launches
+        took = [r for r in after if after[r] != before[r]]
+        check(took == [s.route], f"flash {s.name} took {took}, not "
+              f"{s.route}")
+        lse = None
+        if s.lse:
+            got, lse = got
+        free, _ = torch.cuda.mem_get_info()
+        per_req = 4 * s.heads * s.Sq * s.Sk * 4
+        Bc = max(1, min(s.B, int(0.7 * free) // per_req))
+        cmp = (q[:Bc * s.heads], k[:Bc * s.kv_heads], v[:Bc * s.kv_heads],
+               qp, kp)
+        want = plain(*cmp, **kw)
+        _sync(dev)
+        lerr = None
+        if s.lse:
+            want, want_lse = want
+            lerr = float((lse[:Bc * s.heads] - want_lse).abs().max())
+            check(lerr <= FA_LSE_TOL[torch.bfloat16],
+                  f"{s.name} bf16 lse err {lerr}")
+        ok, err = fa_close(got[:Bc * s.heads], want, torch.bfloat16)
+        row = fa_row_err(got[:Bc * s.heads], want)
+        check(ok, f"flash {s.name}: kernel != plain in bf16: max abs err "
+              f"{err}, row err {row}")
+        tile, stages = route_tile(s.route, s.hd)
+        one = (q[:s.heads], k[:s.kv_heads], v[:s.kv_heads], qp, kp)
+        faults = fa_fault_errs(fa_ref, one, kw, want[:s.heads], tile,
+                               stages)
+        check(min(faults.values()) > FA_ROW_TOL,
+              f"a planted fault at {s.name} reads {json.dumps(faults)}, "
+              f"within the row limit {FA_ROW_TOL}")
+        del want
+        route, splits = fa_kernel.plan(q.dtype, s.hd, G * s.Sq, s.Sk, HK,
+                                       fa_kernel.n_sms(dev.index or 0),
+                                       lse=s.lse)
+        o = torch.empty_like(q)
+        lse_buf = (torch.empty(q.shape[:2], dtype=torch.float32, device=dev)
+                   if s.lse else None)
+        ws = (torch.empty(fa_kernel.workspace_floats(HK, splits, G * s.Sq,
+                                                     s.hd),
+                          dtype=torch.float32, device=dev)
+              if route == "decode" and fa_kernel.needs_workspace(
+                  q.dtype, s.hd, splits) else None)
+
+        def run_kernel():
+            fa_kernel.launch(q, k, v, qp, kp, o, **kw, workspace=ws,
+                             lse=lse_buf)
+
+        def run_plain():
+            plain(*cmp, **kw)
+
+        run_lib = _sdpa_library(q, k, v, qp, kp, kw["scale"], s.B, s.causal)
+        n_k = 20 if s.Sq == 1 else 5
+        ms = _event_ms(run_kernel, n_k)
+        plain_ms = _event_ms(run_plain, 2)
+        lib = _event_ms(run_lib, n_k)
+        ok_pairs = (kp < 2.0 ** 29)[None, :].expand(s.Sq, s.Sk)
+        if s.causal:
+            ok_pairs = ok_pairs & (qp[:, None] >= kp[None, :])
+        pairs = int(ok_pairs.sum()) * H
+        keys = int(ok_pairs.any(dim=0).sum())     # keys some row sees
+        flops = 4 * s.hd * pairs
+        n_bytes = 2 * (2 * q.numel() + 2 * HK * keys * s.hd) + (
+            4 * H * s.Sq if s.lse else 0)
+        bound_ops = flops / H100_BF16_FLOPS * 1e3
+        bound_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+        bound = max(bound_ops, bound_bytes)
+        by = "operations" if bound_ops >= bound_bytes else "bytes"
+        res = dict(shape=[list(q.shape), list(k.shape)], route=route,
+                   splits=splits, causal=s.causal, lse=s.lse,
+                   want=s.want, ms=ms, plain_ms=plain_ms,
+                   plain_B=Bc, library_ms=lib, bound_ms=bound, bound_by=by,
+                   flops=flops, bytes=n_bytes, err=max(err, err32),
+                   err32=err32, row_err=row, lse_err=lerr, faults=faults)
+        rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if by == "operations"
+                else f"{n_bytes / ms / 1e9:.4f} TB/s")
+        log(f"phase 14 (a): flash {s.name}: q {list(q.shape)} x k/v "
+            f"{list(k.shape)} bf16, g = {G}, "
+            f"{'causal' if s.causal else 'non-causal'}"
+            f"{', with lse' if s.lse else ''}, rows at {s.q_at}..; route "
+            f"{route}, splits {splits}; {s.want} launches due on the "
+            f"{s.cell} path; "
+            f"kernel {ms * 1e3:.3f} us ({rate}), plain {plain_ms * 1e3:.3f}"
+            f" us (B = {Bc}), SDPA {lib * 1e3:.3f} us (stream time per call"
+            f", CUDA events); bound {bound * 1e3:.3f} us by {by} ({flops} "
+            f"flops over {pairs} visible pairs, {n_bytes} bytes); kernel vs"
+            f" plain: f32 max abs err {err32:.3e}, bf16 {err:.3e} (B = "
+            f"{Bc}), row {row:.3e} (limit {FA_ROW_TOL})"
+            + (f", lse {lerr:.3e}" if s.lse else "")
+            + f"; planted faults ({tile}-key tile, ring of {stages}) "
+            f"{json.dumps({n: round(e, 6) for n, e in faults.items()})}")
+        out[s.name] = res
+        del q, k, v, o, got, ws, lse_buf, lse, cmp, one
+        torch.cuda.empty_cache()
+    log(f"phase 14 (a): clocks, power, temperature after it: {_clocks()}")
+    return out
+
+
+def encdec_small_vs_cpu(serve_mod, build_model, get_config, TrainModel,
+                        adamw, data, attn_mod, fa_kernel, seed: int,
+                        dev) -> dict:
+    """Phase 14 (b): the seamless and paligemma smoke configs served on
+    the card against the CPU from the same weights (f32; bf16 at
+    ``ENCDEC_SMALL``'s head_dim, every flash call on ``tc`` or
+    ``decode``), then trained card against CPU in f32 and bf16 with
+    phase 11's faults planted in the CPU's training, and for seamless
+    also its cross-attention made causal."""
+    tag = "phase 14 (b)"
+    out = {}
+    for arch, small in ENCDEC_SMALL.items():
+        out[f"{arch} serve_f32"] = small_serve_matches_cpu(
+            serve_mod, build_model, get_config, seed, dev, arch=arch,
+            tag=tag)
+        out[f"{arch} serve_bf16"] = routes = small_serve_matches_cpu(
+            serve_mod, build_model, get_config, seed, dev, dtype="bfloat16",
+            tol=SERVE_BF16_TOL, rtol=0.0, arch=arch, tag=tag, **small)
+        cfg = small_serve_config(get_config, "bfloat16", small["head_dim"],
+                                 arch, small["over"])
+        prompt, step = flash_calls(cfg)
+        if dev.type == "cuda":
+            check(routes == dict(tc=prompt, decode=step * 8, simt=0),
+                  f"{arch} bf16 small serve flash routes {routes}")
+    for arch, small in ENCDEC_SMALL.items():
+        faults = ENCDEC_FAULTS if get_config(arch).enc_dec else TRAIN_FAULTS
+        for dt in ("float32", "bfloat16"):
+            out[f"{arch} train_{dt}"] = small_train_matches_cpu(
+                get_config, TrainModel, adamw, data, attn_mod, fa_kernel, dt,
+                seed, dev, arch=arch, head_dim=small["head_dim"], tag=tag,
+                faults_of=faults)
+    return out
+
+
+def encdec_serve_split(lm, attn_mod, dev, seed: int, steps: int = 8,
+                       tag: str = "phase 14 (c)") -> dict:
+    """A serve cell's device split (:func:`profile_serve_windows`) with
+    ranges around every attention call by its form
+    (:func:`attention_form`): the flash kernels of the encoder's, the
+    decoder's self and the cross-attention's calls (the decode route's
+    combine included), all matrix products, the rest, and the idle
+    share; beside it each form's whole layer (projections included)."""
+    out = {}
+    wrapped = [(attn_mod, "attention", attention_form)]
+    for what, prof in profile_serve_windows(lm, wrapped, dev, seed,
+                                            steps).items():
+        r = prof["ranges"]
+        forms = [label for label in attention_form.labels if r[label][0]]
+        groups = {f"flash_{label[4:-5]}": r[label][2] for label in forms}
+        groups["matmul"] = prof["mm_us"]
+        groups["other"] = prof["busy_us"] - sum(groups.values())
+        layers = {label[4:]: round(r[label][0], 1) for label in forms}
+        out[what] = _log_window(
+            tag, what, lm["B"], steps, prof, groups,
+            f"; whole attention layers by form (us, projections included) "
+            f"{json.dumps(layers)}")
+        out[what]["attention_us"] = layers
+    log(f"{tag}: clocks, power, temperature after it: {_clocks()}")
+    return out
+
+
+def encdec_serve_cell(serve_mod, build_model, get_config, pm_ref, fa_kernel,
+                      pm_kernel, attn_mod, seed: int, dev, arch: str,
+                      tag: str) -> dict:
+    """Phase 14 (c) / (d): phase 5's traffic on ``arch`` at its published
+    size through ``serve`` (admission equal to the plain version's with
+    one ``smem`` launch, finite logits, the flash launches by route, the
+    cross K/V once a unit at the prefill), then the device split."""
+    lm = lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
+                  pm_kernel, seed, dev, tag=tag, cfg=get_config(arch))
+    res = {k: lm[k] for k in ("B", "fa_launches", "fa_routes", "fa_forms",
+                              "pm_launches", "pm_routes", "timings",
+                              "peak_bytes", "kv_bytes", "cross_bytes",
+                              "cross_kv_calls")}
+    res["split"] = encdec_serve_split(lm, attn_mod, dev, seed, tag=tag)
+    del lm
+    torch.cuda.empty_cache()
+    return res
+
+
+def encdec_phase(serve_mod, build_model, fa_ref, fa_kernel, pm_ref,
+                 pm_kernel, dev, seed: int) -> dict:
+    """Phase 14: encoder-decoder stacks, cross-attention and the frontends
+    on the card: (a) the flash op at the cells' call forms against its
+    plain version, with planted faults, timed beside the bound and SDPA;
+    (b) the seamless and paligemma smoke configs served and trained card
+    against CPU; (c) ``serve_seamless_m4t_medium``; (d)
+    ``serve_paligemma_3b``; (e) ``train_seamless_m4t_medium_s4096``."""
+    import repro_torch.data as data
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import TrainModel
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    log(f"phase 14: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"on the card at the start")
+    marks = [("start", time.perf_counter())]
+
+    def mark(part):
+        marks.append((part, time.perf_counter()))
+        log(f"phase 14 {part} took {marks[-1][1] - marks[-2][1]:.1f} s")
+
+    B = int(plain_grants(serve_mod, pm_ref, seed, "cpu").sum())
+    out = dict(flash=encdec_flash_vs_plain(fa_ref, fa_kernel, get_config, B,
+                                           dev, seed))
+    mark("(a)")
+    out["small"] = encdec_small_vs_cpu(serve_mod, build_model, get_config,
+                                       TrainModel, adamw, data, attn_mod,
+                                       fa_kernel, seed, dev)
+    mark("(b)")
+    for part, arch, name in (("(c)", SEAMLESS_ARCH, "serve_seamless"),
+                             ("(d)", PALIGEMMA_ARCH, "serve_paligemma")):
+        out[name] = encdec_serve_cell(
+            serve_mod, build_model, get_config, pm_ref, fa_kernel,
+            pm_kernel, attn_mod, seed, dev, arch, f"phase 14 {part}")
+        check(out[name]["B"] == B, f"{arch}: {out[name]['B']} admitted, "
+              f"(a) timed {B}")
+        mark(part)
+    cell = train_cell(get_config, TrainModel, adamw, data, steps_mod,
+                      attn_mod, transformer, fa_kernel, dev, seed,
+                      cfg=get_config(SEAMLESS_ARCH),
+                      name="train_seamless_m4t_medium_s4096",
+                      tag="phase 14 (e)")
+    cell.pop("cfg")
+    out["train_seamless"] = cell
+    mark("(e)")
+    forms = dict(serve_seamless=out["serve_seamless"]["fa_forms"],
+                 serve_paligemma=out["serve_paligemma"]["fa_forms"],
+                 train_seamless=cell["forms"])
+    for s in encdec_flash_shapes(get_config, B):
+        got = forms[s.cell].get(f"{s.form} {s.route}", 0)
+        check(got == s.want, f"{s.name}: {got} {s.form} launches on "
+              f"{s.route} on the {s.cell} path, not {s.want}")
+        out["flash"][s.name]["launches"] = got
+    log(f"phase 14: flash launches by call form and route, counted on each "
+        f"cell's path: {json.dumps(forms)}")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 14 took {out['wall_s']:.1f} s")
     return out
 
 
@@ -4868,6 +5496,11 @@ def main(argv=None) -> int:
                     kernel, dev, args.seed)
     sx, sj = ssm["serve_xlstm"], ssm["serve_jamba"]
     log("ssm: " + json.dumps(ssm, default=str))
+    encdec = encdec_phase(serve_mod, build_model, fa_ref, fa_kernel, ref,
+                          kernel, dev, args.seed)
+    es, ep = encdec["serve_seamless"], encdec["serve_paligemma"]
+    et, ef = encdec["train_seamless"], encdec["flash"]
+    log("encdec: " + json.dumps(encdec, default=str))
     log(f"the whole smoke took {time.perf_counter() - t_start:.1f} s")
 
     pre, dec = ft["prefill"], ft["decode"]
@@ -4911,6 +5544,10 @@ def main(argv=None) -> int:
         "moe_serve_route_launches": ms["pm_routes"],
         "xlstm_serve_launches": sx["pm_launches"],
         "jamba_serve_launches": sj["pm_launches"],
+        "seamless_serve_launches": es["pm_launches"],
+        "seamless_serve_route_launches": es["pm_routes"],
+        "paligemma_serve_launches": ep["pm_launches"],
+        "paligemma_serve_route_launches": ep["pm_routes"],
         "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -4924,6 +5561,7 @@ def main(argv=None) -> int:
                            ms["flash"]["decode"]["err"],
                            sj["flash"]["prefill"]["err"],
                            sj["flash"]["decode"]["err"],
+                           *(r["err"] for r in ef.values()),
                            *(w[0] for w in train["lse"]["worst"].values())),
         "ms": pre["ms"], "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
@@ -4944,6 +5582,18 @@ def main(argv=None) -> int:
         "moe_train_route_launches": mt["routes"],
         "jamba_serve_launches": sj["fa_launches"],
         "jamba_serve_route_launches": sj["fa_routes"],
+        "seamless_serve_launches": es["fa_launches"],
+        "seamless_serve_route_launches": es["fa_routes"],
+        "paligemma_serve_launches": ep["fa_launches"],
+        "paligemma_serve_route_launches": ep["fa_routes"],
+        "seamless_train_launches": et["launches"],
+        "seamless_train_route_launches": et["routes"],
+        "seamless_serve_form_launches": es["fa_forms"],
+        "paligemma_serve_form_launches": ep["fa_forms"],
+        "seamless_train_form_launches": et["forms"],
+        "encdec_shapes": {name: {k: r[k] for k in (
+            "route", "launches", "ms", "plain_ms", "plain_B", "bound_ms",
+            "bound_by", "library_ms", "err")} for name, r in ef.items()},
         "jamba_hd128_g4": {shape: {k: r[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for shape, r in sj["flash"].items()

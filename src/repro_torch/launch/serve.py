@@ -7,7 +7,13 @@ Hopper PMwCAS kernel on the card), with index order as the
 linearization.  The admitted requests are prefilled and greedily decoded
 through the model stack, whose attention layers run the Hopper
 flash-attention kernel on the card (``attn_impl`` picks a plain version
-on the CPU only).
+on the CPU only).  An arch with a frontend gets the reference
+launcher's stub embeddings, ``0.02 * ones((B, frontend_len,
+frontend_dim))`` in float32 (the encoder's frames, or a vision prefix),
+and a cache of ``prompt_len + steps + frontend_len`` positions, as the
+reference launcher sizes it (for an encoder-decoder too, whose decoder
+never writes the last ``frontend_len`` of them); the page proposals
+still count ``prompt_len + steps`` tokens.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --smoke --requests 12 --steps 8 [--device cpu]
@@ -109,12 +115,15 @@ def serve(cfg: ModelConfig, *, requests: int, steps: int, prompt_len: int,
     total = prompt_len + steps
     prompts = rng.integers(0, cfg.vocab, (B, prompt_len)).astype(np.int32)
     kept: List[torch.Tensor] = []
+    fe = (torch.full((B, cfg.frontend_len, cfg.frontend_dim), 0.02,
+                     dtype=torch.float32, device=dev)
+          if cfg.frontend != "none" else None)
     with torch.inference_mode():
-        cache = model.init_cache(B, total)
+        cache = model.init_cache(B, total + cfg.frontend_len)
         tokens = torch.as_tensor(prompts, device=dev)
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = model.prefill(tokens, cache)
+        logits, cache = model.prefill(tokens, cache, fe)
         _sync(dev)
         t1 = time.perf_counter()
         finite = torch.isfinite(logits).all()

@@ -23,7 +23,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.optim import adamw
 
 DRYRUN = ("the dry-run and sharding (parallel/sharding.py, launch/dryrun.py)"
-          " are not ported yet (ROADMAP Queue 1 #8)")
+          " are not ported yet (ROADMAP Queue 1 A #6)")
 
 
 def cell_model_config(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:
@@ -79,11 +79,11 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, remat: bool = True):
 
 
 def make_prefill_step(model):
+    """``prefill_step(tokens, cache, frontend_embeds=None)``: the model's
+    prefill; an arch with a frontend takes its embeddings (the encoder's
+    frames, or a vision prefix)."""
     def prefill_step(tokens, cache, frontend_embeds=None):
-        if frontend_embeds is not None:
-            raise NotImplementedError("modality frontends are not ported "
-                                      "yet (ROADMAP Queue 1 #8)")
-        return model.prefill(tokens, cache)
+        return model.prefill(tokens, cache, frontend_embeds)
 
     return prefill_step
 

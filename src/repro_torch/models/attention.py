@@ -1,14 +1,18 @@
-"""Grouped-query attention with the features the dense archs need.
+"""Grouped-query attention with the features the assigned archs need.
 
 The port of ``repro/models/attention.py``.  Covered: GQA/MQA (kv groups),
 RoPE (partial rotation for glm4), QKV bias (qwen1.5), attention-logit
 softcapping and local/global layers (gemma2), sliding windows, a bf16 KV
-cache, and the core softmax(QK^T)V.
+cache, and the core softmax(QK^T)V; causal self-attention (the decoder),
+non-causal self-attention (the encoder of seamless-m4t: ``causal=False``)
+and cross-attention (the decoder's layers over the encoder's memory:
+``kv=(k_mem, v_mem)`` from :func:`precompute_cross_kv`, non-causal, no
+RoPE, ``use_rope=False``, and no cache write).
 
 On a CUDA tensor the core is always the hand-written Hopper kernel of
-:mod:`repro_torch.kernels.flash_attention`, whatever ``impl`` says.  On
-a CPU tensor ``impl`` picks one of three plain versions, the oracles of
-the parity tests:
+:mod:`repro_torch.kernels.flash_attention`, whatever ``impl`` says, in
+every one of these forms.  On a CPU tensor ``impl`` picks one of three
+plain versions, the oracles of the parity tests:
 
 - ``ref``      materialized [B,KV,G,S,S] scores with an additive mask
                bias -- the model's oracle
@@ -25,9 +29,8 @@ computes them -- and its backward recomputes the probabilities chunk by
 chunk as ``exp(s - lse)``.  The backward is plain PyTorch on both
 devices, as the reference leaves it to XLA outside any kernel.
 
-Not on the dense archs' paths, so they raise ``NotImplementedError``
-naming ROADMAP Queue 1 #8: the int8 KV cache and cross-attention
-(``kv=``).
+The int8 KV cache is not ported yet: it raises ``NotImplementedError``
+naming ROADMAP Queue 1 A #5.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from .layers import KeyGen, apply_rope, make_param, matmul, softcap
 
 NEG_INF = -2.0 ** 20  # large-but-finite to keep softcap/tanh well-behaved
-LATER = "not ported yet (ROADMAP Queue 1 #8)"
+LATER = "not ported yet (ROADMAP Queue 1 A #5)"
 
 
 # ---------------------------------------------------------------------------
@@ -293,45 +296,57 @@ def cache_kv(layer_cache, dtype):
 # ---------------------------------------------------------------------------
 
 def attention(p, x, *, n_heads: int, n_kv_heads: int, head_dim: int,
-              positions, window: int = 0, rotary_fraction: float = 1.0,
-              rope_theta: float = 10_000.0, attn_cap: float = 0.0,
+              positions, causal: bool = True, window: int = 0,
+              rotary_fraction: float = 1.0, rope_theta: float = 10_000.0,
+              use_rope: bool = True, attn_cap: float = 0.0,
               impl: str = "chunked", chunk: int = 1024, kv=None,
-              layer_cache: Optional[Dict[str, Any]] = None,
+              k_positions=None, layer_cache: Optional[Dict[str, Any]] = None,
               cache_index: int = 0):
-    """One causal self-attention sublayer.
+    """One attention sublayer.
 
-    - without a cache (layer_cache=None): keys are this call's positions
+    - self-attention without a cache (layer_cache=None): keys are this
+      call's positions (the encoder, and training)
     - cached decode/prefill: writes at cache_index in place and attends
       over the whole cache
-    Returns (output [B,S,D], the layer cache or None).
+    - cross-attention: ``kv=(k_mem, v_mem)`` ``[B,KV,Sk,hd]`` precomputed
+      from the encoder's memory (:func:`precompute_cross_kv`), keys at
+      ``k_positions`` (default ``arange(Sk)``); no cache is written
+    Returns (output [B,S,D], the layer cache, or None for cross-attention).
     """
-    if kv is not None:
-        raise NotImplementedError(f"cross-attention (kv=) is {LATER}")
     B, S, _ = x.shape
     G = n_heads // n_kv_heads
     q = matmul(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
-    q = apply_rope(q.reshape(B, S, n_heads, head_dim), positions,
-                   rotary_fraction, rope_theta)
-    k = matmul(x, p["wk"])
-    v = matmul(x, p["wv"])
-    if "bk" in p:
-        k = k + p["bk"]
-        v = v + p["bv"]
-    k = apply_rope(k.reshape(B, S, n_kv_heads, head_dim), positions,
-                   rotary_fraction, rope_theta).transpose(1, 2)  # [B,KV,S,hd]
-    v = v.reshape(B, S, n_kv_heads, head_dim).transpose(1, 2)
-    if layer_cache is not None:
-        cache_update(layer_cache, k, v, cache_index)
-        k, v = cache_kv(layer_cache, x.dtype)
-        k_pos = torch.arange(k.shape[2], device=x.device)
+    q = q.reshape(B, S, n_heads, head_dim)
+    if use_rope:
+        q = apply_rope(q, positions, rotary_fraction, rope_theta)
+    if kv is not None:                       # cross-attention memory
+        k, v = kv
+        k_pos = (k_positions if k_positions is not None
+                 else torch.arange(k.shape[2], device=x.device))
+        layer_cache = None
     else:
-        k_pos = positions
+        k = matmul(x, p["wk"])
+        v = matmul(x, p["wv"])
+        if "bk" in p:
+            k = k + p["bk"]
+            v = v + p["bv"]
+        k = k.reshape(B, S, n_kv_heads, head_dim)
+        if use_rope:
+            k = apply_rope(k, positions, rotary_fraction, rope_theta)
+        k = k.transpose(1, 2)                                # [B,KV,S,hd]
+        v = v.reshape(B, S, n_kv_heads, head_dim).transpose(1, 2)
+        if layer_cache is not None:
+            cache_update(layer_cache, k, v, cache_index)
+            k, v = cache_kv(layer_cache, x.dtype)
+            k_pos = torch.arange(k.shape[2], device=x.device)
+        else:
+            k_pos = positions
 
     qg = q.reshape(B, S, n_kv_heads, G, head_dim).permute(0, 2, 3, 1, 4)
     scale = 1.0 / np.sqrt(head_dim)
-    kw = dict(causal=True, window=window, attn_cap=attn_cap, scale=scale)
+    kw = dict(causal=causal, window=window, attn_cap=attn_cap, scale=scale)
     if x.device.type != "cpu":
         impl = "pallas"          # the card runs the kernel, never a plain one
     if impl != "ref":
@@ -339,3 +354,13 @@ def attention(p, x, *, n_heads: int, n_kv_heads: int, head_dim: int,
     out = _IMPLS[impl](qg, k, v, positions, k_pos, **kw)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, S, n_heads * head_dim)
     return matmul(out, p["wo"]), layer_cache
+
+
+def precompute_cross_kv(p, memory: torch.Tensor, n_kv_heads: int,
+                        head_dim: int):
+    """Encoder memory ``[B, S, D]`` -> ``(k, v)`` in ``[B, KV, S, hd]`` for
+    the decoder's cross-attention (no bias, no RoPE)."""
+    B, S, _ = memory.shape
+    k = matmul(memory, p["wk"]).reshape(B, S, n_kv_heads, head_dim)
+    v = matmul(memory, p["wv"]).reshape(B, S, n_kv_heads, head_dim)
+    return k.transpose(1, 2), v.transpose(1, 2)

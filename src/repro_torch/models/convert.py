@@ -8,10 +8,15 @@ module never sees the other framework.  Keys follow the reference's
 and ``units``, whose leaves carry a leading ``n_units`` axis: a
 sublayer's ``ln1``, its mixer (``units.layer0.attn.wq``,
 ``units.layer0.mamba.a_log``, ``units.layer0.mlstm.b_f``,
-``units.layer1.slstm.r_z``) and, unless its ``ffn`` is ``"none"`` (no
-``ln2`` then, as in xlstm-125m), ``ln2`` and ``mlp`` or ``moe``
-(``units.layer0.moe.{router,wi_gate,wi_up,wo}``).  The port holds one
-parameter a unit (``units.<u>.layer0.attn.wq``); the tree stacks them.
+``units.layer1.slstm.r_z``), in an encoder-decoder's decoder
+``ln_cross`` and ``cross.{wq,wk,wv,wo}``, and, unless its ``ffn`` is
+``"none"`` (no ``ln2`` then, as in xlstm-125m), ``ln2`` and ``mlp`` or
+``moe`` (``units.layer0.moe.{router,wi_gate,wi_up,wo}``).  An
+encoder-decoder also has ``encoder`` (``encoder.layer0.{ln1,attn,ln2,
+mlp}``, its leaves stacked over ``n_enc_layers``) and ``enc_norm``; an
+arch with a frontend ``frontend_proj``.  The port holds one parameter a
+unit or encoder layer (``units.<u>.layer0.attn.wq``,
+``encoder.<l>.layer0.attn.wq``); the tree stacks them.
 
 - :func:`params_from_numpy` builds a serving ``Model`` (or, with
   ``train=True``, a ``TrainModel`` of float32 masters) from such a tree;
@@ -46,12 +51,22 @@ def _leaves(tree: Dict[str, Any], prefix: str = "") -> Iterator[
             yield name, np.asarray(val)
 
 
+STACKS = ("units", "encoder")      # reference keys stacked on a leading axis
+
+
+def stack_len(cfg: ModelConfig, key: str) -> int:
+    """The length of a reference key's stacked axis: ``n_units`` for
+    ``units.*``, ``n_enc_layers`` for ``encoder.*``, 0 for the rest."""
+    head = key.split(".", 1)[0]
+    return {"units": cfg.n_units, "encoder": cfg.n_enc_layers}.get(head, 0)
+
+
 def _target(model: AnyModel, name: str, unit: int = -1) -> torch.nn.Parameter:
     """The port's parameter for a reference key (``units.layer0.attn.wq``
     with ``unit`` picking the slice of the stacked axis)."""
     parts = name.split(".")
-    if parts[0] == "units":
-        obj = model.units[unit]
+    if parts[0] in STACKS:
+        obj = getattr(model, parts[0])[unit]
         parts = parts[1:]
     elif parts[0] in ("embedding", "lm_head"):
         return model.embed[parts[0]]
@@ -67,12 +82,13 @@ def _target(model: AnyModel, name: str, unit: int = -1) -> torch.nn.Parameter:
 def ref_key(port_name: str) -> Tuple[str, int]:
     """``(reference key, unit)`` of a port parameter name:
     ``embed.embedding`` -> ``("embedding", -1)``,
-    ``units.3.layer0.attn.wq`` -> ``("units.layer0.attn.wq", 3)``."""
+    ``units.3.layer0.attn.wq`` -> ``("units.layer0.attn.wq", 3)``,
+    ``encoder.1.layer0.ln1`` -> ``("encoder.layer0.ln1", 1)``."""
     parts = port_name.split(".")
     if parts[0] == "embed":
         return parts[1], -1
-    if parts[0] == "units":
-        return ".".join(["units"] + parts[2:]), int(parts[1])
+    if parts[0] in STACKS:
+        return ".".join(parts[:1] + parts[2:]), int(parts[1])
     return port_name, -1
 
 
@@ -82,7 +98,7 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, *,
     tree (numpy arrays): a serving ``Model``, each value rounded to the
     dtype it holds it in (``cfg.dtype`` for every leaf but the float32
     ``final_norm``: the reference's ``_cast_params`` of its stacked
-    tree), or with
+    tree; ``enc_norm`` stays float32 too), or with
     ``train=True`` a ``TrainModel`` whose masters keep the tree's float32
     values.  Raises if a key or a shape does not match, or a port
     parameter is left unset."""
@@ -98,13 +114,16 @@ def load_params(model: AnyModel, tree: Dict[str, Any]) -> AnyModel:
     names = {id(p): n for n, p in model.named_parameters()}
     unset = set(names.values())
     for name, arr in _leaves(tree):
-        stacked = name.startswith("units.")
-        for u in range(model.cfg.n_units if stacked else 1):
+        n = stack_len(model.cfg, name)
+        if n and (arr.ndim < 1 or arr.shape[0] != n):
+            raise ValueError(f"{name}: stacked over {arr.shape[:1]}, the "
+                             f"port has {n}")
+        for u in range(max(n, 1)):
             try:
                 dst = _target(model, name, u)
-            except (AttributeError, KeyError) as e:
+            except (AttributeError, KeyError, IndexError) as e:
                 raise KeyError(f"no port parameter for {name!r}") from e
-            src = arr[u] if stacked else arr
+            src = arr[u] if n else arr
             if tuple(dst.shape) != src.shape:
                 raise ValueError(f"{name}: port shape {tuple(dst.shape)} != "
                                  f"{src.shape}")
@@ -120,8 +139,7 @@ def named_to_numpy(named: Dict[str, torch.Tensor],
                    model: AnyModel) -> Dict[str, Any]:
     """Tensors keyed by ``model``'s parameter names (the parameters, their
     gradients, a moment) as the reference's nested tree of numpy arrays,
-    unit leaves stacked on a leading axis."""
-    n_units = model.cfg.n_units
+    unit (and encoder) leaves stacked on a leading axis."""
     flat: Dict[str, Any] = {}
     for name, t in named.items():
         key, unit = ref_key(name)
@@ -129,7 +147,8 @@ def named_to_numpy(named: Dict[str, torch.Tensor],
         if unit < 0:
             flat[key] = arr
         else:
-            flat.setdefault(key, [None] * n_units)[unit] = arr
+            flat.setdefault(key, [None] * stack_len(model.cfg, key))[unit] = \
+                arr
     tree: Dict[str, Any] = {}
     for key, val in flat.items():
         node = tree

@@ -936,3 +936,38 @@ def test_ssm_small_serve_and_train_card_vs_cpu(cuda):
             if key.startswith("xlstm"):
                 tol = max(tol, chip_smoke.MLSTM_F32_GRAD_TOL)
             assert r["grad_err"] <= tol, key
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder stacks, cross-attention and the frontends: the seamless
+# and paligemma smoke configs on the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "paligemma-3b"])
+def test_encdec_small_bf16_serve_card_vs_cpu(cuda, arch):
+    """bf16 at head_dim 64 (seamless: the encoder, the decoder's and the
+    cross-attention's prefill on tc, both decode forms on decode) and 256
+    (paligemma's MQA, g = 4)."""
+    small = chip_smoke.ENCDEC_SMALL[arch]
+    routes = chip_smoke.small_serve_matches_cpu(
+        serve_mod, build_model, get_config, 0, cuda, dtype="bfloat16",
+        tol=chip_smoke.SERVE_BF16_TOL, rtol=0.0, arch=arch, **small)
+    cfg = chip_smoke.small_serve_config(get_config, "bfloat16",
+                                        small["head_dim"], arch,
+                                        small["over"])
+    prompt, step = chip_smoke.flash_calls(cfg)
+    assert routes == dict(tc=prompt, decode=step * 8, simt=0)
+
+
+def test_encdec_small_train_card_vs_cpu_and_cross_causal_fault(cuda):
+    import repro_torch.data as data
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import TrainModel
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = chip_smoke.small_train_matches_cpu(
+        get_config, TrainModel, adamw, data, attention, fa_kernel, "float32",
+        0, cuda, arch="seamless-m4t-medium",
+        faults_of=chip_smoke.ENCDEC_FAULTS)
+    tol = chip_smoke.SMALL_TOL["float32"][1]
+    assert out["grad_err"] <= tol < out["faults"]["cross_causal"]["grad"]

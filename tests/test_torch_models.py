@@ -289,13 +289,6 @@ def test_params_from_numpy_refuses_mismatch():
 # what is not ported raises
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch,what", [
-    ("seamless_m4t_medium", "encoder-decoder"), ("paligemma_3b", "frontend")])
-def test_unported_archs_raise(arch, what):
-    with pytest.raises(NotImplementedError, match=what):
-        Model(get_config(arch, smoke=True), device="cpu")
-
-
 def test_unported_paths_raise():
     cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
                               kv_dtype="int8")
@@ -303,9 +296,3 @@ def test_unported_paths_raise():
         Model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="int8"):
         pt_attn.init_kv_cache(1, 1, 4, 8, "int8", 1)
-    x = torch.zeros(1, 2, 8)
-    p = {n: torch.zeros(8, 8) for n in ("wq", "wk", "wv", "wo")}
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        pt_attn.attention(p, x, n_heads=1, n_kv_heads=1, head_dim=8,
-                          positions=torch.arange(2),
-                          kv=(torch.zeros(1, 1, 2, 8),) * 2)

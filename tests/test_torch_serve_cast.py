@@ -7,7 +7,10 @@ too; only ``final_norm`` stays float32.  A reference tree whose norms
 and biases are moved off zero (random init leaves them zero, which any
 dtype holds exactly) must arrive in the port equal to ``_cast_params``
 of it, bit for bit and dtype for dtype; and qwen1.5's bf16 serve must
-reach the flash op in bf16 (a float32 bias would widen q and k).
+reach the flash op in bf16 (a float32 bias would widen q and k).  The
+encoder-decoder's encoder leaves are stacked too (over ``n_enc_layers``)
+and ``frontend_proj`` has two dimensions, so both are cast; ``enc_norm``
+stays float32 beside the final norm.
 """
 import dataclasses
 
@@ -47,7 +50,8 @@ def _leaf(tree, key):
 
 
 @pytest.mark.parametrize("arch", ["qwen15_32b", "llama3_8b",
-                                  "granite_moe_3b_a800m"])
+                                  "granite_moe_3b_a800m",
+                                  "seamless_m4t_medium", "paligemma_3b"])
 def test_serving_model_holds_cast_params(arch):
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="bfloat16")
     tree = _nudged_tree(arch, cfg)
@@ -55,8 +59,10 @@ def test_serving_model_holds_cast_params(arch):
     model = params_from_numpy(jax.tree_util.tree_map(np.asarray, tree), cfg,
                               device="cpu")
     names = dict(model.named_parameters())
-    assert len(names) == len(jax.tree_util.tree_leaves(tree)) + \
-        (cfg.n_units - 1) * len(jax.tree_util.tree_leaves(tree["units"]))
+    stacked = [(cfg.n_units, "units"), (cfg.n_enc_layers, "encoder")]
+    assert len(names) == len(jax.tree_util.tree_leaves(tree)) + sum(
+        (n - 1) * len(jax.tree_util.tree_leaves(tree[key]))
+        for n, key in stacked if key in tree)
     for name, p in names.items():
         key, unit = ref_key(name)
         w = _leaf(want, key)
@@ -65,6 +71,12 @@ def test_serving_model_holds_cast_params(arch):
         assert np.array_equal(p.detach().float().numpy(),
                               np.asarray(w.astype(jnp.float32))), name
     assert model.final_norm.dtype == torch.float32
+    if cfg.enc_dec:
+        assert model.enc_norm.dtype == torch.float32
+        assert model.encoder[0]["layer0"].ln1.dtype == torch.bfloat16
+        assert model.units[0]["layer0"].ln_cross.dtype == torch.bfloat16
+    if cfg.frontend != "none":
+        assert model.frontend_proj.dtype == torch.bfloat16
     if cfg.qkv_bias:
         assert float(model.units[0]["layer0"].attn["bq"].float().abs()
                      .sum()) > 0
