@@ -99,23 +99,30 @@ Phases, in order; any failure exits non-zero:
    checked round, counted here), and its table equal to a CPU tree's; and the
    raw-op ``BatchScheduler`` on 4 card shards against 4 CPU shards;
 9. the cycle-accurate simulator (``csrc/pmwcas_sim.cu``, many
-   simulations a launch) — (a) the kernel against its plain version bit
-   for bit on the whole state, the four algorithms over ``SIM_CASES``
-   (drained and cut) in one mixed launch, and alone == batched; (b)
-   every crash point 1-399 of ``test_crash_exhaustive_prefix``'s
-   schedule for the four algorithms in one launch, each recovering
-   consistently and held to the plain version, and the pinned ORIGINAL
-   crash (seed 8016, step 365) raising the reference's RecoveryError
-   through ``SimSession.crash_at`` on the card;
-   (c) ``run_struct_differential(hashmap, algorithm="ours")`` with every
-   round replayed on the simulator kernel; (d) the Figs. 9-10 grid
-   (``benchmarks/bench_threads.py``: 84 drained cells at 1,000,000 words,
-   60,000 steps, ``max_ops`` 512, seed 11) in ONE launch: modeled Mops
-   at 2 GHz, CAS / flush / invalidations per op and p99 per cell, the
-   zero-conflict CAS counts at one thread, the ours/original ratio at
-   t = 56, alpha = 1, four full-size cells held to the plain version
-   (its time per step extrapolated to the grid), and one cell alone for
-   the time per step beside the latency floor;
+   simulations a launch, on two routes: ``smem``, the state in shared
+   memory, and ``global``, in device memory) — (a) the kernel on each
+   route against its plain version bit for bit on the whole state, the
+   four algorithms over ``SIM_CASES`` (drained and cut) in one mixed
+   launch, and alone == batched; (b) every crash point 1-399 of
+   ``test_crash_exhaustive_prefix``'s schedule for the four algorithms in
+   one launch a route, each recovering consistently and held to the plain
+   version, and the pinned ORIGINAL crash (seed 8016, step 365) on each
+   route and raising the reference's RecoveryError through
+   ``SimSession.crash_at`` on the card; ``SimBackend``'s mode on each
+   route against the plain version (outputs and state, the attempt-cap
+   exits too), and a round too wide for shared memory on ``global`` by
+   the plan; (c) ``run_struct_differential(hashmap, algorithm="ours")``
+   with every round replayed on the simulator kernel; (d) the Figs. 9-10
+   grid (``benchmarks/bench_threads.py``: 84 drained cells at 1,000,000
+   words, 60,000 steps, ``max_ops`` 512, seed 11) in ONE launch a route:
+   modeled Mops at 2 GHz, CAS / flush / invalidations per op and p99 per
+   cell, the zero-conflict CAS counts at one thread, the ours/original
+   ratio at t = 56, alpha = 1, four full-size cells held to the plain
+   version (its time per step extrapolated to the grid) and each route
+   held to them, the five slowest cells of each route (their own
+   nanoseconds from the kernel), the grid's latency bound beside its
+   bytes bound, and one cell alone on each route for the time per step
+   beside the latency floor;
 10. chaos (``repro_torch.chaos``) — (a) ``default_scenarios(seed, 60)``
    with ``device="cuda"`` under the span tracer: the six durable
    families at 60 waves and ``sim_native`` at 30, at the families' own
@@ -1909,15 +1916,17 @@ def durable_differential(pm, kernel, dev, seed: int) -> dict:
     launches = kernel.pmwcas_apply_cuda.launches
     routes = dict(kernel.pmwcas_apply_cuda.route_launches)
     sim_launches = sim_kernel.pmwcas_sim_cuda.launches
+    sim_routes = dict(sim_kernel.pmwcas_sim_cuda.route_launches)
     check(launches == len(DIFF_SHAPES) and all(routes.values())
           and sim_launches == len(DIFF_SHAPES),
           f"differential launches {launches}, routes {routes}, simulator "
           f"{sim_launches}: both routes and one simulation a batch must run")
     log("kernels: " + json.dumps({"pmwcas_apply differential": launches,
                                   "routes": routes,
-                                  "pmwcas_sim differential": sim_launches}))
+                                  "pmwcas_sim differential": sim_launches,
+                                  "pmwcas_sim routes": sim_routes}))
     return dict(launches=launches, routes=routes, shapes=out,
-                sim_launches=sim_launches)
+                sim_launches=sim_launches, sim_routes=sim_routes)
 
 
 def fs_type(path) -> str:
@@ -2482,6 +2491,7 @@ def tree_differential(st, pm, dev, seed: int) -> dict:
                                          **shape)
         secs = time.perf_counter() - t0
         sim_launches = sim_kernel.pmwcas_sim_cuda.launches
+        sim_routes = dict(sim_kernel.pmwcas_sim_cuda.route_launches)
     check(rep.agree, "tree kernel != durable:\n" + rep.summary())
     check(sim_launches == rep.sim_rounds_checked > 0,
           f"the tree differential made {sim_launches} simulator launches "
@@ -2514,7 +2524,8 @@ def tree_differential(st, pm, dev, seed: int) -> dict:
         f"bit")
     return dict(ops=len(kvops), rounds=rep.rounds["kernel"],
                 splits=card.splits, s=secs, sim_launches=sim_launches,
-                sim_skipped=rep.sim_rounds_skipped, sim_s=sim_secs)
+                sim_routes=sim_routes, sim_skipped=rep.sim_rounds_skipped,
+                sim_s=sim_secs)
 
 
 def raw_stream(seed: int, n_shards: int, words: int, n_ops: int,
@@ -2629,6 +2640,9 @@ SIM_CASES = (
                      max_ops=64, seed=7)),
 )
 SIM_CUT = 365                        # run_until's cut in the checks
+# the simulator's routes phase 9 runs: the plan's (smem, for every state
+# of the phase but one wide SimBackend round) and global, forced
+SIM_ROUTES = (None, "global")
 # tests/test_recovery.py::test_crash_exhaustive_prefix: every crash point
 # of a 400-step hot schedule over 16 words, per algorithm
 CRASH_ALGS = (("ours", 3), ("ours_df", 3), ("original", 2), ("pcas", 1))
@@ -2679,13 +2693,12 @@ def sim_specs(core, cases=SIM_CASES, cut=SIM_CUT) -> list:
     return out
 
 
-def sim_held(core, specs, card_results, what: str) -> int:
-    """Run ``specs`` through the plain version and hold every card result
-    to it on the whole state and the drain rounds; returns the largest
-    absolute difference seen (0: bit for bit)."""
+def sim_held(specs, card_results, plain_results, what: str) -> int:
+    """Hold every card result to the plain version's on the whole state
+    and the drain rounds; returns the largest absolute difference seen (0:
+    bit for bit)."""
     worst = 0
-    for spec, got, want in zip(specs, card_results,
-                               core.run_sims(specs, device="cpu")):
+    for spec, got, want in zip(specs, card_results, plain_results):
         bad = sim_diff(got.state, want.state)
         check(not bad and got.drain_rounds == want.drain_rounds,
               f"{what}: the simulator kernel != plain for "
@@ -2695,47 +2708,75 @@ def sim_held(core, specs, card_results, what: str) -> int:
     return worst
 
 
+def sim_run(core, sim_kernel, specs, dev, route, what: str) -> list:
+    """``core.run_sims`` on the card on ``route`` (None: the plan's),
+    checked to take ONE launch on the route wanted (the plan's: smem for
+    every state here that fits)."""
+    want = route or sim_kernel.plan(
+        [sim_kernel.SimJob(spec[0], None, None) for spec in specs])[0]
+    before = dict(sim_kernel.pmwcas_sim_cuda.route_launches)
+    results = core.run_sims(specs, device=dev, route=route)
+    after = sim_kernel.pmwcas_sim_cuda.route_launches
+    check({r: after[r] - before[r] for r in after} ==
+          {r: int(r == want) for r in after},
+          f"{what}: launches by route {before} -> {after}, not one on "
+          f"{want}")
+    return results
+
+
 def sim_kernel_vs_plain(core, sim_kernel, dev) -> int:
-    """(a) The kernel against its plain version, bit for bit on the whole
-    state: every case of ``SIM_CASES`` drained and cut, all four
-    algorithms, in ONE mixed launch; then two of them alone."""
+    """(a) The kernel on each route (smem by the plan, global forced)
+    against its plain version, bit for bit on the whole state: every case
+    of ``SIM_CASES`` drained and cut, all four algorithms, in ONE mixed
+    launch a route; then two of them alone."""
     specs = sim_specs(core)
-    before = sim_kernel.pmwcas_sim_cuda.launches
-    card = core.run_sims(specs, device=dev)
-    check(sim_kernel.pmwcas_sim_cuda.launches == before + 1,
-          "the mixed simulations took more than one launch")
-    err = sim_held(core, specs, card, "mixed launch")
-    for i in (1, 4):
-        alone = core.run_sims([specs[i]], device=dev)[0]
-        check(not sim_diff(alone.state, card[i].state),
-              "a simulation alone != the same in a mixed launch")
+    plain = core.run_sims(specs, device="cpu")
+    err = 0
+    for route in SIM_ROUTES:
+        card = sim_run(core, sim_kernel, specs, dev, route, "mixed launch")
+        err = max(err, sim_held(specs, card, plain,
+                                f"mixed launch, {route or 'smem'}"))
+        for i in (1, 4):
+            alone = sim_run(core, sim_kernel, [specs[i]], dev, route,
+                            "alone")[0]
+            check(not sim_diff(alone.state, card[i].state),
+                  "a simulation alone != the same in a mixed launch")
     log(f"phase 9: simulator kernel == plain bit for bit on the whole state "
         f"(max abs err {err}) for {len(specs)} simulations "
         f"({len(SIM_CASES)} configs x drained / cut at {SIM_CUT}, four "
-        f"algorithms) in one mixed launch; alone == batched")
+        f"algorithms) in one mixed launch on each route (smem by the "
+        f"plan, global forced); alone == batched")
     return err
 
 
 def sim_crash_sweep(core, pm, sim_kernel, dev) -> dict:
     """(b) Every crash point 1-399 of ``test_crash_exhaustive_prefix``'s
-    schedule for the four algorithms, as simulations of one launch; each
-    recovers consistently and equals the plain version; then the pinned
-    ORIGINAL example, which must raise the reference's RecoveryError."""
+    schedule for the four algorithms, as simulations of one launch a
+    route; each recovers consistently and equals the plain version; then
+    the pinned ORIGINAL example on each route, which must raise the
+    reference's RecoveryError through ``SimSession.crash_at``."""
     specs = []
     for alg, k in CRASH_ALGS:
         cfg = core.SimConfig(algorithm=alg, k=k, **CRASH_KW)
         specs += [(cfg, None, None, False, s) for s in range(1, 400)]
-    t0 = time.perf_counter()
-    card = core.run_sims(specs, device=dev)
-    secs = time.perf_counter() - t0
-    kernel_ms = sim_kernel.pmwcas_sim_cuda.last_ms
-    for spec, r in zip(specs, card):
-        core.check_crash_consistency(spec[0], r.state)
-    err = sim_held(core, specs, card, "crash sweep")
+    plain = core.run_sims(specs, device="cpu")
+    err, secs, kernel_ms = 0, {}, {}
+    for route in SIM_ROUTES:
+        name = route or "smem"
+        t0 = time.perf_counter()
+        card = sim_run(core, sim_kernel, specs, dev, route, "crash sweep")
+        secs[name] = time.perf_counter() - t0
+        kernel_ms[name] = sim_kernel.pmwcas_sim_cuda.last_ms
+        if route is None:
+            for spec, r in zip(specs, card):
+                core.check_crash_consistency(spec[0], r.state)
+        err = max(err, sim_held(specs, card, plain, f"crash sweep, {name}"))
     pin = core.SimConfig(**PIN_CFG)
-    got = core.run_until(pin, PIN_STEP, device=dev)
     want = core.run_until(pin, PIN_STEP, device="cpu")
-    check(not sim_diff(got.state, want.state), "pinned case: kernel != plain")
+    for route in SIM_ROUTES:
+        got = core.run_until(pin, PIN_STEP, device=dev, route=route)
+        check(not sim_diff(got.state, want.state),
+              f"pinned case on {route or 'smem'}: kernel != plain")
     before = sim_kernel.pmwcas_sim_cuda.launches
     try:
         pm.SimSession().configure(**PIN_CFG).with_device(dev).crash_at(
@@ -2743,18 +2784,107 @@ def sim_crash_sweep(core, pm, sim_kernel, dev) -> dict:
         raised = None
     except core.RecoveryError as e:
         raised = str(e)
-    check(sim_kernel.pmwcas_sim_cuda.launches == before + 1,
-          "SimSession.crash_at did not launch the simulator kernel")
+    check(sim_kernel.pmwcas_sim_cuda.launches == before + 1
+          and sim_kernel.pmwcas_sim_cuda.last_route == "smem",
+          "SimSession.crash_at did not launch the simulator kernel on smem")
     check(raised is not None and PIN_MSG in raised,
           f"the pinned ORIGINAL crash gave {raised!r}")
     log(f"phase 9: crash sweep, {len(specs)} crash points (1-399 x four "
-        f"algorithms) in one launch of {kernel_ms:.3f} ms ({secs:.3f} s "
-        f"with set-up and copies): all "
-        f"recover consistently, all == plain (max abs err {err}); pinned "
-        f"ORIGINAL "
-        f"crash@{PIN_STEP}: RecoveryError({raised!r}) as in the reference")
+        f"algorithms) in one launch a route: smem "
+        f"{kernel_ms['smem']:.3f} ms, global {kernel_ms['global']:.3f} ms "
+        f"({secs['smem']:.3f} / {secs['global']:.3f} s with set-up and "
+        f"copies): all recover consistently, all == plain on both routes "
+        f"(max abs err {err}); pinned ORIGINAL crash@{PIN_STEP} == plain "
+        f"on both routes, RecoveryError({raised!r}) as in the reference")
     return dict(points=len(specs), s=secs, pinned=raised,
                 kernel_ms=kernel_ms, err=err)
+
+
+def backend_jobs(core, sim_kernel, dev, T: int, k: int, cap: int,
+                 seed: int) -> list:
+    """``SimBackend``'s mode (``MODE_BACKEND``) straight on the engine,
+    one job an algorithm of ``k`` (PCAS at ``k = 1`` only): ``T`` threads,
+    one op each over ``k`` sorted distinct words of ``2 * T * k``, drawn so
+    ops share words, with an attempt cap of ``cap``."""
+    rng = np.random.default_rng(seed)
+    n_words = max(2 * T * k, 8)
+    ops = np.stack([np.sort(rng.choice(n_words, k, replace=False))
+                    for _ in range(T)]).astype(np.int32).reshape(T, 1, k)
+    jobs = []
+    for alg in ("ours", "ours_df", "original", "pcas"):
+        if alg == "pcas" and k != 1:
+            continue
+        cfg = core.SimConfig(algorithm=alg, n_threads=T, n_words=n_words,
+                             k=k, max_ops=1, n_steps=1)
+        jobs.append(sim_kernel.SimJob(
+            cfg, core.init_state(cfg, ops, device=dev),
+            np.zeros(0, np.int32), mode=sim_kernel.MODE_BACKEND,
+            attempt_cap=cap))
+    return jobs
+
+
+# (threads, k, attempt cap): SimBackend rounds; the cap of 2 stops every
+# algorithm in its read phase, 12 in an attempt; 1,024 ops of k = 3 need
+# more shared memory than a block has, so the plan sends them to global
+BACKEND_CASES = ((64, 3, 10_000), (64, 1, 10_000), (16, 3, 2), (16, 3, 12),
+                 (1024, 3, 10_000))
+
+
+def sim_backend_modes(core, pm, sim_kernel, dev, seed: int) -> dict:
+    """(b) ``SimBackend``'s mode on each route against the plain version:
+    every ``BACKEND_CASES`` round, outputs (error, thread, steps) and the
+    whole state after, the attempt-cap exits included; the wide round on
+    ``global`` by the plan; then ``SimBackend`` itself (the four
+    algorithms, smem by the plan) card == CPU."""
+    O = sim_kernel
+    routes, errs = {}, set()
+    for T, k, cap in BACKEND_CASES:
+        cpu = backend_jobs(core, sim_kernel, "cpu", T, k, cap, seed)
+        planned = sim_kernel.plan(cpu)[0]
+        check(planned == ("global" if T == 1024 else "smem"),
+              f"SimBackend round [{T}, {k}] planned on {planned}")
+        want = core.sim.run_jobs(cpu)
+        errs.update(int(e) for e in want[:, O.O_ERR])
+        for route in ((None,) if planned == "global" else SIM_ROUTES):
+            jobs = backend_jobs(core, sim_kernel, dev, T, k, cap, seed)
+            before = dict(sim_kernel.pmwcas_sim_cuda.route_launches)
+            got = core.sim.run_jobs(jobs, route=route)
+            took = sim_kernel.pmwcas_sim_cuda.last_route
+            check(took == (route or planned) and sim_kernel.pmwcas_sim_cuda
+                  .route_launches[took] == before[took] + 1,
+                  f"SimBackend round [{T}, {k}] ran on {took}")
+            routes.setdefault(f"{T}x{k} cap {cap}", []).append(took)
+            cols = [O.O_ERR, O.O_ERR_THREAD, O.O_STEPS]
+            check(np.array_equal(got[:, cols], want[:, cols]),
+                  f"SimBackend round [{T}, {k}] cap {cap} on {took}: "
+                  f"outputs {got[:, cols].tolist()} != plain "
+                  f"{want[:, cols].tolist()}")
+            for a, b in zip(jobs, cpu):
+                bad = sim_diff(core.state_to_arrays(a.state),
+                               core.state_to_arrays(b.state))
+                check(not bad, f"SimBackend round [{T}, {k}] cap {cap}, "
+                      f"{a.cfg.algorithm} on {took}: state != plain in "
+                      f"{bad}")
+    errs = sorted(errs)
+    check(errs == [0, O.ERR_READ_PHASE, O.ERR_ATTEMPT],
+          f"the rounds stopped with errors {errs}")
+    for alg in ("ours", "ours_df", "original", "pcas"):
+        kk = 1 if alg == "pcas" else 3
+        init, ops = pm.increment_batch(64, kk, 24, seed=seed + 5)
+        outs = []
+        for device in (dev, "cpu"):
+            b = pm.SimBackend(64, algorithm=alg, values=init, device=device)
+            outs.append(([r.success for r in b.execute(ops)],
+                         b.values().tolist(), b.counters.tolist()))
+        check(outs[0] == outs[1], f"SimBackend({alg}) card != CPU")
+        check(sim_kernel.pmwcas_sim_cuda.last_route == "smem",
+              f"SimBackend({alg}) ran on "
+              f"{sim_kernel.pmwcas_sim_cuda.last_route}")
+    log(f"phase 9: SimBackend's mode == plain on outputs and the whole "
+        f"state for {len(BACKEND_CASES)} rounds (the attempt-cap exits "
+        f"{errs} too), by route {routes}; SimBackend card == CPU for the "
+        f"four algorithms on smem")
+    return routes
 
 
 def sim_struct_differential(st, dev, seed: int) -> dict:
@@ -2831,19 +2961,36 @@ def sim_bytes(cfg, state) -> int:
 
 
 def sim_grid(core, pm, sim_kernel, pm_kernel, dev, seed: int) -> dict:
-    """(d) The Figs. 9-10 grid at 1,000,000 words in ONE launch: modeled
-    Mops at 2 GHz, CAS / flush / invalidations per op and p99 per cell;
-    the zero-conflict counts at one thread; four full-size cells (t = 56,
-    alpha = 1, one per algorithm) held to the plain version, whose time
-    per step is extrapolated to the grid; one simulation alone for the
-    time per step beside the latency floor."""
+    """(d) The Figs. 9-10 grid at 1,000,000 words in ONE launch a route
+    (smem by the plan, then global forced; the two equal bit for bit):
+    modeled Mops at 2 GHz, CAS / flush / invalidations per op and p99 per
+    cell; the zero-conflict counts at one thread; four full-size cells (t
+    = 56, alpha = 1, one per algorithm) held to the plain version, whose
+    time per step is extrapolated to the grid; the five slowest cells of
+    each route by the kernel's own nanoseconds a simulation; the grid's
+    latency bound (its longest simulation's steps x the latency floor of a
+    step) beside its bytes bound; one simulation alone on each route for
+    the time per step beside the floor."""
     named = fig_specs(core, pm)
+    names = [n for n, _ in named]
     specs = [s for _, s in named]
-    t0 = time.perf_counter()
-    results = core.run_sims(specs, device=dev)
-    wall = time.perf_counter() - t0
-    grid_ms = sim_kernel.pmwcas_sim_cuda.last_ms
-    grid_steps = sim_kernel.pmwcas_sim_cuda.last_steps
+    runs = {}
+    for route in SIM_ROUTES:
+        t0 = time.perf_counter()
+        results = sim_run(core, sim_kernel, specs, dev, route, "the grid")
+        wall = time.perf_counter() - t0
+        out = sim_kernel.pmwcas_sim_cuda.last_out
+        runs[route or "smem"] = dict(
+            results=results, wall_s=wall,
+            ms=sim_kernel.pmwcas_sim_cuda.last_ms,
+            steps=sim_kernel.pmwcas_sim_cuda.last_steps,
+            cell_steps=out[:, sim_kernel.O_STEPS].tolist(),
+            cell_ns=out[:, sim_kernel.O_NS].tolist())
+    results = runs["smem"]["results"]
+    for name, a, b in zip(names, results, runs["global"]["results"]):
+        check(not sim_diff(a.state, b.state)
+              and a.drain_rounds == b.drain_rounds,
+              f"{name}: the smem route's result != the global route's")
     cells = {}
     for (name, spec), r in zip(named, results):
         secs = r.wall_cycles / (CLOCK_GHZ * 1e9)
@@ -2869,12 +3016,12 @@ def sim_grid(core, pm, sim_kernel, pm_kernel, dev, seed: int) -> dict:
                   f"{name}: {cells[name]['cas']} CAS per op, not {want}")
     ratio = (cells["fig9_ours_t56_a1"]["mops"]
              / cells["fig9_original_t56_a1"]["mops"])
-    # four full-size cells on the plain version
+    # four full-size cells on the plain version, each route held to them
     held = {}
     plain_s = plain_steps = worst = 0
     for name in ("fig9_ours_t56_a1", "fig9_ours_df_t56_a1",
                  "fig9_original_t56_a1", "fig10_pcas_t56_a1"):
-        i = [n for n, _ in named].index(name)
+        i = names.index(name)
         cfg = specs[i][0]
         job = core_job(core, cfg)
         t1 = time.perf_counter()
@@ -2882,23 +3029,44 @@ def sim_grid(core, pm, sim_kernel, pm_kernel, dev, seed: int) -> dict:
         plain_s += time.perf_counter() - t1
         plain_steps += int(out[sim_kernel.O_STEPS])
         plain = core.state_to_arrays(job.state)
-        bad = sim_diff(results[i].state, plain)
-        worst = max(worst, sim_err(results[i].state, plain))
-        check(not bad and results[i].drain_rounds ==
-              int(out[sim_kernel.O_ROUNDS]),
-              f"{name}: the grid's kernel result != plain in {bad}")
+        for route, run in runs.items():
+            got = run["results"][i]
+            bad = sim_diff(got.state, plain)
+            worst = max(worst, sim_err(got.state, plain))
+            check(not bad and got.drain_rounds ==
+                  int(out[sim_kernel.O_ROUNDS]),
+                  f"{name}: the grid's {route} result != plain in {bad}")
+            check(run["cell_steps"][i] == int(out[sim_kernel.O_STEPS]),
+                  f"{name}: {run['cell_steps'][i]} steps on {route}, "
+                  f"{int(out[sim_kernel.O_STEPS])} on the plain version")
         held[name] = int(out[sim_kernel.O_STEPS])
     plain_us_step = plain_s / plain_steps * 1e6
-    plain_grid_ms = plain_us_step * grid_steps / 1e3
-    # one simulation alone: its time per step beside the latency floor
-    alone = core.run_sims([specs[[n for n, _ in named].index(
-        "fig9_ours_t56_a1")]], device=dev)[0]
-    alone_ms = sim_kernel.pmwcas_sim_cuda.last_ms
-    alone_steps = sim_kernel.pmwcas_sim_cuda.last_steps
-    check(not sim_diff(alone.state, results[[n for n, _ in named].index(
-        "fig9_ours_t56_a1")].state),
-        "the t56 ours cell alone != in the grid's launch")
-    step_us = alone_ms * 1e3 / alone_steps
+    plain_grid_ms = plain_us_step * runs["smem"]["steps"] / 1e3
+    # the slowest cells of each route, by the kernel's own nanoseconds
+    for route, run in runs.items():
+        order = sorted(range(len(names)), key=lambda i: -run["cell_ns"][i])
+        run["slowest"] = [dict(
+            cell=names[i], steps=run["cell_steps"][i],
+            ns=run["cell_ns"][i],
+            ns_step=run["cell_ns"][i] / max(1, run["cell_steps"][i]))
+            for i in order[:5]]
+        log(f"phase 9: the grid's five slowest cells on {route}: " + "; ".join(
+            f"{c['cell']} {c['steps']} steps {c['ns'] / 1e6:.3f} ms "
+            f"({c['ns_step']:.1f} ns a step)" for c in run["slowest"]))
+    # one simulation alone on each route: its time per step
+    i56 = names.index("fig9_ours_t56_a1")
+    for route in SIM_ROUTES:
+        run = runs[route or "smem"]
+        alone = sim_run(core, sim_kernel, [specs[i56]], dev, route,
+                        "the cell alone")[0]
+        run["alone_ms"] = sim_kernel.pmwcas_sim_cuda.last_ms
+        run["alone_steps"] = sim_kernel.pmwcas_sim_cuda.last_steps
+        run["alone_ns"] = int(sim_kernel.pmwcas_sim_cuda.last_out[
+            0, sim_kernel.O_NS])
+        run["step_us"] = run["alone_ms"] * 1e3 / run["alone_steps"]
+        check(not sim_diff(alone.state, results[i56].state),
+              f"the t56 ours cell alone on {route or 'smem'} != in the "
+              f"grid's launch")
     # the latency of one dependent load (the PMwCAS kernel's probe): the
     # simulator's own kind (L1 cached) through a 16 KiB chain, and L2's
     # (__ldcg) through a 4 MiB one; each the slope over `trips` loads of
@@ -2922,32 +3090,50 @@ def sim_grid(core, pm, sim_kernel, pm_kernel, dev, seed: int) -> dict:
     floor_us = STEP_DEP_LOADS * load_us
     n_bytes = sum(sim_bytes(s[0], r.state) for s, r in zip(specs, results))
     bound_ms = n_bytes / H100_BYTES_PER_S * 1e3
+    longest = max(runs["smem"]["cell_steps"])
+    latency_bound_ms = longest * floor_us / 1e3
+    sm, gl = runs["smem"], runs["global"]
     log(f"phase 9: Figs. 9-10 grid, {len(specs)} simulations at "
         f"{FIG_WORDS} words, {FIG_STEPS} steps, max_ops {FIG_MAX_OPS}, seed "
-        f"{FIG_SEED}, drained: ONE launch, {grid_ms:.3f} ms of stream time "
-        f"(CUDA events) for {grid_steps} steps ({wall:.3f} s wall with "
-        f"state set-up and copies); plain version {plain_us_step:.3f} us a "
-        f"step over four full-size cells ({plain_steps} steps, "
-        f"{plain_s:.3f} s; each == the grid's kernel result bit for bit), "
-        f"so the grid extrapolates to {plain_grid_ms:.1f} ms on the plain "
-        f"version; ours/original at t = 56, alpha = 1: {ratio:.4f}x Mops")
-    log(f"phase 9: one simulation alone (fig9_ours_t56_a1): "
-        f"{alone_ms:.3f} ms for {alone_steps} steps = {step_us:.4f} us a "
-        f"step; latency floor {STEP_DEP_LOADS} dependent loads x "
+        f"{FIG_SEED}, drained: ONE launch a route, smem {sm['ms']:.3f} ms, "
+        f"global {gl['ms']:.3f} ms of stream time (CUDA events) for "
+        f"{sm['steps']} steps ({sm['wall_s']:.3f} / {gl['wall_s']:.3f} s "
+        f"wall with state set-up and copies), the two equal bit for bit; "
+        f"plain version {plain_us_step:.3f} us a step over four full-size "
+        f"cells ({plain_steps} steps, {plain_s:.3f} s; each == both "
+        f"routes' results bit for bit), so the grid extrapolates to "
+        f"{plain_grid_ms:.1f} ms on the plain version; ours/original at t "
+        f"= 56, alpha = 1: {ratio:.4f}x Mops")
+    for route, run in runs.items():
+        log(f"phase 9: one simulation alone (fig9_ours_t56_a1) on {route}: "
+            f"{run['alone_ms']:.3f} ms for {run['alone_steps']} steps = "
+            f"{run['step_us']:.4f} us a step ({run['alone_ns']} ns in the "
+            f"kernel)")
+    log(f"phase 9: latency floor {STEP_DEP_LOADS} dependent loads x "
         f"{load_us:.4f} us (an L1 hit: the probe's slope of device time "
         f"over {trips} dependent 4-byte loads through a 16 KiB chain) = "
-        f"{floor_us:.4f} "
-        f"us ({STEP_DEP_LOADS * lat['l2']:.4f} us with every load from L2, "
-        f"{lat['l2']:.4f} us each); the grid's bytes bound "
+        f"{floor_us:.4f} us a step ({STEP_DEP_LOADS * lat['l2']:.4f} us "
+        f"with every load from L2, {lat['l2']:.4f} us each); the grid's "
+        f"latency bound {latency_bound_ms:.3f} ms (its longest simulation, "
+        f"{longest} steps, x the floor), its bytes bound "
         f"{bound_ms * 1e3:.3f} us ({n_bytes} bytes at "
         f"{H100_BYTES_PER_S:.3g} B/s)")
-    return dict(cells=len(specs), grid_ms=grid_ms, grid_steps=grid_steps,
-                wall_s=wall, plain_us_step=plain_us_step,
-                plain_grid_ms=plain_grid_ms, held=held, ratio=ratio,
-                step_us=step_us, alone_steps=alone_steps, err=worst,
-                load_us=load_us, l2_load_us=lat["l2"], floor_us=floor_us,
-                bound_ms=bound_ms,
-                n_bytes=n_bytes,
+    routes = {route: dict(
+        grid_ms=run["ms"], wall_s=run["wall_s"], step_us=run["step_us"],
+        alone_ms=run["alone_ms"], alone_steps=run["alone_steps"],
+        alone_ns=run["alone_ns"], slowest=run["slowest"],
+        cell_ns={n: v for n, v in zip(names, run["cell_ns"])})
+        for route, run in runs.items()}
+    return dict(cells=len(specs), grid_ms=sm["ms"], grid_steps=sm["steps"],
+                global_grid_ms=gl["ms"], wall_s=sm["wall_s"],
+                plain_us_step=plain_us_step, plain_grid_ms=plain_grid_ms,
+                held=held, ratio=ratio, step_us=sm["step_us"],
+                global_step_us=gl["step_us"],
+                alone_steps=sm["alone_steps"], err=worst, load_us=load_us,
+                l2_load_us=lat["l2"], floor_us=floor_us, bound_ms=bound_ms,
+                latency_bound_ms=latency_bound_ms, longest_steps=longest,
+                n_bytes=n_bytes, routes=routes,
+                cell_steps={n: v for n, v in zip(names, sm["cell_steps"])},
                 t56_a1={n: cells[n] for n in cells if n.endswith("t56_a1")})
 
 
@@ -2963,16 +3149,22 @@ def sim_phase(core, pm, st, sim_kernel, pm_kernel, dev, seed: int) -> dict:
     sim_kernel.reset_counts()
     err = sim_kernel_vs_plain(core, sim_kernel, dev)
     crash = sim_crash_sweep(core, pm, sim_kernel, dev)
+    backend = sim_backend_modes(core, pm, sim_kernel, dev, seed)
     diff = sim_struct_differential(st, dev, seed)
-    before = sim_kernel.pmwcas_sim_cuda.launches
+    before = dict(sim_kernel.pmwcas_sim_cuda.route_launches)
     grid = sim_grid(core, pm, sim_kernel, pm_kernel, dev, seed)
+    routes = dict(sim_kernel.pmwcas_sim_cuda.route_launches)
+    grid_routes = {r: routes[r] - before[r] for r in routes}
+    check(grid_routes == {"smem": 2, "global": 2},
+          f"the grid and the cell alone took {grid_routes} launches by "
+          "route, not 2 on smem (the plan's) and 2 on global (forced)")
     launches = sim_kernel.pmwcas_sim_cuda.launches
-    check(launches - before == 2, "the grid and the cell alone took "
-          f"{launches - before} launches, not 2")
-    log("kernels: " + json.dumps({"pmwcas_sim phase 9": launches}))
+    log("kernels: " + json.dumps({"pmwcas_sim phase 9": launches,
+                                  "routes": routes}))
     log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
     return dict(err=max(err, crash["err"], grid["err"]), crash=crash,
-                differential=diff, grid=grid, launches=launches)
+                backend=backend, differential=diff, grid=grid,
+                launches=launches, routes=routes)
 
 
 # ---------------------------------------------------------------------------
@@ -3166,9 +3358,11 @@ def chaos_phase(chaos, obs, pm_kernel, sim_kernel, dev, seed: int) -> dict:
 
     # (c) the simulator kernel under chaos, card == CPU
     sim_sc = next(sc for sc in scenarios if sc.family == "sim_native")
-    driver, sim_launches, card, cpu, sim_s, sim_busy = chaos_on_card(
-        chaos, sim_sc, dev, sim_kernel.reset_counts,
-        lambda: sim_kernel.pmwcas_sim_cuda.launches)
+    driver, (sim_launches, sim_routes), card, cpu, sim_s, sim_busy = \
+        chaos_on_card(chaos, sim_sc, dev, sim_kernel.reset_counts,
+                      lambda: (sim_kernel.pmwcas_sim_cuda.launches,
+                               dict(sim_kernel.pmwcas_sim_cuda
+                                    .route_launches)))
     log(chaos_line(card, sim_s))
     bad = chaos_mismatch(card, cpu)
     check(not bad, f"sim_native: card != CPU in {bad}")
@@ -3179,13 +3373,13 @@ def chaos_phase(chaos, obs, pm_kernel, sim_kernel, dev, seed: int) -> dict:
           f"sim_native: {sim_launches} simulator launches for {rounds} "
           "shard rounds")
     log(f"phase 10 (c): {sim_launches} simulator launches for {rounds} "
-        "shard rounds; device busy share "
+        f"shard rounds (by route {sim_routes}); device busy share "
         + (f"{sim_busy:.4f}" if sim_busy is not None else
            "not measured (the profiler saw no device time)"))
     wall = time.perf_counter() - t0
     log(f"phase 10 took {wall:.1f} s")
     return dict(sweep=sweep, storm=storm, sim=dict(
-        launches=sim_launches, rounds=rounds, wall_s=sim_s,
+        launches=sim_launches, routes=sim_routes, rounds=rounds, wall_s=sim_s,
         busy_share=sim_busy, ops_per_s=card.ops_per_s,
         p99_latency_us=card.p99_latency_us), wall_s=wall)
 
@@ -5606,18 +5800,28 @@ def main(argv=None) -> int:
         "name": "pmwcas_sim", "route": "cuda",
         "source": "src/repro_torch/csrc/pmwcas_sim.cu",
         "replaces": "src/repro/core/sim.py:175",
-        "launches": sim["launches"], "grid_launches": 1,
+        "launches": sim["launches"], "route_launches": sim["routes"],
+        "grid_launches": 1, "grid_route": "smem",
         "differential_launches": durable["differential"]["sim_launches"],
+        "differential_route_launches": durable["differential"][
+            "sim_routes"],
         "tree_sim_launches": tree["differential"]["sim_launches"],
+        "tree_sim_route_launches": tree["differential"]["sim_routes"],
         "chaos_sim_native_launches": chaos_run["sim"]["launches"],
+        "chaos_sim_native_route_launches": chaos_run["sim"]["routes"],
         "max_abs_err": sim["err"],
-        "ms": grid["grid_ms"], "grid_cells": grid["cells"],
-        "grid_steps": grid["grid_steps"],
+        "ms": grid["grid_ms"], "global_route_ms": grid["global_grid_ms"],
+        "grid_cells": grid["cells"], "grid_steps": grid["grid_steps"],
         "plain_ms": grid["plain_grid_ms"],
         "plain_ms_is": "extrapolated from four full-size cells",
         "plain_us_step": grid["plain_us_step"],
         "bound_ms": grid["bound_ms"], "bound_by": "bytes",
-        "step_us": grid["step_us"], "step_floor_us": grid["floor_us"],
+        "latency_bound_ms": grid["latency_bound_ms"],
+        "step_us": grid["step_us"],
+        "global_route_step_us": grid["global_step_us"],
+        "step_floor_us": grid["floor_us"],
+        "slowest_cells": {r: v["slowest"]
+                          for r, v in grid["routes"].items()},
         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Run chip_smoke.py's simulator phase (phase 9) alone.
 
-``chip_smoke.sim_phase``: the simulator kernel against its plain version
-on the whole state, every crash point of a short hot schedule, the
-hash-map differential with the simulator, and the Figs. 9-10 grid at
-1,000,000 words in one launch, at the smoke's own constants::
+``chip_smoke.sim_phase``: the simulator kernel on both of its routes
+(``smem`` by the plan, ``global`` forced) against its plain version on
+the whole state, every crash point of a short hot schedule,
+``SimBackend``'s mode, the hash-map differential with the simulator, and
+the Figs. 9-10 grid at 1,000,000 words in one launch a route with its
+five slowest cells, at the smoke's own constants::
 
     python3 scripts/sim_cell.py
 

@@ -6,7 +6,8 @@ optionally *drains* in-flight operations so the memory reaches quiescence
 (every word payload-tagged, cache == pmem) — the precondition for the exact
 sum-invariant checks in the tests.  `run_sims` runs a list of independent
 simulations (grid cells, crash points, seeds) at once: on a CUDA device
-in ONE launch of the Hopper kernel (``csrc/pmwcas_sim.cu``), on the CPU
+in ONE launch of the Hopper kernel (``csrc/pmwcas_sim.cu``, on the route
+its plan gives: the state in shared memory where it fits), on the CPU
 one after another through the plain version (``engine.Machine``).  Its
 results equal one `run_sim` / `run_until` a simulation.
 
@@ -99,9 +100,12 @@ def run_plain(job: SimJob) -> np.ndarray:
     return out
 
 
-def run_jobs(jobs: Sequence[SimJob]) -> np.ndarray:
+def run_jobs(jobs: Sequence[SimJob], *,
+             route: Optional[str] = None) -> np.ndarray:
     """Run simulations on their states' device: CUDA tensors in one launch
-    of the kernel (no fallback), CPU tensors through the plain version.
+    of the kernel (no fallback) on the route its plan gives or on
+    ``route`` (``"smem"`` / ``"global"``, forced for tests and probes),
+    CPU tensors through the plain version (which takes no route).
     Returns the ``[len(jobs), OUT_LEN]`` outputs."""
     if not jobs:
         return np.zeros((0, OUT_LEN), np.int64)
@@ -109,7 +113,10 @@ def run_jobs(jobs: Sequence[SimJob]) -> np.ndarray:
     if len(devices) != 1:
         raise ValueError(f"one launch runs on one device, got {devices}")
     if devices.pop().type == "cuda":
-        return sim_kernel.pmwcas_sim_cuda(jobs)
+        return sim_kernel.pmwcas_sim_cuda(jobs, route)
+    if route is not None:
+        raise ValueError(f"route {route!r} is the kernel's; CPU states run "
+                         "the plain version")
     for job in jobs:
         sim_kernel.check_job(job, torch.device("cpu"))
     return np.stack([run_plain(job) for job in jobs])
@@ -221,14 +228,15 @@ def _schedule(cfg: SimConfig, schedule) -> np.ndarray:
 
 
 def run_sims(specs: Sequence[SimSpec], *,
-             device: Union[str, torch.device] = "cuda") -> List[SimResult]:
+             device: Union[str, torch.device] = "cuda",
+             route: Optional[str] = None) -> List[SimResult]:
     """Run independent simulations, each ``(cfg, ops, schedule, drain,
     cut)``: ``ops``/``schedule`` as in :func:`run_sim` (``None``
     generates them from ``cfg``), ``cut`` as ``run_until``'s ``n_steps``
     (``None``: the whole schedule).  On ``"cuda"`` (the default) they run
     in one launch of the Hopper kernel, on ``"cpu"`` through the plain
     version; the results equal one :func:`run_sim` / :func:`run_until` a
-    simulation."""
+    simulation.  ``route`` forces the kernel's route (:func:`run_jobs`)."""
     dev = _device(device)
     jobs = []
     for cfg, ops, schedule, drain, cut in specs:
@@ -237,7 +245,7 @@ def run_sims(specs: Sequence[SimSpec], *,
                            _schedule(cfg, schedule),
                            cut=(1 << 62) if cut is None else int(cut),
                            drain=bool(drain)))
-    out = run_jobs(jobs)
+    out = run_jobs(jobs, route=route)
     return [SimResult(cfg=job.cfg, state=state_to_arrays(job.state),
                       drained=job.drain,
                       drain_rounds=int(o[O_ROUNDS]))
@@ -248,31 +256,36 @@ def run_sim(cfg: SimConfig,
             ops: Optional[np.ndarray] = None,
             schedule: Optional[np.ndarray] = None,
             drain: bool = True, *,
-            device: Union[str, torch.device] = "cuda") -> SimResult:
+            device: Union[str, torch.device] = "cuda",
+            route: Optional[str] = None) -> SimResult:
     """Run the simulation (deterministic given cfg/ops/schedule)."""
-    return run_sims([(cfg, ops, schedule, drain, None)], device=device)[0]
+    return run_sims([(cfg, ops, schedule, drain, None)], device=device,
+                    route=route)[0]
 
 
 def run_until(cfg: SimConfig, n_steps: int,
               ops: Optional[np.ndarray] = None,
               schedule: Optional[np.ndarray] = None, *,
-              device: Union[str, torch.device] = "cuda") -> SimResult:
+              device: Union[str, torch.device] = "cuda",
+              route: Optional[str] = None) -> SimResult:
     """Run exactly the first n_steps schedule slots WITHOUT draining (for
     crash studies); slots at n_steps and after are no-ops, as the
     reference masks them to -1."""
     return run_sims([(cfg, ops, schedule, False, n_steps)],
-                    device=device)[0]
+                    device=device, route=route)[0]
 
 
 def run_state(cfg: SimConfig, state: Dict[str, torch.Tensor],
               schedule: Optional[np.ndarray] = None, *, drain: bool = True,
-              cut: Optional[int] = None) -> SimResult:
+              cut: Optional[int] = None,
+              route: Optional[str] = None) -> SimResult:
     """Continue a simulation from ``state`` (tensors on one device, e.g.
     from :func:`repro_torch.core.model.state_from_arrays`; updated in
-    place) over ``schedule``, on that device."""
+    place) over ``schedule``, on that device (``route`` as in
+    :func:`run_jobs`)."""
     job = SimJob(cfg.validate(), state, _schedule(cfg, schedule),
                  cut=(1 << 62) if cut is None else int(cut),
                  drain=bool(drain))
-    o = run_jobs([job])[0]
+    o = run_jobs([job], route=route)[0]
     return SimResult(cfg=cfg, state=state_to_arrays(state), drained=drain,
                      drain_rounds=int(o[O_ROUNDS]))

@@ -713,6 +713,128 @@ def test_sim_kernel_continues_a_carried_state(cuda):
     _sim_states_equal(got, sim_core.run_sim(cfg, device="cpu"))
 
 
+def test_sim_kernel_out_len_and_smem_bytes(cuda):
+    assert sim_kernel.kernel_out_len() == sim_kernel.OUT_LEN
+    for T, k in ((56, 3), (1, 1), (1024, 2), (4096, 3), (4, 32)):
+        cfg = sim_core.SimConfig(n_threads=T, k=k, n_words=1 << 12)
+        assert sim_kernel.kernel_smem_bytes(cfg) == sim_kernel.smem_bytes(cfg)
+
+
+def _route_run(route, fn):
+    """``fn()``, checked to take exactly one launch, on ``route``."""
+    before = dict(sim_kernel.pmwcas_sim_cuda.route_launches)
+    out = fn()
+    after = sim_kernel.pmwcas_sim_cuda.route_launches
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == route) for r in after}
+    return out
+
+
+@pytest.mark.parametrize("route", sim_kernel.ROUTES)
+@pytest.mark.parametrize("case", range(len(chip_smoke.SIM_CASES)),
+                         ids=lambda i: "{}-{}".format(
+                             chip_smoke.SIM_CASES[i][0], i))
+def test_sim_kernel_route_matches_plain(cuda, case, route):
+    """Each forced route, drained and cut at ``SIM_CUT``: every state field
+    bit for bit, and the kernel's own nanoseconds a simulation."""
+    specs = chip_smoke.sim_specs(sim_core, [chip_smoke.SIM_CASES[case]])
+    got = _route_run(route, lambda: sim_core.run_sims(specs, device=cuda,
+                                                      route=route))
+    assert (sim_kernel.pmwcas_sim_cuda.last_out[:, sim_kernel.O_NS] > 0).all()
+    for g, want in zip(got, sim_core.run_sims(specs, device="cpu")):
+        _sim_states_equal(g, want)
+
+
+@pytest.mark.parametrize("route", sim_kernel.ROUTES)
+def test_sim_kernel_route_continues_a_carried_state(cuda, route):
+    """``run_state`` on each route from a state at step n equals the run
+    to step N."""
+    cfg = sim_core.SimConfig(algorithm="original", n_threads=8, n_words=32,
+                             k=2, n_steps=3000, max_ops=32, seed=7,
+                             alpha=1.0)
+    sched = sim_core.generate_schedule(cfg)
+    mid = sim_core.run_until(cfg, 1000, device="cpu")
+    st = sim_core.state_from_arrays(cfg, mid.state, device=cuda)
+    got = _route_run(route, lambda: sim_core.run_state(
+        cfg, st, sched[1000:], drain=True, route=route))
+    _sim_states_equal(got, sim_core.run_sim(cfg, device="cpu"))
+
+
+@pytest.mark.parametrize("route", sim_kernel.ROUTES)
+@pytest.mark.parametrize("T,k,cap", chip_smoke.BACKEND_CASES[:4],
+                         ids=lambda v: str(v))
+def test_sim_backend_mode_route_matches_plain(cuda, T, k, cap, route):
+    """``MODE_BACKEND`` on each route: outputs (error, thread, steps) and
+    the whole state after, the attempt-cap exits (cap 2: the read phase,
+    12: an attempt) included."""
+    cpu = chip_smoke.backend_jobs(sim_core, sim_kernel, "cpu", T, k, cap, 0)
+    want = sim_core.sim.run_jobs(cpu)
+    jobs = chip_smoke.backend_jobs(sim_core, sim_kernel, cuda, T, k, cap, 0)
+    got = _route_run(route, lambda: sim_core.sim.run_jobs(jobs, route=route))
+    cols = [sim_kernel.O_ROUNDS, sim_kernel.O_ERR, sim_kernel.O_ERR_THREAD,
+            sim_kernel.O_STEPS]
+    assert np.array_equal(got[:, cols], want[:, cols])
+    for a, b in zip(jobs, cpu):
+        assert not chip_smoke.sim_diff(sim_core.state_to_arrays(a.state),
+                                       sim_core.state_to_arrays(b.state))
+
+
+@pytest.mark.parametrize("route", sim_kernel.ROUTES)
+@pytest.mark.parametrize("alg", ["ours", "ours_df", "original", "pcas"])
+def test_sim_backend_route_on_card(cuda, alg, route, monkeypatch):
+    """``SimBackend`` with its launches forced onto ``route``: verdicts,
+    values and counters equal the CPU's."""
+    from repro_torch.pmwcas import backends
+    real = backends.run_jobs
+
+    def forced(jobs):
+        on_card = jobs[0].state["pc"].is_cuda
+        return real(jobs, route=route if on_card else None)
+
+    monkeypatch.setattr(backends, "run_jobs", forced)
+    k = 1 if alg == "pcas" else 3
+    init, ops = increment_batch(64, k, 24, seed=5)
+    outs = []
+    for device in (cuda, "cpu"):
+        b = SimBackend(64, algorithm=alg, values=init, device=device)
+        verdicts = [r.success for r in b.execute(ops)]
+        if device is cuda:
+            assert sim_kernel.pmwcas_sim_cuda.last_route == route
+        outs.append((verdicts, b.values().tolist(), b.counters.tolist()))
+    assert outs[0] == outs[1]
+
+
+def test_sim_kernel_wide_state_goes_global(cuda):
+    """States past the shared memory of a block: the plan sends the launch
+    to ``global`` (a SimBackend round of 1,024 ops and a scheduled
+    simulation of 1,024 threads beside a small one), and forcing ``smem``
+    raises before anything launches."""
+    T, k, cap = chip_smoke.BACKEND_CASES[4]
+    cpu = chip_smoke.backend_jobs(sim_core, sim_kernel, "cpu", T, k, cap, 0)
+    want = sim_core.sim.run_jobs(cpu)
+    jobs = chip_smoke.backend_jobs(sim_core, sim_kernel, cuda, T, k, cap, 0)
+    assert sim_kernel.plan(jobs) == ("global", 0)
+    got = _route_run("global", lambda: sim_core.sim.run_jobs(jobs))
+    assert np.array_equal(got[:, :sim_kernel.O_NS],
+                          want[:, :sim_kernel.O_NS])
+    for a, b in zip(jobs, cpu):
+        assert not chip_smoke.sim_diff(sim_core.state_to_arrays(a.state),
+                                       sim_core.state_to_arrays(b.state))
+    wide = sim_core.SimConfig(algorithm="ours", n_threads=1024, k=3,
+                              n_words=4096, n_steps=6000, max_ops=4, seed=2)
+    small = sim_core.SimConfig(algorithm="original", n_threads=4, k=2,
+                               n_words=64, n_steps=800, max_ops=8, seed=2)
+    specs = [(wide, None, None, True, None), (small, None, None, False, 500)]
+    got = _route_run("global",
+                     lambda: sim_core.run_sims(specs, device=cuda))
+    for g, w in zip(got, sim_core.run_sims(specs, device="cpu")):
+        _sim_states_equal(g, w)
+    before = sim_kernel.pmwcas_sim_cuda.launches
+    with pytest.raises(ValueError, match="smem route takes at most"):
+        sim_core.run_sims(specs, device=cuda, route="smem")
+    assert sim_kernel.pmwcas_sim_cuda.launches == before
+
+
 @pytest.mark.parametrize("alg", ["ours", "ours_df", "original", "pcas"])
 def test_sim_backend_stop_mode_on_card(cuda, alg):
     k = 1 if alg == "pcas" else 3
