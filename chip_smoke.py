@@ -211,7 +211,8 @@ Phases, in order; any failure exits non-zero:
    sequential one at decode) with a profiled prefill and decode window
    split by block; (d) ``train_xlstm_125m_s4096``: phase 11 (c)'s cell on
    xlstm-125m at its published size with one timed step
-   (``XLSTM_TRAIN_TIMED``; the AdamW schedule of every training cell;
+   (``XLSTM_TRAIN_TIMED``; the warm-up step profiled; the AdamW
+   schedule of every training cell;
    no flash launch; MFU over the blocks' projections and the head); (e) ``serve_jamba_v01_L16``: phase
    5's traffic on jamba-v0.1 at its published width cut to 16 layers (2
    ``tc`` + 64 ``decode`` flash launches, the MoE paths), the flash op at
@@ -244,7 +245,31 @@ Phases, in order; any failure exits non-zero:
    launches with the log-sum-exp, every master changed, MFU over the
    frames' and the tokens' products); each form's flash launches in
    the three cells counted on their paths (``launches_by_form``) and
-   held to what (a)'s shape list expects.
+   held to what (a)'s shape list expects;
+15. the int8 KV cache (``models/attention.py``: ``_quant``,
+   ``cache_update``, ``_sdpa_chunked_quant``; qwen1.5-32b) -- (a)
+   ``_quant`` card against CPU bit for bit on every bf16 magnitude from
+   0x3a80 to 0x4480 of either sign (the 420 rows whose ``max|x| /
+   scale`` is 127.5 saturate to 127, or stay -128) and on random keys in
+   bf16 and f32, and ``_sdpa_chunked_quant`` card against CPU on the
+   same int8 cache at the cells' forms (``INT8_ATTN_CASES``: qwen's
+   decode in one chunk and in padded chunks, its prefill cut, llama3's
+   GQA decode, a window with a softcap) within ``INT8_ATTN_TOL``, with
+   planted faults on the CPU's side read above every limit (the cast
+   without its clamp, one int8 value flipped); (b) the llama3-8b and
+   qwen1.5-32b smoke configs served with an int8 cache card against CPU
+   (f32 within 1e-3, bf16 within ``SERVE_BF16_TOL``; no flash launch),
+   the same faults planted in the CPU's serve read above the limits; (c)
+   phase 5's cell with a bf16 and with an int8 cache (llama3-8b, the
+   same seed): cache bytes, prefill s, decode ms a step, the prefill
+   logits' correlation and the greedy tokens' agreement, no flash launch
+   with int8; (d) ``serve_qwen15_32b_int8``: qwen1.5-32b at its
+   published width and depth with the cache ``cell_model_config`` picks
+   for its decode cells (int8), phase 5's traffic on ``INT8_REQUESTS``
+   proposed requests (admission equal to the plain version's, one
+   ``smem`` launch, no flash launch, finite logits), the memory reckoned
+   beside the measured peaks, and a profiled prefill and decode window
+   split into the int8 attention, the matrix products and the rest.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``{"kernels": [...]}`` record, and the line before that the
@@ -1264,13 +1289,23 @@ def layer_counts(cfg) -> collections.Counter:
 
 def flash_calls(cfg) -> tuple:
     """``(calls over a prompt, calls a decode step)`` of the flash op in
-    one forward: one an attention layer, and for an encoder-decoder also
-    one a decoder layer's cross-attention and, over the prompt only, one
-    an encoder layer."""
+    one forward: one an attention layer (none where the cache is int8:
+    those layers attend through the plain chunk-dequantizing path), and
+    for an encoder-decoder also one a decoder layer's cross-attention
+    and, over the prompt only, one an encoder layer."""
     n = layer_counts(cfg)["attn"]
+    cached = 0 if cfg.kv_dtype == "int8" else n
     if cfg.enc_dec:
-        return 2 * n + cfg.n_enc_layers, 2 * n
-    return n, n
+        return cached + n + cfg.n_enc_layers, cached + n
+    return cached, cached
+
+
+def kv_position_bytes(cfg) -> int:
+    """Bytes one position of the decode cache takes over every attention
+    layer: K and V in bf16, or in int8 beside their float32 scales."""
+    heads = layer_counts(cfg)["attn"] * cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    return heads * (2 * hd + 2 * 4 if cfg.kv_dtype == "int8" else 2 * hd * 2)
 
 
 def n_norm_weights(cfg) -> int:
@@ -1290,11 +1325,13 @@ def n_params_gap(cfg) -> int:
     a Mamba layer's ``conv_b`` and ``dt_proj_b``; an mLSTM layer's
     gates and ``out_norm`` (the formula counts ``4 d_in^2`` where the
     block holds ``wq wk wv``); an sLSTM layer's recurrent matrices and
-    biases (the formula counts ``2 D d_in + 4 d_in^2``); a frontend's
-    ``frontend_proj``."""
+    biases (the formula counts ``2 D d_in + 4 d_in^2``); an attention
+    layer's QKV biases (qwen1.5); a frontend's ``frontend_proj``."""
     D, H = cfg.d_model, cfg.n_heads
     gap = 0
     for spec in cfg.unit:
+        if spec.kind == "attn" and cfg.qkv_bias:
+            gap += (H + 2 * cfg.n_kv_heads) * cfg.resolved_head_dim
         if spec.kind == "mamba":
             gap += 2 * (cfg.mamba.expand * D)
         elif spec.kind in ("mlstm", "slstm"):
@@ -1306,12 +1343,13 @@ def n_params_gap(cfg) -> int:
     return gap * cfg.n_units + proj
 
 
-def plain_grants(serve_mod, pm_ref, seed: int, dev) -> torch.Tensor:
-    """The plain ``reserve_slots`` verdicts (``bool[LM_REQUESTS]``) on the
+def plain_grants(serve_mod, pm_ref, seed: int, dev,
+                 requests: int = LM_REQUESTS) -> torch.Tensor:
+    """The plain ``reserve_slots`` verdicts (``bool[requests]``) on the
     serve cells' page proposals, drawn as ``serve`` draws them."""
     pages_per_req = -(-(LM_PROMPT + LM_STEPS) // LM_PAGE)
     r = torch.as_tensor(serve_mod.propose_pages(
-        LM_REQUESTS, pages_per_req, LM_PAGES, np.random.default_rng(seed)),
+        requests, pages_per_req, LM_PAGES, np.random.default_rng(seed)),
         device=dev)
     _, granted = pm_ref.pmwcas_apply(
         torch.ones(LM_PAGES, dtype=torch.int32, device=dev), r,
@@ -1358,24 +1396,31 @@ def launches_by_form(attn_mod, fa_kernel):
 
 def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
              pm_kernel, seed: int, dev, arch: str = "llama3-8b",
-             tag: str = "phase 5", cfg=None):
+             tag: str = "phase 5", cfg=None, requests: int = LM_REQUESTS,
+             min_admitted: int = 8):
     """``arch`` (or ``cfg``) at full width and depth, random bf16 weights
-    from a seeded generator on the card, served through ``serve``:
-    admission by the PMwCAS kernel, attention by the flash kernel (at
-    every attention layer: ``tc`` at the prefill, ``decode`` at every
-    step).  For an MoE arch also the MoE layer's calls by path (the
-    capacity path at every prefill layer, the dense path at every decode
-    layer) and the share of the prefill's assignments dropped at
-    capacity; the peak memory of the serve."""
+    from a seeded generator on the card, served through ``serve`` to
+    ``requests`` proposed requests: admission by the PMwCAS kernel,
+    attention by the flash kernel (at every attention layer: ``tc`` at
+    the prefill, ``decode`` at every step; no launch for a layer whose
+    cache is int8).  For an MoE arch also the MoE layer's calls by path
+    (the capacity path at every prefill layer, the dense path at every
+    decode layer) and the share of the prefill's assignments dropped at
+    capacity; the peak memory of the build and of the serve, and the
+    greedy tokens."""
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import moe as moe_mod
     cfg = dataclasses.replace(cfg or get_config(arch), attn_impl="pallas")
     counts = layer_counts(cfg)
-    n_attn, n_moe = counts["attn"], counts["ffn_moe"]
+    n_moe = counts["ffn_moe"]
     fa_prompt, fa_step = flash_calls(cfg)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, seed=seed)
     _sync(dev)
+    build_peak = torch.cuda.max_memory_allocated() \
+        if dev.type == "cuda" else 0
     n_params = sum(p.numel() for p in model.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     norms = n_norm_weights(cfg)
@@ -1403,7 +1448,7 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
         f"card, drawn in {time.perf_counter() - t0:.3f} s")
 
     pages_per_req = -(-(LM_PROMPT + LM_STEPS) // LM_PAGE)
-    want = plain_grants(serve_mod, pm_ref, seed, dev)
+    want = plain_grants(serve_mod, pm_ref, seed, dev, requests)
 
     dropped, cross_kv = [], []
     route = moe_mod.route
@@ -1427,7 +1472,7 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
         torch.cuda.reset_peak_memory_stats()
     try:
         with launches_by_form(attn_mod, fa_kernel) as forms:
-            res = serve_mod.serve(cfg, requests=LM_REQUESTS, steps=LM_STEPS,
+            res = serve_mod.serve(cfg, requests=requests, steps=LM_STEPS,
                                   prompt_len=LM_PROMPT, page_size=LM_PAGE,
                                   n_pages=LM_PAGES, device=dev, seed=seed,
                                   model=model)
@@ -1441,11 +1486,11 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
     pm_launches = pm_kernel.pmwcas_apply_cuda.launches
     pm_routes = dict(pm_kernel.pmwcas_apply_cuda.route_launches)
     B = len(res.admitted)
-    log(f"{tag}: admitted {B}/{LM_REQUESTS} requests ({pages_per_req} "
+    log(f"{tag}: admitted {B}/{requests} requests ({pages_per_req} "
         f"pages each of {LM_PAGE} tokens, {LM_PAGES} pages)")
     check(np.array_equal(res.granted, want.cpu().numpy()),
           "admission != the plain reserve_slots on the same proposals")
-    check(B >= 8, f"only {B} requests admitted")
+    check(B >= min_admitted, f"only {B} requests admitted")
     check(res.logits_finite, "non-finite logits")
     check(res.generated.shape == (B, LM_STEPS)
           and (res.generated >= 0).all()
@@ -1480,8 +1525,7 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
                f"dropped {n_drop} of {n_all} assignments at capacity {C} "
                f"({n_drop / n_all:.4f})")
     kv_len = LM_PROMPT + LM_STEPS + cfg.frontend_len   # as serve sizes it
-    kv_bytes = 2 * n_attn * B * cfg.n_kv_heads * kv_len * \
-        cfg.resolved_head_dim * 2
+    kv_bytes = B * kv_len * kv_position_bytes(cfg)
     cross_bytes = (2 * cfg.n_units * B * cfg.n_kv_heads * cfg.frontend_len
                    * cfg.resolved_head_dim
                    * torch.finfo(model.dtype).bits // 8
@@ -1494,8 +1538,8 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
     cross = (f", cross K/V {cross_bytes / 1e9:.2f} GB ({cfg.frontend_len} "
              f"frames, computed once a unit at the prefill)"
              if cfg.enc_dec else "")
-    log(f"{tag}: KV cache bf16 {kv_bytes / 1e9:.2f} GB ({kv_len} "
-        f"positions){cross}, recurrent states "
+    log(f"{tag}: KV cache {cfg.kv_dtype} {kv_bytes / 1e9:.2f} GB "
+        f"({kv_len} positions){cross}, recurrent states "
         f"f32 {state_bytes / 1e9:.3f} GB, peak memory of the serve "
         f"{peak / 1e9:.2f} GB (max_memory_allocated); prefill of "
         f"{B} x {LM_PROMPT} tokens {t['prefill_s']:.3f} s; decode "
@@ -1511,7 +1555,8 @@ def lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
                 pm_launches=pm_launches,
                 pm_routes=pm_routes, timings=t, moe_calls=moe_calls,
                 peak_bytes=peak, kv_bytes=kv_bytes, cross_bytes=cross_bytes,
-                cross_kv_calls=len(cross_kv))
+                cross_kv_calls=len(cross_kv), weight_bytes=n_bytes,
+                build_peak_bytes=build_peak, generated=res.generated)
 
 
 def _visible_pairs(qp, kp) -> int:
@@ -1868,8 +1913,12 @@ def where_time_goes(lm, ft, dev, seed: int, steps: int = 8,
 # phase 7: the durable slice (the paper's persistence, host code)
 # ---------------------------------------------------------------------------
 
-# kernel against durable: [B, K] increment batches and the route each takes
-DIFF_SHAPES = ((1024, 2, "smem"), (256, 16, "smem"), (512, 32, "global"))
+# kernel against durable: [B, K] increment batches and the route each
+# takes.  The global route's batch is cut from [512, 32] to [128, 32]
+# (K = 32 > 16 slots a row takes global at any B): the committer seeds
+# every word with two fsyncs on the card machine's 9p disk, and 16,384
+# words took 186.5 s of the smoke's 1,200 (PR 27)
+DIFF_SHAPES = ((1024, 2, "smem"), (256, 16, "smem"), (128, 32, "global"))
 # durable YCSB-A: 4 hash-map shards; the record count is cut from the ycsb
 # cell's 1,048,576 because a durable snapshot reads every slot file of a
 # shard on every wave (see PERF.md §4)
@@ -4115,7 +4164,8 @@ def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
                transformer, fa_kernel, dev, seed: int, cfg=None,
                name: str = "train_llama3_8b_L8_s4096",
                tag: str = "phase 11 (c)", moe_mod=None,
-               recurrent=(), timed: int = TRAIN_TIMED) -> dict:
+               recurrent=(), timed: int = TRAIN_TIMED,
+               profile_first: bool = False) -> dict:
     """Phase 11 (c): ``train_llama3_8b_L8_s4096`` (or ``name`` at
     ``cfg``) through ``make_train_step`` with remat: one warm-up step and
     ``timed`` timed ones, the flash launches counted over all of
@@ -4123,7 +4173,8 @@ def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
     one on ``tc``), the losses finite, every master changed; step ms
     (median), tokens/s, MFU (:func:`train_flops` over the step time at
     989 TFLOP/s), peak memory; then one more step profiled for the
-    device split.  An arch with a frontend gets seeded frame embeddings
+    device split (with ``profile_first`` the warm-up step is profiled
+    instead, and no step is added).  An arch with a frontend gets seeded frame embeddings
     in every batch (:func:`with_frames`).  With ``moe_mod`` (an MoE config) each step's aux term
     (``aux_loss_weight x sum of the layers' aux / n_layers``, from the
     forward's ``apply_moe`` calls) is logged apart from the
@@ -4164,7 +4215,15 @@ def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
                                      seed + i).items()}
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                params, opt, m = step(params, opt, batch)
+                if i == 0 and profile_first:
+                    stepped = []
+                    prof = train_step_split(
+                        lambda: stepped.append(step(params, opt, batch)),
+                        attn_mod, adamw, transformer, moe_mod, recurrent,
+                        fast=bool(recurrent))
+                    params, opt, m = stepped.pop()
+                else:
+                    params, opt, m = step(params, opt, batch)
                 losses.append(float(m["loss"]))
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
@@ -4199,11 +4258,12 @@ def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
               f"{TRAIN_BATCH * cfg.frontend_len} frames"
               if cfg.enc_dec else "")
     mfu = flops / step_s / H100_BF16_FLOPS
-    batch = {k: torch.as_tensor(v, device=dev) for k, v in
-             with_frames(cfg, stream.next_batch(), seed + 99).items()}
-    prof = train_step_split(lambda: step(params, opt, batch), attn_mod,
-                            adamw, transformer, moe_mod, recurrent,
-                            fast=bool(recurrent))
+    if not profile_first:
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                 with_frames(cfg, stream.next_batch(), seed + 99).items()}
+        prof = train_step_split(lambda: step(params, opt, batch), attn_mod,
+                                adamw, transformer, moe_mod, recurrent,
+                                fast=bool(recurrent))
     busy, wall = prof["busy_us"], prof["wall_us"]
     shares = ", ".join(f"{g} {us / 1e3:.1f} ms ({us / busy:.3f})"
                        for g, us in prof["split"].items()) if busy else \
@@ -4231,7 +4291,9 @@ def train_cell(get_config, TrainModel, adamw, data, steps_mod, attn_mod,
     spans = (f"; device spans by range {json.dumps(prof['range_spans'])}"
              f" (the cross-entropy's backward among the rest)"
              if prof["range_spans"] is not None else "")
-    log(f"{tag}: a profiled step{spans}: device busy {busy / 1e3:.1f} ms of "
+    which = "the warm-up step profiled" if profile_first else \
+        "a profiled step"
+    log(f"{tag}: {which}{spans}: device busy {busy / 1e3:.1f} ms of "
         f"{wall / 1e3:.1f} ms wall, idle share "
         f"{(1 - busy / wall) if busy else float('nan'):.4f}; by group: "
         f"{shares}; clocks, power, temperature {_clocks()}; the largest "
@@ -4808,10 +4870,11 @@ JAMBA_SERVE_BF16_TOL = 0.2
 # (e) jamba at its published width, depth cut from 32 to 16 layers: 32
 # layers are 103 GB of bf16 weights, 16 are 52.1 GB
 JAMBA_SERVE_LAYERS = 16
-# (d) one timed step after the warm-up (and the profiled step): the eager
-# sLSTM loop makes a step the host's, 16-55 s on the H100 machines, and
-# the smoke must finish within its time limit (the whole smoke took
-# 1,049.9 s with four timed steps, PERF.md section 6)
+# (d) one timed step after the warm-up: the eager sLSTM loop makes a step
+# the host's, 16-55 s on the H100 machines, and the smoke must finish
+# within its time limit (the whole smoke took 1,049.9 s with four timed
+# steps, PERF.md section 6).  The warm-up step is the profiled one: a
+# separate profiled step took 64 s more (PERF.md section 6)
 XLSTM_TRAIN_TIMED = 1
 
 
@@ -5186,7 +5249,7 @@ def ssm_phase(serve_mod, build_model, fa_ops, fa_ref, fa_kernel, pm_ref,
                       cfg=get_config(XLSTM_ARCH),
                       name="train_xlstm_125m_s4096", tag="phase 13 (d)",
                       recurrent=[(m, n) for m, n, _ in xlstm_ranges],
-                      timed=XLSTM_TRAIN_TIMED)
+                      timed=XLSTM_TRAIN_TIMED, profile_first=True)
     cell.pop("cfg")
     out["train_xlstm"] = cell
     mark("(d)")
@@ -5571,6 +5634,478 @@ def encdec_phase(serve_mod, build_model, fa_ref, fa_kernel, pm_ref,
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the int8 KV cache (qwen1.5-32b at its published size)
+# ---------------------------------------------------------------------------
+
+INT8_ARCH = "qwen1.5-32b"
+# serve_llama3_8b's traffic but 32 proposed requests, not 128: 13 admitted
+# requests' int8 cache (18.3 GB) does not fit beside qwen1.5-32b's 70.4 GB
+# of weights on one card; 4 of 32 are admitted at seed 0
+INT8_REQUESTS = 32
+INT8_SMALL_ARCHS = ("llama3-8b", "qwen1.5-32b")
+# _sdpa_chunked_quant card against CPU on the same int8 cache: float32
+# sums in another order (2e-5, FA_TOL's); in bf16 one rounding of the
+# float32 output may move by a bf16 ulp (2e-2)
+INT8_ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+INT8_FAULTS = ("wrapped_cast", "flipped_value")
+# bf16 magnitudes 0x3a80-0x4480 (2**-10 to 1024): among them the 420 whose
+# max|x| / scale is 127.5 in bf16
+INT8_MAG_BITS = np.arange(0x3A80, 0x4481, dtype=np.uint32)
+
+
+class Int8Case(NamedTuple):
+    name: str
+    B: int
+    KV: int
+    G: int
+    Sq: int
+    Sk: int
+    hd: int
+    window: int = 0
+    cap: float = 0.0
+    chunk: int = 16384
+    q_block: Optional[int] = None    # None: the port's QUANT_Q_BLOCK
+
+
+# _sdpa_chunked_quant at the cells' forms: qwen1.5-32b's decode over its
+# 2,080-position cache (one chunk, and chunks of 1,024 with the last
+# padded), its prefill cut to 1 request and 8 heads, llama3-8b's GQA
+# decode, and gemma2's window and softcap with short chunks and blocks
+INT8_ATTN_CASES = (
+    Int8Case("qwen_decode", 4, 40, 1, 1, 2080, 128),
+    Int8Case("qwen_decode_chunks", 4, 40, 1, 1, 2080, 128, chunk=1024),
+    Int8Case("qwen_prefill_cut", 1, 8, 1, 512, 2080, 128, chunk=1024),
+    Int8Case("llama3_decode", 13, 8, 4, 1, 2080, 128),
+    Int8Case("gemma2_window_cap", 1, 4, 2, 64, 600, 256, window=128,
+             cap=50.0, chunk=256, q_block=32),
+)
+
+
+def wrapped_quant(x: torch.Tensor):
+    """``models.attention._quant`` without its clamp: the cast wraps a
+    rounded 128 to -128 (the planted fault ``wrapped_cast``)."""
+    scale = torch.maximum(x.abs().amax(dim=-1) / x.new_full((), 127.0),
+                          x.new_full((), 1e-8))
+    return torch.round(x / scale[..., None]).to(torch.int8), scale.float()
+
+
+def flip_one(q: torch.Tensor, pos: int = 0) -> torch.Tensor:
+    """A copy of an int8 tensor ``[..., S, hd]`` with one value negated:
+    the largest of row ``pos`` of its first ``[S, hd]`` slice (of a cache
+    ``[B, KV, S, hd]``: batch 0, head 0, position ``pos``) -- the planted
+    fault ``flipped_value``."""
+    q = q.clone()
+    row = q.view(-1, *q.shape[-2:])[0, pos]
+    j = int(row.int().abs().argmax())
+    row[j] = max(-127, min(127, -int(row[j])))
+    return q
+
+
+@contextlib.contextmanager
+def int8_planted(attn_mod, fault: Optional[str]):
+    """Within the block ``attn_mod`` quantizes with the wrapped cast
+    (``wrapped_cast``) or flips one int8 value of the first value row
+    written to an int8 cache (``flipped_value``: the largest of batch 0,
+    head 0, at that write's first position, in the first layer)."""
+    quant, update = attn_mod._quant, attn_mod.cache_update
+    flipped = []
+
+    def flipping_update(layer_cache, k_new, v_new, index):
+        out = update(layer_cache, k_new, v_new, index)
+        if not flipped and layer_cache["v"].dtype == torch.int8:
+            v = layer_cache["v"][:, :, index:]
+            v.copy_(flip_one(v))
+            flipped.append(index)
+        return out
+
+    if fault == "wrapped_cast":
+        attn_mod._quant = wrapped_quant
+    elif fault == "flipped_value":
+        attn_mod.cache_update = flipping_update
+    try:
+        yield
+    finally:
+        attn_mod._quant, attn_mod.cache_update = quant, update
+
+
+def int8_rows(sign: float, hd: int, seed: int) -> np.ndarray:
+    """One row a magnitude of ``INT8_MAG_BITS``: that magnitude with
+    ``sign`` at column 3, the rest uniform within 0.9 of it."""
+    mag = (INT8_MAG_BITS << 16).view(np.float32)
+    rng = np.random.default_rng(seed)
+    rows = (rng.uniform(-0.9, 0.9, (len(mag), hd)) * mag[:, None]
+            ).astype(np.float32)
+    rows[:, 3] = sign * mag
+    return rows
+
+
+def int8_quant_vs_cpu(attn_mod, dev, seed: int) -> dict:
+    """Phase 15 (a): ``_quant`` on the card against the CPU, bit for bit
+    (int8 values and float32 scales), on every bf16 magnitude of
+    ``INT8_MAG_BITS`` of either sign (the 127.5 rows saturate: 127 for a
+    positive maximum, -128 for a negative one) and on random keys of the
+    qwen cell's decode write ``[4, 40, 1, 128]`` and prefill write cut to
+    ``[4, 40, 64, 128]`` in bf16 and f32; the planted faults on the
+    CPU's side differ in rows."""
+    rng = np.random.default_rng(seed + 15)
+    inputs = {f"bf16_magnitudes_{name}": torch.from_numpy(
+        int8_rows(sign, 128, seed)).bfloat16()
+        for name, sign in (("pos", 1.0), ("neg", -1.0))}
+    for shape in ((4, 40, 1, 128), (4, 40, 64, 128)):
+        x = rng.standard_normal(shape) * rng.uniform(0.01, 30, shape[:-1])[
+            ..., None]
+        for dt in (torch.bfloat16, torch.float32):
+            inputs[f"{str(dt)[6:]}_{list(shape)}"] = torch.from_numpy(
+                x.astype(np.float32)).to(dt)
+    out = {}
+    for name, x in inputs.items():
+        q_cpu, s_cpu = attn_mod._quant(x)
+        q, s = attn_mod._quant(x.to(dev))
+        q, s = q.cpu(), s.cpu()
+        rows = int((q != q_cpu).any(-1).sum() + (s != s_cpu).sum())
+        check(rows == 0, f"_quant {name}: {rows} rows differ card vs CPU")
+        mags = x.abs().amax(-1, keepdim=True)
+        half = int(((x.abs() == mags) & (x.abs() / (mags / 127.0)
+                                        == 127.5)).any(-1).sum())
+        faults = {"wrapped_cast": int((wrapped_quant(x)[0] != q).any(-1)
+                                      .sum()),
+                  "flipped_value": int((flip_one(q_cpu) != q).any(-1)
+                                       .sum())}
+        check(faults["flipped_value"] > 0, f"_quant {name}: a flipped "
+              f"value not seen")
+        if name.startswith("bf16_magnitudes"):
+            check(half == 840 // 2, f"{name}: {half} rows at 127.5, not 420")
+            at = (x.abs() / (mags / 127.0) == 127.5).any(-1)
+            want = 127 if name.endswith("pos") else -128
+            check(bool((q[at].int() == want).any(-1).all()),
+                  f"{name}: a 127.5 row does not saturate to {want}")
+            check((faults["wrapped_cast"] > 0) == name.endswith("pos"),
+                  f"{name}: the wrapped cast differs in "
+                  f"{faults['wrapped_cast']} rows")
+        out[name] = dict(rows=int(x.numel() // x.shape[-1]), differ=rows,
+                         rows_at_127_5=half, faults=faults)
+    log(f"phase 15 (a): _quant card == CPU bit for bit (int8 values and "
+        f"f32 scales) on {sum(r['rows'] for r in out.values())} rows; rows "
+        f"whose max|x| / scale is 127.5 and the rows each planted fault "
+        f"changes (CPU side): " + json.dumps(
+            {k: (v["rows_at_127_5"], v["faults"]) for k, v in out.items()}))
+    return out
+
+
+def int8_attn_inputs(attn_mod, case: Int8Case, dtype, seed: int) -> tuple:
+    """q ``[B, KV, G, Sq, hd]`` in ``dtype`` (a prefill's rows at
+    positions ``0 .. Sq - 1``; a decode row at the last written
+    position), and the CPU's int8 cache of random keys and values in
+    ``dtype``, its last 32 positions unwritten (zeros, as a serve's cache
+    holds them): ``(q, (k8, ks, v8, vs), k, v, q_pos, k_pos)`` on the
+    CPU."""
+    rng = np.random.default_rng(seed + case.Sk + case.Sq)
+    B, KV, G, Sq, Sk, hd = case[1:7]
+    q = torch.from_numpy(rng.standard_normal((B, KV, G, Sq, hd)).astype(
+        np.float32) * 2).to(dtype)
+    k = torch.from_numpy(rng.standard_normal((B, KV, Sk, hd)).astype(
+        np.float32) * 2).to(dtype)
+    v = torch.from_numpy(rng.standard_normal((B, KV, Sk, hd)).astype(
+        np.float32)).to(dtype)
+    written = Sk - 32
+    k[:, :, written:] = 0
+    v[:, :, written:] = 0
+    k8, ks = attn_mod._quant(k)
+    v8, vs = attn_mod._quant(v)
+    q_pos = torch.arange(Sq) if Sq > 1 else torch.tensor([written - 1])
+    return q, (k8, ks, v8, vs), k, v, q_pos, torch.arange(Sk)
+
+
+def heaviest_key(q, k8, ks, q_pos, k_pos, window: int) -> int:
+    """The key that query row 0 of batch 0, head 0 weighs most: its
+    largest visible score (a softcap keeps the order)."""
+    k = k8[0, 0].float() * ks[0, 0, :, None]
+    s = k @ q[0, 0, 0, 0].float()
+    ok = k_pos <= q_pos[0]
+    if window > 0:
+        ok &= (q_pos[0] - k_pos) < window
+    return int(s.masked_fill(~ok, -float("inf")).argmax())
+
+
+def int8_attention_vs_cpu(attn_mod, dev, seed: int) -> dict:
+    """Phase 15 (a): ``_sdpa_chunked_quant`` on the card against the CPU
+    on the same int8 cache over ``INT8_ATTN_CASES`` in f32 and bf16,
+    within ``INT8_ATTN_TOL``; the planted faults on the CPU's side read
+    above it in every case: one int8 value flipped (the largest of the
+    value row at the key that query row 0 of batch 0, head 0 weighs
+    most, :func:`heaviest_key`: a prefill's first row attends to key 0
+    alone, a decode row over 2,048 keys gives its heaviest key a share
+    no spread dilutes), and the keys and values quantized with the
+    wrapped cast (bf16: ~1 row in 6 lands on 127.5)."""
+    out = {}
+    for case in INT8_ATTN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, cache, k, v, q_pos, k_pos = int8_attn_inputs(attn_mod, case,
+                                                            dtype, seed)
+            kw = dict(causal=True, window=case.window, attn_cap=case.cap,
+                      scale=1.0 / np.sqrt(case.hd), chunk=case.chunk)
+            if case.q_block:
+                kw["q_block"] = case.q_block
+
+            def run(q, cache, device):
+                return attn_mod._sdpa_chunked_quant(
+                    q.to(device), *(t.to(device) for t in cache),
+                    q_pos.to(device), k_pos.to(device), **kw).cpu().float()
+
+            cpu = run(q, cache, "cpu")
+            card = run(q, cache, dev)
+            err = float((card - cpu).abs().max())
+            tol = INT8_ATTN_TOL[dtype]
+            name = f"{case.name} {str(dtype)[6:]}"
+            check(bool(torch.isfinite(card).all()) and err <= tol,
+                  f"_sdpa_chunked_quant {name}: card vs CPU {err:.3e} > "
+                  f"{tol}")
+            k8, ks, v8, vs = cache
+            at = heaviest_key(q, k8, ks, q_pos, k_pos, case.window)
+            faults = {"flipped_value": float(
+                (run(q, (k8, ks, flip_one(v8, at), vs), "cpu") - card)
+                .abs().max())}
+            if dtype == torch.bfloat16:
+                wk, wks = wrapped_quant(k)
+                wv, wvs = wrapped_quant(v)
+                faults["wrapped_cast"] = float(
+                    (run(q, (wk, wks, wv, wvs), "cpu") - card).abs().max())
+            check(all(e > tol for e in faults.values()),
+                  f"_sdpa_chunked_quant {name}: a planted fault within the "
+                  f"limit {tol}: {faults}")
+            out[name] = dict(err=err, tol=tol, faults=faults, key=at)
+    log("phase 15 (a): _sdpa_chunked_quant card vs CPU (max abs diff, "
+        "limit, planted faults on the CPU's side, the flipped key): "
+        + json.dumps(
+            {k: (f"{v['err']:.3e}", v["tol"], {f: f"{e:.3e}" for f, e in
+                                               v["faults"].items()},
+                 v["key"]) for k, v in out.items()}))
+    return out
+
+
+def int8_small_vs_cpu(serve_mod, build_model, get_config, attn_mod,
+                      fa_kernel, seed: int, dev) -> dict:
+    """Phase 15 (b): the llama3-8b and qwen1.5-32b smoke configs with an
+    int8 cache served on the card against the CPU from the same weights
+    (phase 2's small serve: f32 within 1e-3, bf16 within
+    ``SERVE_BF16_TOL``), no flash launch on the card; the planted faults
+    in the CPU's serve (the wrapped cast in bf16, where 127.5 rows occur;
+    one flipped value in both) move its prefill logits past the limit."""
+    tag = "phase 15 (b)"
+    out = {}
+    for arch in INT8_SMALL_ARCHS:
+        for dtype, tol, rtol in (("float32", 1e-3, 1e-3),
+                                 ("bfloat16", SERVE_BF16_TOL, 0.0)):
+            cfg = small_serve_config(get_config, dtype, arch=arch,
+                                     over={"kv_dtype": "int8"})
+            cpu_model = build_model(cfg, device="cpu", seed=seed)
+            card_model = copy.deepcopy(cpu_model).to(dev)
+            kw = small_serve_kwargs(seed)
+            cpu = serve_mod.serve(cfg, device="cpu", model=cpu_model, **kw)
+            before = fa_kernel.flash_attention_cuda.launches
+            card = serve_mod.serve(cfg, device=dev, model=card_model, **kw)
+            flash = fa_kernel.flash_attention_cuda.launches - before
+            check(flash == 0, f"{arch} int8 small serve: {flash} flash "
+                  f"launches")
+            check(np.array_equal(card.admitted, cpu.admitted),
+                  "card and CPU admitted different requests")
+            check(card.logits_finite and cpu.logits_finite,
+                  "non-finite logits")
+            worst, steps = serve_logits_agree(card, cpu, tol, rtol, tag)
+            faults = {}
+            for fault in INT8_FAULTS:
+                if fault == "wrapped_cast" and dtype == "float32":
+                    continue            # no row lands on 127.5 in f32
+                with int8_planted(attn_mod, fault):
+                    bad = serve_mod.serve(cfg, device="cpu", model=cpu_model,
+                                          **kw)
+                faults[fault] = float((bad.logits[0] - card.logits[0])
+                                      .abs().max())
+                check(faults[fault] > tol, f"{arch} {dtype} int8 small "
+                      f"serve: the planted {fault} moves the prefill "
+                      f"logits by only {faults[fault]:.3e}")
+            out[f"{arch} {dtype}"] = dict(err=worst, steps=steps, tol=tol,
+                                          flash=flash, faults=faults)
+            log(f"{tag}: small serve ({cfg.name} smoke, {dtype}, int8 "
+                f"cache) on the card == on the CPU: {len(card.admitted)} "
+                f"admitted, logits within atol {tol} rtol {rtol} over "
+                f"{steps} steps (max abs diff {worst:.3e}), {flash} flash "
+                f"launches; planted faults in the CPU's serve move the "
+                f"prefill logits by " + json.dumps(
+                    {f: f"{e:.3e}" for f, e in faults.items()}))
+    return out
+
+
+def int8_beside_bf16(serve_mod, build_model, get_config, pm_ref, fa_kernel,
+                     pm_kernel, seed: int, dev) -> dict:
+    """Phase 15 (c): serve_llama3_8b's cell (llama3-8b at its published
+    size, 128 proposed, the same seed and so the same weights) with a
+    bf16 cache and with an int8 one: cache bytes, prefill s, decode ms a
+    step, the correlation of the prefill logits and the share of greedy
+    tokens that agree (reported, not gated); no flash launch with the
+    int8 cache.  The prefill's logits are kept by a copy on the card
+    (``[B, vocab]``, no sync) inside these two serves' prefill only."""
+    runs = {}
+    for kv in ("bfloat16", "int8"):
+        cfg = dataclasses.replace(get_config("llama3-8b"), kv_dtype=kv)
+        first = []
+
+        def keeping_model(*a, **kw):
+            model = build_model(*a, **kw)
+            prefill = model.prefill
+
+            def kept_prefill(*pa, **pkw):
+                logits, cache = prefill(*pa, **pkw)
+                first.append(logits.clone())
+                return logits, cache
+
+            model.prefill = kept_prefill
+            return model
+
+        lm = lm_slice(serve_mod, keeping_model, get_config, pm_ref,
+                      fa_kernel, pm_kernel, seed, dev,
+                      tag=f"phase 15 (c) {kv}", cfg=cfg)
+        runs[kv] = {k: lm[k] for k in ("B", "timings", "kv_bytes",
+                                       "peak_bytes", "fa_launches",
+                                       "fa_routes", "pm_launches",
+                                       "generated")}
+        runs[kv]["prefill_logits"] = first[0].float().cpu()
+        del lm["model"].prefill          # the wrapper's cycle to the model
+        del lm, first
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    a, b = runs["bfloat16"], runs["int8"]
+    corr = float(np.corrcoef(a["prefill_logits"].numpy().ravel(),
+                             b["prefill_logits"].numpy().ravel())[0, 1])
+    agree = float((a["generated"] == b["generated"]).mean())
+    first = (a["generated"] != b["generated"]).any(0)
+    out = dict(corr=corr, token_agreement=agree,
+               first_diverging_step=int(first.argmax()) if first.any()
+               else None)
+    for kv, r in runs.items():
+        out[kv] = {k: r[k] for k in ("B", "timings", "kv_bytes",
+                                     "peak_bytes", "fa_launches",
+                                     "pm_launches")}
+    log(f"phase 15 (c): llama3-8b, {a['B']} requests, bf16 cache against "
+        f"int8: cache {a['kv_bytes'] / 1e9:.3f} / {b['kv_bytes'] / 1e9:.3f}"
+        f" GB; prefill {a['timings']['prefill_s']:.3f} / "
+        f"{b['timings']['prefill_s']:.3f} s; decode "
+        f"{a['timings']['decode_ms_per_step']:.3f} / "
+        f"{b['timings']['decode_ms_per_step']:.3f} ms a step; prefill "
+        f"logits correlation {corr:.6f}; greedy tokens agreeing "
+        f"{agree:.4f} (first step where a request's tokens part: "
+        f"{out['first_diverging_step']}); flash launches "
+        f"{a['fa_launches']} / {b['fa_launches']}")
+    return out
+
+
+def int8_reckoning(cfg, B: int, weight_bytes: int) -> dict:
+    """The qwen cell's memory by reckoning: the weights; while they are
+    built, the largest float32 draw (the ``[padded vocab, d_model]``
+    embedding or head) beside them; at the serve, the int8 cache, the
+    prefill's MLP intermediates (gate, up and their product in bf16) and
+    the query-blocked score tiles (scores, probabilities and the
+    exponential's temporary in f32)."""
+    from repro_torch.models.attention import QUANT_Q_BLOCK
+    L = LM_PROMPT + LM_STEPS
+    r = dict(weights=weight_bytes, init_draw=cfg.padded_vocab * cfg.d_model
+             * 4, cache=B * L * kv_position_bytes(cfg),
+             mlp=3 * B * LM_PROMPT * cfg.d_ff * 2,
+             tiles=3 * B * cfg.n_heads * min(QUANT_Q_BLOCK, LM_PROMPT) * L
+             * 4)
+    r["serve_peak"] = weight_bytes + r["cache"] + r["mlp"] + r["tiles"]
+    return r
+
+
+def int8_serve_cell(serve_mod, build_model, get_config, pm_ref, fa_kernel,
+                    pm_kernel, attn_mod, steps_mod, seed: int, dev) -> dict:
+    """Phase 15 (d): ``serve_qwen15_32b_int8``, qwen1.5-32b at its
+    published width and depth with the cache the reference's own rule
+    picks (``cell_model_config(cfg, SHAPES["decode_32k"])``: int8), on
+    ``INT8_REQUESTS`` proposed requests: admission equal to the plain
+    version's with one ``smem`` launch, no flash launch, finite logits;
+    the memory reckoned beside the measured peaks; a profiled prefill and
+    decode window split into the int8 attention (``_sdpa_chunked_quant``
+    under a range), the matrix products and the rest."""
+    from repro_torch.configs.base import SHAPES
+    tag = "phase 15 (d)"
+    cfg = steps_mod.cell_model_config(get_config(INT8_ARCH),
+                                      SHAPES["decode_32k"])
+    check(cfg.kv_dtype == "int8", f"{cfg.name}'s decode cell picks "
+          f"{cfg.kv_dtype}")
+    if dev.type == "cuda":
+        free, total = torch.cuda.mem_get_info()
+        log(f"{tag}: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated"
+            f", {free / 1e9:.2f} of {total / 1e9:.2f} GB free before the "
+            f"build")
+    lm = lm_slice(serve_mod, build_model, get_config, pm_ref, fa_kernel,
+                  pm_kernel, seed, dev, tag=tag, cfg=cfg,
+                  requests=INT8_REQUESTS, min_admitted=1)
+    res = {k: lm[k] for k in ("B", "fa_launches", "fa_routes", "pm_launches",
+                              "pm_routes", "timings", "peak_bytes",
+                              "build_peak_bytes", "kv_bytes",
+                              "weight_bytes")}
+    want = int(plain_grants(serve_mod, pm_ref, seed, "cpu",
+                            INT8_REQUESTS).sum())
+    check(res["B"] == want, f"{res['B']} admitted, the plain version {want}")
+    check(res["fa_launches"] == 0, f"{res['fa_launches']} flash launches "
+          f"with an int8 cache")
+    r = res["reckoning"] = int8_reckoning(cfg, res["B"], res["weight_bytes"])
+    check(r["cache"] == res["kv_bytes"], "the cache's bytes")
+    gb = {k: round(v / 1e9, 3) for k, v in r.items()}
+    log(f"{tag}: memory by reckoning (GB) {json.dumps(gb)}; measured peak "
+        f"of the build {res['build_peak_bytes'] / 1e9:.3f} GB (reckoned "
+        f"{(r['weights'] + r['init_draw']) / 1e9:.3f} at most), of the "
+        f"serve {res['peak_bytes'] / 1e9:.3f} GB (reckoned "
+        f"{r['serve_peak'] / 1e9:.3f}); tokens/s "
+        f"{res['timings']['tokens_per_s']:.1f}")
+    res["split"] = serve_split(lm, [(attn_mod, "_sdpa_chunked_quant",
+                                     "p11.int8_attn")], dev, seed, tag=tag)
+    del lm
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def int8_phase(serve_mod, build_model, pm_ref, pm_kernel, fa_kernel, dev,
+               seed: int) -> dict:
+    """Phase 15: the int8 KV cache on the card: (a) ``_quant`` and
+    ``_sdpa_chunked_quant`` card against CPU, with planted faults; (b)
+    the llama3-8b and qwen1.5-32b smoke configs served with an int8 cache
+    card against CPU; (c) llama3-8b's serve cell with a bf16 and an int8
+    cache; (d) ``serve_qwen15_32b_int8``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import attention as attn_mod
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        log(f"phase 15: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+            f"allocated on the card at the start")
+    marks = [("start", time.perf_counter())]
+
+    def mark(part):
+        marks.append((part, time.perf_counter()))
+        log(f"phase 15 {part} took {marks[-1][1] - marks[-2][1]:.1f} s")
+
+    out = dict(quant=int8_quant_vs_cpu(attn_mod, dev, seed),
+               attention=int8_attention_vs_cpu(attn_mod, dev, seed))
+    mark("(a)")
+    out["small"] = int8_small_vs_cpu(serve_mod, build_model, get_config,
+                                     attn_mod, fa_kernel, seed, dev)
+    mark("(b)")
+    out["llama3"] = int8_beside_bf16(serve_mod, build_model, get_config,
+                                     pm_ref, fa_kernel, pm_kernel, seed, dev)
+    mark("(c)")
+    out["serve_qwen"] = int8_serve_cell(serve_mod, build_model, get_config,
+                                        pm_ref, fa_kernel, pm_kernel,
+                                        attn_mod, steps_mod, seed, dev)
+    mark("(d)")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 15 took {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
@@ -5695,6 +6230,11 @@ def main(argv=None) -> int:
     es, ep = encdec["serve_seamless"], encdec["serve_paligemma"]
     et, ef = encdec["train_seamless"], encdec["flash"]
     log("encdec: " + json.dumps(encdec, default=str))
+    torch.cuda.empty_cache()
+    int8 = int8_phase(serve_mod, build_model, ref, kernel, fa_kernel, dev,
+                      args.seed)
+    iq, il = int8["serve_qwen"], int8["llama3"]
+    log("int8: " + json.dumps(int8, default=str))
     log(f"the whole smoke took {time.perf_counter() - t_start:.1f} s")
 
     pre, dec = ft["prefill"], ft["decode"]
@@ -5742,6 +6282,8 @@ def main(argv=None) -> int:
         "seamless_serve_route_launches": es["pm_routes"],
         "paligemma_serve_launches": ep["pm_launches"],
         "paligemma_serve_route_launches": ep["pm_routes"],
+        "qwen_int8_serve_launches": iq["pm_launches"],
+        "qwen_int8_serve_route_launches": iq["pm_routes"],
         "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -5785,6 +6327,8 @@ def main(argv=None) -> int:
         "seamless_serve_form_launches": es["fa_forms"],
         "paligemma_serve_form_launches": ep["fa_forms"],
         "seamless_train_form_launches": et["forms"],
+        "qwen_int8_serve_launches": iq["fa_launches"],
+        "llama3_int8_serve_launches": il["int8"]["fa_launches"],
         "encdec_shapes": {name: {k: r[k] for k in (
             "route", "launches", "ms", "plain_ms", "plain_B", "bound_ms",
             "bound_by", "library_ms", "err")} for name, r in ef.items()},

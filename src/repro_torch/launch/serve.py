@@ -7,9 +7,14 @@ Hopper PMwCAS kernel on the card), with index order as the
 linearization.  The admitted requests are prefilled and greedily decoded
 through the model stack, whose attention layers run the Hopper
 flash-attention kernel on the card (``attn_impl`` picks a plain version
-on the CPU only).  An arch with a frontend gets the reference
-launcher's stub embeddings, ``0.02 * ones((B, frontend_len,
-frontend_dim))`` in float32 (the encoder's frames, or a vision prefix),
+on the CPU only).  With ``cfg.kv_dtype = "int8"`` the self-attention
+layers keep an int8 cache and attend over it through the plain
+chunk-dequantizing path (``models.attention._sdpa_chunked_quant``), on
+the card too, with no flash launch; ``launch.steps.cell_model_config``
+picks int8 for qwen1.5-32b's decode cells, as the reference does.  An
+arch with a frontend gets the reference launcher's stub embeddings,
+``0.02 * ones((B, frontend_len, frontend_dim))`` in float32 (the
+encoder's frames, or a vision prefix),
 and a cache of ``prompt_len + steps + frontend_len`` positions, as the
 reference launcher sizes it (for an encoder-decoder too, whose decoder
 never writes the last ``frontend_len`` of them); the page proposals

@@ -28,7 +28,7 @@ DRYRUN = ("the dry-run and sharding (parallel/sharding.py, launch/dryrun.py)"
 
 def cell_model_config(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:
     """Per-cell numeric policy: int8 KV where bf16 cannot fit 16 GB/chip
-    (the reference's rule; the port's int8 cache is not ported yet)."""
+    (the reference's rule)."""
     if shape.is_decode and cfg.name == "qwen1.5-32b":
         return dataclasses.replace(cfg, kv_dtype="int8")
     return cfg

@@ -2,8 +2,9 @@
 
 The port of ``repro/models/attention.py``.  Covered: GQA/MQA (kv groups),
 RoPE (partial rotation for glm4), QKV bias (qwen1.5), attention-logit
-softcapping and local/global layers (gemma2), sliding windows, a bf16 KV
-cache, and the core softmax(QK^T)V; causal self-attention (the decoder),
+softcapping and local/global layers (gemma2), sliding windows, a KV
+cache in bf16 or in int8 with a float32 scale a token and kv head, and
+the core softmax(QK^T)V; causal self-attention (the decoder),
 non-causal self-attention (the encoder of seamless-m4t: ``causal=False``)
 and cross-attention (the decoder's layers over the encoder's memory:
 ``kv=(k_mem, v_mem)`` from :func:`precompute_cross_kv`, non-causal, no
@@ -11,8 +12,10 @@ RoPE, ``use_rope=False``, and no cache write).
 
 On a CUDA tensor the core is always the hand-written Hopper kernel of
 :mod:`repro_torch.kernels.flash_attention`, whatever ``impl`` says, in
-every one of these forms.  On a CPU tensor ``impl`` picks one of three
-plain versions, the oracles of the parity tests:
+every one of these forms but one: a layer whose cache is int8 attends
+through :func:`_sdpa_chunked_quant`, plain PyTorch on both devices, as
+the reference attends over int8 in plain XLA.  On a CPU tensor ``impl``
+picks one of three plain versions, the oracles of the parity tests:
 
 - ``ref``      materialized [B,KV,G,S,S] scores with an additive mask
                bias -- the model's oracle
@@ -28,9 +31,6 @@ row log-sum-exp ``lse`` in one launch, on the CPU the chunked forward
 computes them -- and its backward recomputes the probabilities chunk by
 chunk as ``exp(s - lse)``.  The backward is plain PyTorch on both
 devices, as the reference leaves it to XLA outside any kernel.
-
-The int8 KV cache is not ported yet: it raises ``NotImplementedError``
-naming ROADMAP Queue 1 A #5.
 """
 from __future__ import annotations
 
@@ -43,7 +43,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from .layers import KeyGen, apply_rope, make_param, matmul, softcap
 
 NEG_INF = -2.0 ** 20  # large-but-finite to keep softcap/tanh well-behaved
-LATER = "not ported yet (ROADMAP Queue 1 A #5)"
+# query rows a block of :func:`_sdpa_chunked_quant` (see its docstring)
+QUANT_Q_BLOCK = 256
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +240,64 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, window, attn_cap, scale,
                                 causal, window, attn_cap, scale, chunk)
 
 
+def _sdpa_chunked_quant(q, k8, ks, v8, vs, q_pos, k_pos, *, causal, window,
+                        attn_cap, scale, chunk: int = 16384,
+                        q_block: int = QUANT_Q_BLOCK):
+    """Online-softmax attention directly over an int8 KV cache (the
+    reference's ``_sdpa_chunked_quant``): ``q [B,KV,G,Sq,hd]``, int8
+    ``k8``/``v8 [B,KV,Sk,hd]`` with float32 scales ``ks``/``vs
+    [B,KV,Sk]``.  Keys are dequantized to float32 one chunk of ``chunk``
+    at a time (the last chunk padded with zero keys at the sentinel
+    position 2**30, which every mask drops), so no bf16 or f32 copy of
+    the whole cache exists; scores, probabilities and the accumulator are
+    float32, the output is cast to q's dtype.  Forward only (serving).
+
+    The query rows go ``q_block`` at a time as well.  Each row's softmax
+    is independent of the others, so this changes no value; it bounds
+    the score tile.  At qwen1.5-32b's prefill (4 requests, 40 heads,
+    2,048 rows over a 2,080-position cache) the whole f32 tile is 4 x 40
+    x 2,048 x 2,080 x 4 B = 2.73 GB, and the scores, the probabilities
+    and the exponential's temporary together ~8 GB, beside 70.4 GB of
+    weights; a block of 256 rows makes each 341 MB."""
+    B, KV, G, Sq, hd = q.shape
+    Sk = k8.shape[2]
+    c = min(chunk, Sk)
+    n_chunks = -(-Sk // c)
+    dev = q.device
+    qf = q.float()
+    q_posf = q_pos.float()
+    k_posf = k_pos.float()
+    m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32, device=dev)
+    for i in range(n_chunks):
+        keys = slice(i * c, (i + 1) * c)
+        kb = k8[:, :, keys].float() * ks[:, :, keys, None]
+        vb = v8[:, :, keys].float() * vs[:, :, keys, None]
+        pb = k_posf[keys]
+        pad = c - kb.shape[2]
+        if pad:
+            kb = torch.nn.functional.pad(kb, (0, 0, 0, pad))
+            vb = torch.nn.functional.pad(vb, (0, 0, 0, pad))
+            pb = torch.nn.functional.pad(pb, (0, pad), value=2.0 ** 30)
+        for r0 in range(0, Sq, q_block):
+            rows = slice(r0, r0 + q_block)
+            s = torch.einsum("bkgqd,bkcd->bkgqc", qf[..., rows, :],
+                             kb) * scale
+            s = softcap(s, attn_cap)
+            s = s + _fmask_bias(q_posf[rows], pb, causal, window)
+            m_old = m[..., rows]
+            m_new = torch.maximum(m_old, s.amax(dim=-1))
+            alpha = torch.exp(m_old - m_new)
+            p = torch.exp(s.sub_(m_new[..., None]))
+            l[..., rows] = l[..., rows] * alpha + p.sum(dim=-1)
+            acc[..., rows, :] = acc[..., rows, :] * alpha[..., None] + \
+                torch.einsum("bkgqc,bkcd->bkgqd", p, vb)
+            m[..., rows] = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
 def _sdpa_pallas(q, k, v, q_pos, k_pos, *, chunk: int = 1024, **kw):
     """The kernel: a serving call launches it alone (no log-sum-exp); a
     call that needs gradients goes through :class:`FlashAttention`, whose
@@ -258,36 +317,81 @@ _IMPLS = {"ref": _sdpa_ref, "chunked": _sdpa_chunked, "pallas": _sdpa_pallas}
 
 
 # ---------------------------------------------------------------------------
-# KV cache: bf16 whatever the compute dtype, updated in place
+# KV cache: bf16, or int8 with a float32 scale a token and kv head;
+# updated in place
 # ---------------------------------------------------------------------------
+
+KV_DTYPES = ("bfloat16", "int8")
+
 
 def init_kv_cache(batch: int, n_kv_heads: int, max_len: int, head_dim: int,
                   kv_dtype: str, n_layers: int,
                   device="cpu") -> Dict[str, Any]:
-    """Stacked-over-layers cache ``[n_layers, B, KV, max_len, hd]`` in
-    bf16, with the write position ``index`` as a Python int."""
-    if kv_dtype == "int8":
-        raise NotImplementedError(f"the int8 KV cache is {LATER}")
-    if kv_dtype != "bfloat16":
+    """Stacked-over-layers cache ``k``/``v [n_layers, B, KV, max_len, hd]``
+    in bf16, or for ``"int8"`` in int8 beside float32 scales
+    ``k_scale``/``v_scale [n_layers, B, KV, max_len]``, all zeros, with
+    the write position ``index`` as a Python int."""
+    if kv_dtype not in KV_DTYPES:
         raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
     shape = (n_layers, batch, n_kv_heads, max_len, head_dim)
+    if kv_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], device=device),
+                "v_scale": torch.zeros(shape[:-1], device=device),
+                "index": 0}
     return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "index": 0}
 
 
+def _quant(x: torch.Tensor):
+    """``x [..., hd]`` -> ``(int8 [..., hd], float32 scale [...])``, the
+    reference's ``_quant`` to the bit.  The scale ``max|x| / 127`` (at
+    least 1e-8) and the division run in x's own dtype, as the weakly
+    typed constants leave them in JAX; only the stored scale is float32.
+    ``torch.round`` rounds half to even, as ``jnp.round`` does.  The clamp
+    to [-128, 127] before the cast is XLA's saturating convert: in bf16,
+    ``max|x| / scale`` lands on 127.5 for about one magnitude in six,
+    which rounds to 128; XLA stores 127, while ``.to(torch.int8)`` would
+    wrap it to -128 on the CPU (and is undefined on the card), flipping
+    the sign of the row's largest element.  The constants are tensors
+    filled on x's device (no copy from the host, which would wait for the
+    card): PyTorch's CUDA division by a Python scalar multiplies by its
+    reciprocal, which rounds other than ``max|x| / 127`` does."""
+    scale = torch.maximum(x.abs().amax(dim=-1) / x.new_full((), 127.0),
+                          x.new_full((), 1e-8))
+    q = torch.round(x / scale[..., None]).clamp_(-128, 127)
+    return q.to(torch.int8), scale.float()
+
+
+def _dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 def cache_update(layer_cache, k_new, v_new, index: int):
     """Write ``[B,KV,S,hd]`` at position ``index`` IN PLACE (the reference
-    returns an updated copy); returns ``layer_cache``."""
-    if layer_cache["k"].dtype != torch.bfloat16:
-        raise NotImplementedError(f"the int8 KV cache is {LATER}")
+    returns an updated copy); an int8 cache takes the :func:`_quant`
+    values and scales of ``k_new`` and ``v_new``.  Returns
+    ``layer_cache``."""
     S = k_new.shape[2]
-    layer_cache["k"][:, :, index:index + S] = k_new
-    layer_cache["v"][:, :, index:index + S] = v_new
+    at = slice(index, index + S)
+    if layer_cache["k"].dtype == torch.int8:
+        for name, x in (("k", k_new), ("v", v_new)):
+            q, scale = _quant(x)
+            layer_cache[name][:, :, at] = q
+            layer_cache[f"{name}_scale"][:, :, at] = scale
+        return layer_cache
+    layer_cache["k"][:, :, at] = k_new
+    layer_cache["v"][:, :, at] = v_new
     return layer_cache
 
 
 def cache_kv(layer_cache, dtype):
+    """The whole cache's K and V in ``dtype`` (an int8 cache dequantized)."""
+    if layer_cache["k"].dtype == torch.int8:
+        return (_dequant(layer_cache["k"], layer_cache["k_scale"], dtype),
+                _dequant(layer_cache["v"], layer_cache["v_scale"], dtype))
     return layer_cache["k"].to(dtype), layer_cache["v"].to(dtype)
 
 
@@ -307,7 +411,8 @@ def attention(p, x, *, n_heads: int, n_kv_heads: int, head_dim: int,
     - self-attention without a cache (layer_cache=None): keys are this
       call's positions (the encoder, and training)
     - cached decode/prefill: writes at cache_index in place and attends
-      over the whole cache
+      over the whole cache; an int8 cache through
+      :func:`_sdpa_chunked_quant`, on every device
     - cross-attention: ``kv=(k_mem, v_mem)`` ``[B,KV,Sk,hd]`` precomputed
       from the encoder's memory (:func:`precompute_cross_kv`), keys at
       ``k_positions`` (default ``arange(Sk)``); no cache is written
@@ -339,6 +444,21 @@ def attention(p, x, *, n_heads: int, n_kv_heads: int, head_dim: int,
         v = v.reshape(B, S, n_kv_heads, head_dim).transpose(1, 2)
         if layer_cache is not None:
             cache_update(layer_cache, k, v, cache_index)
+            if layer_cache["k"].dtype == torch.int8:
+                # dequantized a chunk at a time inside the online softmax:
+                # no copy of the whole cache in bf16
+                qg = q.reshape(B, S, n_kv_heads, G, head_dim).permute(
+                    0, 2, 3, 1, 4)
+                out = _sdpa_chunked_quant(
+                    qg, layer_cache["k"], layer_cache["k_scale"],
+                    layer_cache["v"], layer_cache["v_scale"], positions,
+                    torch.arange(layer_cache["k"].shape[2],
+                                 device=x.device),
+                    causal=causal, window=window, attn_cap=attn_cap,
+                    scale=1.0 / np.sqrt(head_dim))
+                out = out.permute(0, 3, 1, 2, 4).reshape(
+                    B, S, n_heads * head_dim)
+                return matmul(out, p["wo"]), layer_cache
             k, v = cache_kv(layer_cache, x.dtype)
             k_pos = torch.arange(k.shape[2], device=x.device)
         else:
@@ -348,7 +468,9 @@ def attention(p, x, *, n_heads: int, n_kv_heads: int, head_dim: int,
     scale = 1.0 / np.sqrt(head_dim)
     kw = dict(causal=causal, window=window, attn_cap=attn_cap, scale=scale)
     if x.device.type != "cpu":
-        impl = "pallas"          # the card runs the kernel, never a plain one
+        # the card runs the kernel, never a plain one (an int8 cache has
+        # returned above: the reference has no TPU kernel for it either)
+        impl = "pallas"
     if impl != "ref":
         kw.update(chunk=chunk)   # the backward's chunk on the kernel's path
     out = _IMPLS[impl](qg, k, v, positions, k_pos, **kw)

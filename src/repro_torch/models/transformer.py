@@ -66,7 +66,13 @@ sum(aux) / n_layers``.  Training runs no cache: recurrent layers start
 from the zero states.  With a vision prefix the loss covers the text
 positions only.
 
-The int8 KV cache raises ``NotImplementedError`` (ROADMAP Queue 1 A #5).
+The decode cache's attention entries are bf16 or, with ``cfg.kv_dtype =
+"int8"``, int8 with a float32 scale a token and kv head
+(:func:`repro_torch.models.attention.init_kv_cache`); such a layer
+attends over its cache through the chunk-dequantizing plain path on
+every device, as the reference does, while an encoder-decoder's cross
+K/V stay in ``cfg.dtype``.  Training holds no cache, so ``TrainModel``
+takes either.
 """
 from __future__ import annotations
 
@@ -85,7 +91,6 @@ from .layers import (KeyGen, apply_mlp, cross_entropy, dtype_of,
                      embed_tokens, init_embed, init_mlp, make_param, matmul,
                      rms_norm, unembed)
 
-LATER = "not ported yet (ROADMAP Queue 1 A #5)"
 KINDS = ("attn", "mamba", "mlstm", "slstm")
 FFNS = ("dense", "moe", "none")
 FRONTENDS = ("none", "vision", "audio")
@@ -103,8 +108,7 @@ def _params(d: Dict[str, torch.Tensor],
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot run yet (the
-    int8 KV cache), ``ValueError`` for a config no model can build."""
+    """Raise ``ValueError`` for a config no model can build."""
     for spec in cfg.unit:
         if spec.kind not in KINDS:
             raise ValueError(f"{cfg.name}: unknown layer kind {spec.kind!r}")
@@ -124,9 +128,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.enc_dec and (cfg.frontend == "none" or cfg.n_enc_layers < 1):
         raise ValueError(f"{cfg.name}: an encoder-decoder needs a frontend "
                          f"(its input) and n_enc_layers")
-    if cfg.kv_dtype != "bfloat16":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.kv_dtype} KV cache "
-                                  f"is {LATER}")
+    if cfg.kv_dtype not in attn_mod.KV_DTYPES:
+        raise ValueError(f"{cfg.name}: unknown kv_dtype {cfg.kv_dtype!r}")
 
 
 def init_layer(cfg: ModelConfig, spec: LayerSpec, kg: Optional[KeyGen],
@@ -392,9 +395,11 @@ class Model(nn.Module):
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
         """Decode cache: one entry a unit position, stacked over the units
-        (a leading ``n_units`` axis): a bf16 ``{k, v}`` pair ``[n_units,
-        B, KV, max_len, hd]`` for attention, the zero state
-        (:func:`init_state`) for a recurrent layer; the write index; and
+        (a leading ``n_units`` axis): for attention ``{k, v}``
+        ``[n_units, B, KV, max_len, hd]`` in ``cfg.kv_dtype`` (an int8
+        pair beside float32 ``k_scale``/``v_scale [n_units, B, KV,
+        max_len]``), the zero state (:func:`init_state`) for a recurrent
+        layer; the write index; and
         for an encoder-decoder the cross K/V ``cross_k``/``cross_v
         [n_units, B, KV, frontend_len, hd]`` in ``cfg.dtype`` (zeros until
         a prefill writes them)."""

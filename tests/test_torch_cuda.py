@@ -35,6 +35,13 @@ xLSTM and Mamba: the blocks at full width (xlstm-125m's mLSTM and sLSTM,
 jamba's Mamba) card against CPU within ``chip_smoke.BLOCK_TOL`` (planted
 faults read above it), the xlstm-125m and jamba smoke configs served and
 trained card against CPU.
+
+The int8 KV cache: ``_quant`` card against CPU bit for bit (the 127.5
+rows of every bf16 magnitude included), ``_sdpa_chunked_quant`` within
+``chip_smoke.INT8_ATTN_TOL`` of the CPU on the same int8 cache, and the
+llama3-8b and qwen1.5-32b smoke configs served with an int8 cache within
+the small serves' limits, with no flash launch; the planted faults (the
+cast without its clamp, one int8 value flipped) read above each limit.
 """
 import dataclasses
 import importlib.util
@@ -1093,3 +1100,42 @@ def test_encdec_small_train_card_vs_cpu_and_cross_causal_fault(cuda):
         faults_of=chip_smoke.ENCDEC_FAULTS)
     tol = chip_smoke.SMALL_TOL["float32"][1]
     assert out["grad_err"] <= tol < out["faults"]["cross_causal"]["grad"]
+
+
+# ---------------------------------------------------------------------------
+# the int8 KV cache (chip_smoke.py phase 15 (a)-(b))
+# ---------------------------------------------------------------------------
+
+def test_int8_quant_card_vs_cpu(cuda):
+    """Bit for bit on every bf16 magnitude of either sign (the 420 rows
+    at 127.5 saturate) and on random keys in bf16 and f32."""
+    from repro_torch.models import attention
+    out = chip_smoke.int8_quant_vs_cpu(attention, cuda, 0)
+    assert all(r["differ"] == 0 for r in out.values())
+    assert out["bf16_magnitudes_pos"]["faults"]["wrapped_cast"] == 420
+
+
+def test_int8_attention_card_vs_cpu_and_planted_faults(cuda):
+    from repro_torch.models import attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = chip_smoke.int8_attention_vs_cpu(attention, cuda, 0)
+    for name, r in out.items():
+        assert r["err"] <= r["tol"], name
+        if "bfloat16" in name:
+            assert r["faults"]["wrapped_cast"] > r["tol"], name
+
+
+@pytest.mark.parametrize("arch", chip_smoke.INT8_SMALL_ARCHS)
+def test_int8_small_serve_card_vs_cpu(cuda, arch, monkeypatch):
+    """f32 within 1e-3 and bf16 within ``SERVE_BF16_TOL`` of the CPU, no
+    flash launch; each planted fault above the limit."""
+    from repro_torch.models import attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(chip_smoke, "INT8_SMALL_ARCHS", (arch,))
+    out = chip_smoke.int8_small_vs_cpu(serve_mod, build_model, get_config,
+                                       attention, fa_kernel, 0, cuda)
+    assert len(out) == 2          # each checked within its limit there
+    for r in out.values():
+        assert r["flash"] == 0
+        assert r["faults"] and all(e > r["tol"]
+                                   for e in r["faults"].values())

@@ -290,9 +290,22 @@ def test_params_from_numpy_refuses_mismatch():
 # ---------------------------------------------------------------------------
 
 def test_unported_paths_raise():
-    cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
-                              kv_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        pt_attn.init_kv_cache(1, 1, 4, 8, "int8", 1)
+    """What the port still refuses: the dry run's abstract specs and
+    sharded programs (ROADMAP Queue 1 A #6) raise ``NotImplementedError``
+    naming that item; a KV dtype neither bf16 nor int8 is no config at
+    all (``ValueError``)."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import steps
+    cfg = get_config("llama3-8b", smoke=True)
+    shape = SHAPES["decode_32k"]
+    for call in (lambda: steps.abstract_batch(cfg, shape),
+                 lambda: steps.input_specs(cfg, shape),
+                 lambda: steps.build_cell(cfg, shape, None),
+                 lambda: steps.CellProgram(cfg, shape)):
+        with pytest.raises(NotImplementedError, match="Queue 1 A #6"):
+            call()
+    fp8 = dataclasses.replace(cfg, kv_dtype="fp8")
+    with pytest.raises(ValueError, match="fp8"):
+        Model(fp8, device="cpu")
+    with pytest.raises(ValueError, match="fp8"):
+        pt_attn.init_kv_cache(1, 1, 4, 8, "fp8", 1)
