@@ -269,7 +269,27 @@ Phases, in order; any failure exits non-zero:
    proposed requests (admission equal to the plain version's, one
    ``smem`` launch, no flash launch, finite logits), the memory reckoned
    beside the measured peaks, and a profiled prefill and decode window
-   split into the int8 attention, the matrix products and the rest.
+   split into the int8 attention, the matrix products and the rest;
+16. sharding rules, cell programs and the dry run
+   (``parallel/sharding.py``, ``launch/{mesh,steps,dryrun}.py``) -- (a)
+   ``dryrun.run_cell`` for every arch x ``shapes_for`` cell on the two
+   production meshes (32 x 8 and 2 x 32 x 8 H100s) and the host mesh:
+   every spec divides, one line a cell with its per-device argument GB
+   and whether it fits the card (jamba-v0.1 at 32 layers does not); (b)
+   ``prefill_32k_llama3_8b_B1``: llama3-8b at its published size through
+   ``build_cell(cfg, prefill_32k at batch 1, make_host_mesh())``, the
+   weights and the 32,768-position cache the card holds equal to the dry
+   run's per-device argument bytes, one prefill with 32 ``tc`` launches;
+   (c) ``decode_32k_llama3_8b_B8``: the same weights through
+   ``build_cell`` at ``decode_32k`` with 8 requests, the 34.36 GB cache
+   filled with seeded random bf16 K/V and its index at 32,767, the bytes
+   again equal to the dry run's, one step with 32 ``decode`` launches
+   whose logits equal ``Model.decode_step``'s bit for bit, the step
+   timed against its byte bound; the flash call of each cell (q ``[32,
+   32768, 128]`` x k/v ``[8, 32768, 128]``; q ``[256, 1, 128]`` x k/v
+   ``[64, 32768, 128]``) against its plain version (at prefill the last
+   256 rows against every key) with planted faults above the row limit,
+   timed beside its bound and SDPA.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``{"kernels": [...]}`` record, and the line before that the
@@ -6106,6 +6126,423 @@ def int8_phase(serve_mod, build_model, pm_ref, pm_kernel, fa_kernel, dev,
 
 
 # ---------------------------------------------------------------------------
+# phase 16: sharding rules, cell programs and the dry run
+# ---------------------------------------------------------------------------
+
+CELL_ARCH = "llama3-8b"
+# prefill_32k's batch 32 -> 1 and decode_32k's 128 -> 8: 32 requests'
+# prefill cache is 137 GB and 128 requests' decode cache 550 GB, against
+# the card's 80 GB
+CELL_BATCH = {"prefill_32k": 1, "decode_32k": 8}
+CELL_ROWS = 256          # the prefill check's query rows: the last 256
+CELL_DECODE_STEPS = 5    # timed decode steps (host clock, synchronized)
+
+
+def dryrun_every_cell(dev) -> dict:
+    """Phase 16 (a): ``dryrun.run_cell`` (no file written) for every arch
+    x ``shapes_for(cfg)`` cell at both production meshes and the host
+    mesh: every spec divides (``run_cell`` raises otherwise); one line a
+    cell with its per-device argument GB and whether they fit the card;
+    jamba-v0.1 at 32 layers does not fit one card."""
+    from repro_torch.configs import ALIASES, get_config, shapes_for
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.report import device_memory
+    t0 = time.perf_counter()
+    memory, _ = device_memory()
+    fits = {}
+    for arch in ALIASES:
+        for shape in shapes_for(get_config(arch)):
+            for mesh in ("single", "multi", "host"):
+                rep = dryrun.run_cell(arch, shape.name, mesh, write=False,
+                                      device=dev)
+                b = rep["argument_bytes_per_device"]
+                fit = fits[arch, shape.name, mesh] = b["total"] <= memory
+                log(f"phase 16 (a): {arch} {shape.name} {rep['mesh']}: "
+                    f"{b['total'] / 1e9:.3f} GB of arguments a device "
+                    f"(params {b['params'] / 1e9:.3f}, opt state "
+                    f"{b['opt_state'] / 1e9:.3f}, cache "
+                    f"{b['cache'] / 1e9:.3f}); "
+                    f"{'fits' if fit else 'does not fit'} on the card's "
+                    f"{memory / 1e9:.2f} GB")
+    check(not fits["jamba-v0.1-52b", "prefill_32k", "host"],
+          "jamba-v0.1 at 32 layers fits one card by the dry run")
+    out = dict(cells=len(fits), fit=sum(fits.values()),
+               seconds=time.perf_counter() - t0)
+    log(f"phase 16 (a): {out['cells']} cells, every spec dividing, "
+        f"{out['fit']} fit one card, in {out['seconds']:.1f} s")
+    return out
+
+
+def causal_pairs(Sq: int, Sk: int) -> int:
+    """(q row, key) pairs a causal mask leaves visible, one head: the
+    rows at the last ``Sq`` of ``Sk`` positions."""
+    return sum(Sk - Sq + i + 1 for i in range(Sq))
+
+
+def _sdpa_32k(q, k, v, B: int, causal: bool):
+    """SDPA at a flash call's shape: ``is_causal`` (``Sq == Sk``) or no
+    mask (a decode row that sees every key), GQA, the math backend
+    excluded (at 32k it would hold the [H, S, S] f32 scores). Where no
+    other backend takes ``enable_gqa``, K/V are expanded to every head
+    first, outside the timed call.  Returns ``(fn, how)``."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    backends = [getattr(SDPBackend, n) for n in (
+        "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+        if hasattr(SDPBackend, n)]
+    H, Sq, hd = q.shape
+    HK, Sk, _ = k.shape
+    q4 = q.view(B, H // B, Sq, hd)
+    k4, v4 = k.view(B, HK // B, Sk, hd), v.view(B, HK // B, Sk, hd)
+
+    def call(kk, vv, gqa):
+        with sdpa_kernel(backends):
+            return F.scaled_dot_product_attention(q4, kk, vv,
+                                                  is_causal=causal,
+                                                  enable_gqa=gqa)
+    try:
+        call(k4, v4, True)
+        return (lambda: call(k4, v4, True)), "enable_gqa"
+    except RuntimeError:
+        G = H // HK
+        ke, ve = k4.repeat_interleave(G, 1), v4.repeat_interleave(G, 1)
+        call(ke, ve, False)
+        return (lambda: call(ke, ve, False)), "K/V expanded to every head"
+
+
+def flash_32k(fa_ref, fa_kernel, cfg, B: int, Sq: int, Sk: int, dev,
+              seed: int, tag: str) -> dict:
+    """The flash call of a 32k cell (one layer, seeded bf16 q/k/v): q
+    ``[B * n_heads, Sq, hd]`` at the last ``Sq`` of ``Sk`` positions, k/v
+    ``[B * n_kv_heads, Sk, hd]``, causal.  The kernel's rows against the
+    plain version within 2e-2 and ``FA_ROW_TOL`` a row: all of them at a
+    decode row, the last ``CELL_ROWS`` at their own positions against
+    every key at prefill (the plain version cannot hold all
+    ``[H, Sq, Sk]`` f32 scores); the planted faults of phase 6 on one
+    request's heads of those rows above the row limit.  Times: at
+    prefill stream time (CUDA events) of the kernel, SDPA and the plain
+    version on the checked rows; at decode device time in replayed CUDA
+    graphs, kernel and SDPA in turns, and the plain version by events;
+    the bound: the bf16 FLOPs of the visible pairs at 989 TFLOP/s or
+    q, k, v and the output once at 3.35 TB/s, whichever is larger."""
+    hd, G = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+    H, HK = B * cfg.n_heads, B * cfg.n_kv_heads
+    gen = torch.Generator(device=dev).manual_seed(seed + 16)
+
+    def mk(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q, k, v = mk(H, Sq, hd), mk(HK, Sk, hd), mk(HK, Sk, hd)
+    qp = torch.arange(Sk - Sq, Sk, device=dev, dtype=torch.float32)
+    kp = torch.arange(Sk, device=dev, dtype=torch.float32)
+    kw = dict(g=G, scale=1.0 / np.sqrt(hd), causal=True, window=0,
+              attn_cap=0.0)
+    route, splits = fa_kernel.plan(torch.bfloat16, hd, G * Sq, Sk, HK,
+                                   fa_kernel.n_sms(dev.index or 0))
+    o = torch.empty_like(q)
+    ws = (torch.empty(fa_kernel.workspace_floats(HK, splits, G * Sq, hd),
+                      dtype=torch.float32, device=dev)
+          if route == "decode" and fa_kernel.needs_workspace(
+              q.dtype, hd, splits) else None)
+
+    def run_kernel():
+        fa_kernel.launch(q, k, v, qp, kp, o, **kw, workspace=ws)
+
+    run_kernel()
+    rows = slice(Sq - min(CELL_ROWS, Sq), Sq)
+    qs, qps = q[:, rows], qp[rows]
+
+    def run_plain():
+        return fa_ref.flash_attention_flat(qs, k, v, qps, kp, **kw)
+
+    want = run_plain()
+    torch.cuda.synchronize()
+    got = o[:, rows]
+    ok, err = fa_close(got, want, torch.bfloat16)
+    row = fa_row_err(got, want)
+    check(ok, f"{tag}: flash kernel != plain at q [{H}, {Sq}, {hd}] x "
+          f"k/v [{HK}, {Sk}, {hd}]: max abs err {err}, row err {row}")
+    tile, stages = route_tile(route, hd)
+    nq, nk = cfg.n_heads, cfg.n_kv_heads
+    faults = fa_fault_errs(fa_ref, (qs[:nq], k[:nk], v[:nk], qps, kp), kw,
+                           want[:nq], tile, stages)
+    check(min(faults.values()) > FA_ROW_TOL,
+          f"{tag}: a planted fault reads {json.dumps(faults)}, within the "
+          f"row limit {FA_ROW_TOL}")
+    del want
+    lib, how = _sdpa_32k(q, k, v, B, causal=Sq > 1)
+    lib_err = float((lib().reshape(q.shape)[:, rows].float()
+                     - got.float()).abs().max())
+    plain = _event_ms(run_plain, 2)
+    res = dict(route=route, splits=splits, rows=rows.stop - rows.start,
+               err=err, row_err=row, faults=faults, library_how=how,
+               plain_rows_ms=plain)
+    if Sq > 1:
+        res.update(ms=_event_ms(run_kernel, 3), library_ms=_event_ms(lib, 3),
+                   timed_by="CUDA events, 3 calls after 10")
+    else:
+        rounds = _interleaved_ms({"kernel": run_kernel, "sdpa": lib}, 50, 9)
+        res.update(ms=float(np.median(rounds["kernel"])),
+                   library_ms=float(np.median(rounds["sdpa"])),
+                   rounds_ms=rounds["kernel"],
+                   library_rounds_ms=rounds["sdpa"],
+                   timed_by="CUDA graphs of 50 calls, 9 rounds in turns")
+    pairs = causal_pairs(Sq, Sk) * H
+    flops = 4 * hd * pairs
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bound_ops = flops / H100_BF16_FLOPS * 1e3
+    bound_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    res.update(bound_ms=max(bound_ops, bound_bytes), flops=flops,
+               bytes=n_bytes, visible_pairs=pairs,
+               bound_by="operations" if bound_ops >= bound_bytes
+               else "bytes")
+    log(f"{tag}: flash q [{H}, {Sq}, {hd}] x k/v [{HK}, {Sk}, {hd}] bf16 "
+        f"causal: route {route}, splits {splits}; kernel "
+        f"{res['ms'] * 1e3:.3f} us, SDPA ({how}) "
+        f"{res['library_ms'] * 1e3:.3f} us, plain at the last "
+        f"{res['rows']} positions {plain * 1e3:.3f} us ({res['timed_by']});"
+        f" bound {res['bound_ms'] * 1e3:.3f} us by {res['bound_by']} "
+        f"({flops} flops over {pairs} visible pairs, {n_bytes} bytes); "
+        f"kernel vs plain at the last {res['rows']} positions: max abs err "
+        f"{err:.3e}, row err {row:.3e} (limit {FA_ROW_TOL}; planted "
+        f"faults, {tile}-key "
+        f"tile, ring of {stages}: "
+        f"{json.dumps({n: round(e, 6) for n, e in faults.items()})}); vs "
+        f"SDPA {lib_err:.3e}; clocks, power, temperature {_clocks()}")
+    del q, k, v, o, ws
+    torch.cuda.empty_cache()
+    return res
+
+
+def _held_vs_dryrun(cell, state, tag: str) -> dict:
+    """The bytes the materialized cell holds on the card, group by group,
+    equal to the dry run's per-device argument bytes."""
+    held, want = state.held_bytes(), cell.argument_bytes()
+    check(held == want, f"{tag}: the card holds {held}, the dry run says "
+          f"{want}")
+    return held
+
+
+def _cell_launches(fa_kernel) -> tuple:
+    fa = fa_kernel.flash_attention_cuda
+    return fa.launches, {r: n for r, n in fa.route_launches.items() if n}
+
+
+def prefill_32k_cell(steps_mod, mesh_mod, fa_kernel, cfg, dev, seed: int,
+                     batch: int = CELL_BATCH["prefill_32k"]) -> tuple:
+    """Phase 16 (b): ``prefill_32k`` reduced to ``batch`` requests through
+    ``build_cell(cfg, shape, make_host_mesh())``: the materialized
+    weights and cache equal to the dry run's argument bytes, one prefill
+    (one ``tc`` launch a layer, the cache's index at the prompt's end,
+    finite logits), its time and the peak memory.  Returns (the model,
+    the record)."""
+    from repro_torch.configs.base import SHAPES
+    tag = "phase 16 (b)"
+    shape = dataclasses.replace(SHAPES["prefill_32k"], global_batch=batch)
+    cell = steps_mod.build_cell(cfg, shape, mesh_mod.make_host_mesh(dev))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = cell.materialize(dev, seed)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    held = _held_vs_dryrun(cell, state, tag)
+    fa_kernel.reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = cell.run(state)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    launches, routes = _cell_launches(fa_kernel)
+    n_attn = layer_counts(cfg)["attn"]
+    check(launches == n_attn and routes == {"tc": n_attn},
+          f"{tag}: {launches} flash launches {routes}, want {n_attn} tc")
+    check(cache["index"] == shape.seq_len, f"{tag}: index {cache['index']}")
+    check(tuple(logits.shape) == (batch, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()), f"{tag}: logits")
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    res = dict(batch=batch, seq_len=shape.seq_len, held=held,
+               launches=launches, routes=routes, build_s=build_s,
+               prefill_s=prefill_s, peak_bytes=peak,
+               tokens_per_s=batch * shape.seq_len / prefill_s)
+    log(f"{tag}: prefill_32k_{cfg.name.replace('-', '_').replace('.', '')}"
+        f"_B{batch}: {sum(p.numel() for p in state.model.parameters())} "
+        f"parameters; the card holds {held['params'] / 1e9:.3f} GB of "
+        f"weights + {held['cache'] / 1e9:.3f} GB of cache + "
+        f"{held['batch']} B of tokens = {held['total']} B, equal to the "
+        f"dry run's per-device argument bytes; build {build_s:.3f} s; one "
+        f"prefill of {shape.seq_len} tokens {prefill_s:.3f} s "
+        f"({res['tokens_per_s']:.1f} tokens/s); flash launches {routes}; "
+        f"max_memory_allocated {peak / 1e9:.3f} GB")
+    model = state.model
+    del state, cache, logits
+    return model, res
+
+
+def decode_32k_cell(steps_mod, mesh_mod, fa_kernel, cfg, model, dev,
+                    seed: int, batch: int = CELL_BATCH["decode_32k"],
+                    steps: int = CELL_DECODE_STEPS) -> dict:
+    """Phase 16 (c): ``decode_32k`` reduced to ``batch`` requests through
+    ``build_cell`` on ``model``'s weights: the cache filled with seeded
+    random bf16 K/V and its index at ``seq_len - 1`` (the step writes the
+    last position and attends over all of them; a fresh cache would
+    read one key), its bytes and the weights' equal to the dry run's; one
+    step (one ``decode`` launch a layer, the split count the plan gives)
+    whose logits equal ``Model.decode_step``'s on the same weights and
+    cache bit for bit; the step's time over ``steps`` repeats against
+    its bound, the weights and the cache read once at 3.35 TB/s."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.parallel.sharding import leaves
+    tag = "phase 16 (c)"
+    shape = dataclasses.replace(SHAPES["decode_32k"], global_batch=batch)
+    L = shape.seq_len
+    cell = steps_mod.build_cell(cfg, shape, mesh_mod.make_host_mesh(dev))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    state = cell.materialize(dev, seed, model=model)
+    cache = state.args["cache"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    t0 = time.perf_counter()
+    for _, t in leaves(cache):
+        t.normal_(generator=gen)
+    _sync(dev)
+    fill_s = time.perf_counter() - t0
+    held = _held_vs_dryrun(cell, state, tag)
+    cache["index"] = L - 1
+    fa_kernel.reset_counts()
+    logits, _ = cell.run(state)
+    _sync(dev)
+    launches, routes = _cell_launches(fa_kernel)
+    n_attn = layer_counts(cfg)["attn"]
+    check(launches == n_attn and routes == {"decode": n_attn},
+          f"{tag}: {launches} flash launches {routes}, want {n_attn} "
+          f"decode")
+    check(cache["index"] == L, f"{tag}: index {cache['index']}")
+    hd, G = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+    splits = (fa_kernel.plan(torch.bfloat16, hd, G, L,
+                             batch * cfg.n_kv_heads,
+                             fa_kernel.n_sms(dev.index or 0))[1]
+              if dev.type == "cuda" else None)
+    cache["index"] = L - 1
+    with torch.inference_mode():
+        again, _ = state.model.decode_step(state.args["token"], cache)
+    check(torch.equal(logits, again), f"{tag}: the cell's decode step "
+          f"!= Model.decode_step, max diff "
+          f"{float((logits - again).abs().max())}")
+    check(bool(torch.isfinite(logits).all()), f"{tag}: logits")
+    times = []
+    for _ in range(steps):
+        cache["index"] = L - 1
+        t0 = time.perf_counter()
+        cell.run(state)
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    bound = (held["params"] + held["cache"]) / H100_BYTES_PER_S * 1e3
+    res = dict(batch=batch, seq_len=L, held=held, launches=launches,
+               routes=routes, splits=splits, fill_s=fill_s,
+               step_ms=float(np.median(times)), step_ms_all=times,
+               bound_ms=bound, peak_bytes=peak)
+    log(f"{tag}: decode_32k_{cfg.name.replace('-', '_').replace('.', '')}"
+        f"_B{batch}: the card holds {held['params'] / 1e9:.3f} GB of "
+        f"weights + {held['cache'] / 1e9:.3f} GB of cache (seeded random "
+        f"bf16, filled in {fill_s:.3f} s) + {held['batch']} B of tokens = "
+        f"{held['total']} B, equal to the dry run's per-device argument "
+        f"bytes; flash launches {routes}, {splits} splits; logits equal "
+        f"Model.decode_step's bit for bit; a step {res['step_ms']:.3f} ms "
+        f"(median of {steps}: {[round(t, 3) for t in times]}) against its "
+        f"bound {bound:.3f} ms (the weights and the cache once at "
+        f"{H100_BYTES_PER_S:.3g} B/s); max_memory_allocated "
+        f"{peak / 1e9:.3f} GB")
+    del state, cache, logits, again
+    return res
+
+
+CELL_SMALL = {"prefill": (64, 2), "decode": (96, 2)}   # (seq_len, batch)
+
+
+def cell_small_vs_cpu(get_config, fa_kernel, dev, seed: int, mode: str,
+                      dtype: str = "float32") -> dict:
+    """``build_cell``'s prefill or decode step at llama3-8b's smoke config
+    (:func:`small_serve_config`; bf16 at head_dim 128, where the ``tc``
+    and ``decode`` routes run) on the card against the CPU, the same
+    weights and inputs on both (a decode step from a cache of seeded
+    K/V at its last position): logits within 1e-3 in f32 and within
+    ``SERVE_BF16_TOL`` (absolute) in bf16, as the small serves.  Returns
+    the largest difference and the card's flash launches by route."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.parallel.sharding import leaves
+    head_dim = SERVE_BF16_HEAD_DIM if dtype == "bfloat16" else 0
+    cfg = small_serve_config(get_config, dtype, head_dim)
+    S, B = CELL_SMALL[mode]
+    shape = ShapeConfig(f"{mode}_small", S, B, mode)
+    cell = steps_mod.build_cell(cfg, shape, mesh_mod.make_host_mesh(dev))
+    cpu = cell.materialize("cpu", seed)
+    card = cell.materialize(dev, seed, model=copy.deepcopy(cpu.model).to(dev))
+    if mode == "decode":
+        gen = torch.Generator().manual_seed(seed + 17)
+        cards = dict(leaves(card.args["cache"]))
+        for path, t in leaves(cpu.args["cache"]):
+            t.normal_(generator=gen)
+            cards[path].copy_(t)
+        cpu.args["cache"]["index"] = card.args["cache"]["index"] = S - 1
+    lc, _ = cell.run(cpu)
+    fa_kernel.reset_counts()
+    lk, _ = cell.run(card)
+    _, routes = _cell_launches(fa_kernel)
+    tol = 1e-3 if dtype == "float32" else SERVE_BF16_TOL
+    rtol = tol if dtype == "float32" else 0.0
+    lk, lc = lk.float().cpu().numpy(), lc.float().numpy()
+    err = float(np.abs(lk - lc).max())
+    check(np.allclose(lk, lc, rtol=rtol, atol=tol), f"build_cell {mode} "
+          f"{dtype}: card logits differ from the CPU's by {err:.3e}")
+    log(f"build_cell {mode} ({cfg.name} smoke, {dtype}, head_dim "
+        f"{cfg.resolved_head_dim}, {B} x {S}) on the card == on the CPU: "
+        f"logits within atol {tol} rtol {rtol} (max abs diff {err:.3e}), "
+        f"flash calls by route {json.dumps(routes)}")
+    return dict(err=err, tol=tol, routes=routes)
+
+
+def cells_phase(fa_ref, fa_kernel, dev, seed: int) -> dict:
+    """Phase 16: (a) the dry run of every cell; (b) ``prefill_32k`` and
+    (c) ``decode_32k`` of llama3-8b at its published size through
+    ``build_cell`` on the card, the weights drawn once; then the flash
+    call of each cell held to its plain version and timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps as steps_mod
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        log(f"phase 16: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+            f"allocated on the card at the start")
+    cfg = get_config(CELL_ARCH)
+    out = {"dryrun": dryrun_every_cell(dev)}
+    model, out["prefill"] = prefill_32k_cell(steps_mod, mesh_mod, fa_kernel,
+                                             cfg, dev, seed)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["decode"] = decode_32k_cell(steps_mod, mesh_mod, fa_kernel, cfg,
+                                    model, dev, seed)
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    from repro_torch.configs.base import SHAPES
+    L = SHAPES["prefill_32k"].seq_len
+    out["flash"] = {
+        "prefill_32k": flash_32k(fa_ref, fa_kernel, cfg,
+                                 CELL_BATCH["prefill_32k"], L, L, dev,
+                                 seed, "phase 16 (b)"),
+        "decode_32k": flash_32k(fa_ref, fa_kernel, cfg,
+                                CELL_BATCH["decode_32k"], 1, L, dev, seed,
+                                "phase 16 (c)")}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 16 took {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
@@ -6235,6 +6672,9 @@ def main(argv=None) -> int:
                       args.seed)
     iq, il = int8["serve_qwen"], int8["llama3"]
     log("int8: " + json.dumps(int8, default=str))
+    torch.cuda.empty_cache()
+    cells = cells_phase(fa_ref, fa_kernel, dev, args.seed)
+    log("cells: " + json.dumps(cells, default=str))
     log(f"the whole smoke took {time.perf_counter() - t_start:.1f} s")
 
     pre, dec = ft["prefill"], ft["decode"]
@@ -6329,6 +6769,15 @@ def main(argv=None) -> int:
         "seamless_train_form_launches": et["forms"],
         "qwen_int8_serve_launches": iq["fa_launches"],
         "llama3_int8_serve_launches": il["int8"]["fa_launches"],
+        "cells_32k": {name: dict(
+            launches=cells[mode]["launches"],
+            route_launches=cells[mode]["routes"],
+            **{k: cells["flash"][name][k] for k in (
+                "route", "splits", "ms", "plain_rows_ms", "rows",
+                "bound_ms", "bound_by", "library_ms", "library_how", "err",
+                "row_err")})
+            for name, mode in (("prefill_32k", "prefill"),
+                               ("decode_32k", "decode"))},
         "encdec_shapes": {name: {k: r[k] for k in (
             "route", "launches", "ms", "plain_ms", "plain_B", "bound_ms",
             "bound_by", "library_ms", "err")} for name, r in ef.items()},

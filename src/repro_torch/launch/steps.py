@@ -1,55 +1,121 @@
-"""Step builders for every (arch x shape) cell.
+"""Step builders, abstract input specs and cell programs for every (arch
+x shape) cell.
 
 The port of ``repro/launch/steps.py``.  ``train_step`` (train_4k),
 ``prefill_step`` (prefill_32k) and ``decode_step`` (decode_32k /
-long_500k) are the three programs the launcher runs.  The port's models
-hold their weights, so the steps close over the model: ``train_step``
-takes the model's parameter dict (``TrainModel.param_dict()``) and
-updates it in place; the serving steps take no parameters.
+long_500k) are the three programs the dry run accounts and the launcher
+runs.  The port's models hold their weights, so the steps close over the
+model: ``train_step`` takes the model's parameter dict
+(``TrainModel.param_dict()``) and updates it in place; the serving steps
+take no parameters.
 
-The reference's abstract input specs and sharded programs
-(``abstract_batch``, ``input_specs``, ``build_cell``, ``CellProgram``)
-serve its dry-run and sharding, which the port has not yet: they raise
-``NotImplementedError`` naming that item.
+The abstract inputs are tensors on the ``meta`` device (the reference's
+``ShapeDtypeStruct``s): shapes and dtypes, no storage.  :func:`build_cell`
+builds a cell's :class:`CellProgram` on them: the config, the sharding
+rules over a :class:`~repro_torch.parallel.sharding.Mesh`, the model's
+hints, every argument's per-leaf specs and the step builder.  The
+program runs (:meth:`CellProgram.materialize`, :meth:`CellProgram.run`)
+only where one device holds the whole of it, a mesh of one device; a
+larger mesh is accounted by the dry run (:mod:`.dryrun`) and raises
+``NotImplementedError`` when asked to run.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import functools
+from typing import Any, Callable, Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models.transformer import Model, TrainModel
 from repro_torch.optim import adamw
+from repro_torch.parallel.sharding import (P, Mesh, ShardingRules,
+                                           device_bytes, leaves)
+from repro_torch.pmwcas import resolve_device
 
-DRYRUN = ("the dry-run and sharding (parallel/sharding.py, launch/dryrun.py)"
-          " are not ported yet (ROADMAP Queue 1 A #6)")
+MULTI_CARD = ("running a cell across more than one card (DTensor weights "
+              "and collectives inside the model) is not ported yet "
+              "(ROADMAP Queue 1 A #8)")
 
+# which per-device byte count each argument of a step falls under
+ARG_GROUPS = {"params": "params", "opt_state": "opt_state",
+              "cache": "cache", "batch": "batch", "tokens": "batch",
+              "token": "batch", "frontend_embeds": "batch"}
+
+
+# ---------------------------------------------------------------------------
+# Cell = (arch config, shape config) + numeric policy decisions
+# ---------------------------------------------------------------------------
 
 def cell_model_config(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:
-    """Per-cell numeric policy: int8 KV where bf16 cannot fit 16 GB/chip
-    (the reference's rule)."""
+    """Per-cell numeric policy (the reference's rule): qwen1.5-32b's
+    decode cells keep an int8 KV cache."""
     if shape.is_decode and cfg.name == "qwen1.5-32b":
         return dataclasses.replace(cfg, kv_dtype="int8")
     return cfg
 
 
-def abstract_batch(cfg: ModelConfig, shape: ShapeConfig):
-    raise NotImplementedError(f"abstract_batch: {DRYRUN}")
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def input_specs(cfg: ModelConfig, shape: ShapeConfig, model=None):
-    raise NotImplementedError(f"input_specs: {DRYRUN}")
+def _frames(cfg: ModelConfig, B: int) -> torch.Tensor:
+    return _meta((B, cfg.frontend_len, cfg.frontend_dim), torch.float32)
 
 
-def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, opt_cfg=None,
-               rules=None, remat: bool = True):
-    raise NotImplementedError(f"build_cell: {DRYRUN}")
+def abstract_batch(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """A training batch as ``meta`` tensors: ``tokens``/``labels [B, S]``
+    int32, and ``frontend_embeds [B, frontend_len, frontend_dim]`` float32
+    for an arch with a frontend."""
+    B, S = shape.global_batch, shape.seq_len
+    specs = {"tokens": _meta((B, S), torch.int32),
+             "labels": _meta((B, S), torch.int32)}
+    if cfg.frontend != "none":
+        specs["frontend_embeds"] = _frames(cfg, B)
+    return specs
 
 
-class CellProgram:
-    def __init__(self, *a, **kw):
-        raise NotImplementedError(f"CellProgram: {DRYRUN}")
+def abstract_model(cfg: ModelConfig, train: bool = False):
+    """The serving ``Model`` (or the ``TrainModel``) of ``cfg`` on the
+    ``meta`` device: every parameter's shape and dtype, no storage."""
+    return (TrainModel if train else Model)(cfg, device="meta", init=False)
+
+
+def abstract_cache(model: Model, batch: int, max_len: int) -> Dict[str, Any]:
+    """``model.init_cache(batch, max_len)`` as ``meta`` tensors (the
+    index stays the int 0)."""
+    if model.device.type != "meta":
+        model = abstract_model(model.cfg)
+    return model.init_cache(batch, max_len)
+
+
+def prefill_len(cfg: ModelConfig, shape: ShapeConfig) -> int:
+    """The prefill cache's positions: the prompt, and a vision prefix
+    before it (an encoder-decoder's frames are not in the cache)."""
+    return shape.seq_len + (cfg.frontend_len if cfg.frontend != "none"
+                            and not cfg.enc_dec else 0)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                model: Optional[Model] = None) -> Dict[str, Any]:
+    """``meta`` stand-ins for every model input of this cell: ``batch``
+    (train); ``tokens``, ``cache`` and ``frontend_embeds`` (prefill);
+    ``token [B, 1]`` and ``cache`` of ``seq_len`` positions (decode)."""
+    cfg = cell_model_config(cfg, shape)
+    B = shape.global_batch
+    if shape.mode == "train":
+        return {"batch": abstract_batch(cfg, shape)}
+    model = model or abstract_model(cfg)
+    if shape.mode == "prefill":
+        out = {"tokens": _meta((B, shape.seq_len), torch.int32),
+               "cache": abstract_cache(model, B, prefill_len(cfg, shape))}
+        if cfg.frontend != "none":
+            out["frontend_embeds"] = _frames(cfg, B)
+        return out
+    return {"token": _meta((B, 1), torch.int32),
+            "cache": abstract_cache(model, B, shape.seq_len)}
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +161,191 @@ def make_decode_step(model):
     return decode_step
 
 
-__all__ = ["CellProgram", "abstract_batch", "build_cell", "cell_model_config",
+# ---------------------------------------------------------------------------
+# The program of one cell
+# ---------------------------------------------------------------------------
+
+GROUPS = ("params", "opt_state", "cache", "batch")
+
+
+@dataclasses.dataclass
+class CellState:
+    """A materialized cell: the model, the step over it, and the step's
+    keyword arguments (``run`` calls ``step(**args)``; the cache and the
+    parameters are updated in place)."""
+    model: Union[Model, TrainModel]
+    step: Callable
+    args: Dict[str, Any]
+
+    def held_bytes(self) -> Dict[str, int]:
+        """Bytes the materialized tensors take, grouped as
+        :meth:`CellProgram.argument_bytes`: the model's parameters, the
+        optimizer state, the cache and the batch, and ``total``."""
+        out = dict.fromkeys(GROUPS, 0)
+        out["params"] = sum(p.numel() * p.element_size()
+                            for p in self.model.parameters())
+        for arg, tree in self.args.items():
+            if arg == "params":            # the model's, counted above
+                continue
+            tree = tree if isinstance(tree, dict) else {"": tree}
+            out[ARG_GROUPS[arg]] += sum(t.numel() * t.element_size()
+                                        for _, t in leaves(tree))
+        out["total"] = sum(out.values())
+        return out
+
+
+@dataclasses.dataclass
+class CellProgram:
+    """One cell's program: ``cfg`` after :func:`cell_model_config`, the
+    rules and the model's ``hints``; ``args``, the program's arguments as
+    ``meta`` tensors: ``params`` (the parameters by name: the training
+    masters, or the serving ``Model``'s, which the serving steps close
+    over), then the step's own, ``opt_state`` and ``batch`` when
+    training, ``tokens``, ``cache`` and ``frontend_embeds`` at prefill,
+    ``token`` and ``cache`` at decode; ``specs``, for each argument the
+    spec of each of its tensors by path, as
+    :func:`~repro_torch.parallel.sharding.leaves` walks it; and
+    ``make_step``, the step builder, given the model."""
+    cfg: ModelConfig
+    shape: ShapeConfig
+    mesh: Mesh
+    rules: ShardingRules
+    hints: Dict[str, Any]
+    mode: str
+    args: Dict[str, Any]
+    specs: Dict[str, Dict[str, P]]
+    make_step: Callable
+    opt_cfg: Optional[adamw.AdamWConfig] = None
+
+    def arg_leaves(self):
+        """``(argument, path, meta tensor, spec)`` of every tensor of the
+        program's arguments."""
+        for arg, tree in self.args.items():
+            tree = tree if isinstance(tree, dict) else {"": tree}
+            for path, t in leaves(tree):
+                yield arg, path, t, self.specs[arg][path]
+
+    def argument_bytes(self) -> Dict[str, int]:
+        """Bytes of the program's arguments one device holds, by group
+        (``params``, ``opt_state``, ``cache``, ``batch``) and ``total``:
+        each tensor's bytes under its spec on the mesh, in the dtype the
+        port holds it in (the serving ``Model``'s ``cfg.dtype``, the
+        training masters' float32).  Raises ``ValueError`` if a spec
+        does not divide its tensor (none does, by the rules' fitting)."""
+        out = dict.fromkeys(GROUPS, 0)
+        for arg, _, t, spec in self.arg_leaves():
+            out[ARG_GROUPS[arg]] += device_bytes(t.shape, t.element_size(),
+                                                 spec, self.mesh)
+        out["total"] = sum(out.values())
+        return out
+
+    def _one_device(self, what: str) -> None:
+        if self.mesh.size > 1:
+            raise NotImplementedError(
+                f"CellProgram.{what}: the mesh {self.mesh.shape} has "
+                f"{self.mesh.size} devices; {MULTI_CARD}")
+
+    def materialize(self, device="cuda", seed: int = 0,
+                    model=None) -> CellState:
+        """The model and its inputs on ``device``: ``model`` (of this
+        cell's config and kind, its weights kept) or one drawn from
+        ``seed`` there; tokens (and labels) drawn with numpy from
+        ``seed`` (the same on every device), frontend embeddings ``0.02 *``
+        a standard normal, a fresh cache (``init_cache``: zeros, index 0),
+        AdamW's zero state.  One device only."""
+        self._one_device("materialize")
+        dev = resolve_device(device)
+        cfg, B, S = self.cfg, self.shape.global_batch, self.shape.seq_len
+        if model is None:
+            cls = TrainModel if self.mode == "train" else Model
+            model = cls(cfg, device=dev, seed=seed)
+        model.hints = dict(self.hints)
+        rng = np.random.default_rng(seed)
+
+        def tokens(*shape):
+            return torch.from_numpy(rng.integers(
+                0, cfg.vocab, shape, dtype=np.int32)).to(dev)
+
+        def frames():
+            return torch.from_numpy(0.02 * rng.standard_normal(
+                (B, cfg.frontend_len, cfg.frontend_dim),
+                dtype=np.float32)).to(dev)
+
+        if self.mode == "train":
+            params = model.param_dict()
+            batch = {"tokens": tokens(B, S), "labels": tokens(B, S)}
+            if cfg.frontend != "none":
+                batch["frontend_embeds"] = frames()
+            args = {"params": params,
+                    "opt_state": adamw.init_state(self.opt_cfg, params),
+                    "batch": batch}
+        elif self.mode == "prefill":
+            args = {"tokens": tokens(B, S),
+                    "cache": model.init_cache(B, prefill_len(cfg,
+                                                             self.shape))}
+            if cfg.frontend != "none":
+                args["frontend_embeds"] = frames()
+        else:
+            args = {"token": tokens(B, 1),
+                    "cache": model.init_cache(B, S)}
+        return CellState(model, self.make_step(model), args)
+
+    def run(self, state: CellState):
+        """One step: ``state.step(**state.args)`` (the serving steps under
+        ``torch.inference_mode``).  One device only."""
+        self._one_device("run")
+        if self.mode == "train":
+            return state.step(**state.args)
+        with torch.inference_mode():
+            return state.step(**state.args)
+
+
+def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
+               opt_cfg: Optional[adamw.AdamWConfig] = None,
+               rules: Optional[ShardingRules] = None,
+               remat: bool = True) -> CellProgram:
+    """The cell's program on ``mesh``: the config after
+    :func:`cell_model_config`, the rules (the defaults on ``mesh`` unless
+    given), the hints (``activation_hints``; the residual stream
+    sequence-sharded only when training), and the specs of every
+    argument: parameters by the rules, AdamW's ``m``/``v``/``ef`` as their
+    parameter and its ``step`` replicated, the batch and the tokens over
+    the batch axes, the cache by the rules."""
+    cfg = cell_model_config(cfg, shape)
+    rules = rules or ShardingRules(mesh=mesh, cfg=cfg)
+    train = shape.mode == "train"
+    hints = rules.activation_hints(shape.global_batch, shape.seq_len,
+                                   use_seq_sharding=train)
+    model = abstract_model(cfg, train=train)
+    named = dict(model.named_parameters())
+    pspecs = rules.params_pspecs(named)
+    inputs = input_specs(cfg, shape, None if train else model)
+    if train:
+        opt_cfg = opt_cfg or adamw.AdamWConfig()
+        opt_state = adamw.init_state(opt_cfg, named)
+        ospecs = {"step": P()}
+        for k in opt_state:
+            if k != "step":
+                ospecs.update({f"{k}/{n}": s for n, s in pspecs.items()})
+        args = {"params": named, "opt_state": opt_state, **inputs}
+        specs = {"params": pspecs, "opt_state": ospecs,
+                 "batch": rules.batch_pspecs(inputs["batch"])}
+        make_step = functools.partial(make_train_step, opt_cfg=opt_cfg,
+                                      remat=remat)
+    else:
+        args = {"params": named, **inputs}
+        specs = {"params": pspecs,
+                 "cache": rules.cache_pspecs(inputs["cache"])}
+        for name, t in inputs.items():
+            if name != "cache":      # the tokens and the frames
+                specs[name] = {"": rules.batch_pspecs({name: t})[name]}
+        make_step = (make_prefill_step if shape.mode == "prefill"
+                     else make_decode_step)
+    return CellProgram(cfg, shape, mesh, rules, hints, shape.mode, args,
+                       specs, make_step, opt_cfg)
+
+
+__all__ = ["CellProgram", "CellState", "abstract_batch", "abstract_cache",
+           "abstract_model", "build_cell", "cell_model_config",
            "input_specs", "make_decode_step", "make_prefill_step",
-           "make_train_step"]
+           "make_train_step", "prefill_len"]

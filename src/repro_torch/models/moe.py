@@ -24,9 +24,9 @@ is later speed work).  What must match the reference exactly, and how:
   default for matrix products): routing flips on an ulp of a logit.
 
 ``ecd_hint``, ``gather_hint`` and ``group_hint`` are the reference's
-sharding constraints; they are accepted and ignored until the port has
-sharding (ROADMAP Queue 1 A #6).  ``groups`` is honoured: it enforces
-capacity per group of tokens, which changes which tokens drop.
+sharding constraints; they are accepted and have no effect on one
+device, the only mesh the port runs on.  ``groups`` is honoured: it
+enforces capacity per group of tokens, which changes which tokens drop.
 """
 from __future__ import annotations
 

@@ -224,7 +224,7 @@ class Layer(nn.Module):
 
 def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
                 layer_cache=None, cache_index: int = 0, cross_kv=None,
-                causal: bool = True):
+                causal: bool = True, moe_groups: int = 1):
     """One sublayer's forward: ``p`` maps ``ln1``, the mixer, with a
     ``cross`` group ``ln_cross`` and ``cross``, and unless ``ffn="none"``
     ``ln2`` and ``mlp`` or ``moe`` to the weights
@@ -234,9 +234,11 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
     ``causal=False`` makes the self-attention non-causal (the encoder).
     ``cross_kv`` (the unit's cross K/V ``[B, KV, Sk, hd]``) runs the
     cross-attention after the mixer: non-causal, no RoPE, the keys at
-    ``arange(Sk)``.  Returns ``(x, aux, state)``: the MoE layer's aux
-    loss (a float32 tensor; 0 after a decode step's dense path), 0.0
-    without one; the recurrent layer's new state, None for attention."""
+    ``arange(Sk)``.  ``moe_groups`` is the MoE capacity path's number of
+    token groups (the model's ``hints``).  Returns ``(x, aux, state)``:
+    the MoE layer's aux loss (a float32 tensor; 0 after a decode step's
+    dense path), 0.0 without one; the recurrent layer's new state, None
+    for attention."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     state = None
     if spec.kind == "attn":
@@ -278,7 +280,8 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
     else:
         y, aux = moe_mod.apply_moe(
             p["moe"], h, top_k=cfg.moe.top_k,
-            capacity_factor=cfg.moe.capacity_factor, act=cfg.act)
+            capacity_factor=cfg.moe.capacity_factor, act=cfg.act,
+            groups=moe_groups)
     return x + y, aux, state
 
 
@@ -363,7 +366,12 @@ class Model(nn.Module):
     """``Model(cfg, device=..., seed=...)`` draws random weights from a
     ``torch.Generator`` on ``device`` seeded with ``seed``;
     ``init=False`` only allocates them (see
-    :func:`repro_torch.models.convert.params_from_numpy`)."""
+    :func:`repro_torch.models.convert.params_from_numpy`).
+    ``hints`` (set by :func:`repro_torch.launch.steps.build_cell`) is the
+    reference's dict of activation hints: only ``moe_groups`` acts (the
+    MoE capacity path routes that many groups of tokens on their own);
+    the placement hints have no effect on one device, the only mesh the
+    port runs on."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
                  init: bool = True):
@@ -371,6 +379,7 @@ class Model(nn.Module):
         check_supported(cfg)
         self.cfg = cfg
         self.dtype = dtype_of(cfg.dtype)
+        self.hints: Dict[str, Any] = {}
         device = torch.device(device)
         kg = KeyGen(seed, device) if init else None
         mode = "normal" if init else "empty"
@@ -438,7 +447,8 @@ class Model(nn.Module):
                     self.cfg, spec, unit[name].weights(), x,
                     positions=positions,
                     layer_cache={k: t[u] for k, t in c.items()},
-                    cache_index=cache_index, cross_kv=cross_kv)
+                    cache_index=cache_index, cross_kv=cross_kv,
+                    moe_groups=self.hints.get("moe_groups", 1))
                 for k, t in (state or {}).items():
                     c[k][u] = t
         return x
@@ -512,7 +522,12 @@ class TrainModel(nn.Module):
     device=..., seed=...)`` draws them from a ``torch.Generator`` on
     ``device`` seeded with ``seed`` (:meth:`init_params`); ``init=False``
     only allocates them (see
-    :func:`repro_torch.models.convert.params_from_numpy`)."""
+    :func:`repro_torch.models.convert.params_from_numpy`).
+    ``hints`` (set by :func:`repro_torch.launch.steps.build_cell`) is the
+    reference's dict of activation hints: only ``moe_groups`` acts (the
+    MoE capacity path routes that many groups of tokens on their own);
+    the placement hints have no effect on one device, the only mesh the
+    port runs on."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
                  init: bool = True):
@@ -520,6 +535,7 @@ class TrainModel(nn.Module):
         check_supported(cfg)
         self.cfg = cfg
         self.dtype = dtype_of(cfg.dtype)
+        self.hints: Dict[str, Any] = {}
         pdt = dtype_of(cfg.param_dtype)
         device = torch.device(device)
         self.embed = _params(init_embed(None, cfg.padded_vocab, cfg.d_model,
@@ -590,7 +606,8 @@ class TrainModel(nn.Module):
         for i, spec in enumerate(self.cfg.unit):
             p = unit[f"layer{i}"].weights(self.dtype)
             x, a, _ = apply_layer(self.cfg, spec, p, x, positions=positions,
-                                  cross_kv=cross_kv)
+                                  cross_kv=cross_kv,
+                                  moe_groups=self.hints.get("moe_groups", 1))
             aux = aux + a
         return x, aux
 

@@ -42,6 +42,10 @@ rows of every bf16 magnitude included), ``_sdpa_chunked_quant`` within
 llama3-8b and qwen1.5-32b smoke configs served with an int8 cache within
 the small serves' limits, with no flash launch; the planted faults (the
 cast without its clamp, one int8 value flipped) read above each limit.
+
+Cell programs: ``build_cell``'s prefill and decode steps at llama3-8b's
+smoke config on the card against the CPU within the small serves'
+limits.
 """
 import dataclasses
 import importlib.util
@@ -1139,3 +1143,24 @@ def test_int8_small_serve_card_vs_cpu(cuda, arch, monkeypatch):
         assert r["flash"] == 0
         assert r["faults"] and all(e > r["tol"]
                                    for e in r["faults"].values())
+
+
+# ---------------------------------------------------------------------------
+# cell programs (chip_smoke.py phase 16)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["prefill", "decode"])
+def test_build_cell_card_vs_cpu(cuda, mode, dtype):
+    """``build_cell``'s prefill and decode steps at llama3-8b's smoke
+    config on the card against the CPU: f32 within 1e-3, bf16 (head_dim
+    128) within ``SERVE_BF16_TOL``; every layer's flash call on the route
+    the plan gives."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = chip_smoke.cell_small_vs_cpu(get_config, fa_kernel, cuda, 0,
+                                       mode, dtype)
+    assert out["err"] <= out["tol"]
+    want = ("decode" if mode == "decode"
+            else "tc" if dtype == "bfloat16" else "simt")
+    assert out["routes"] == {want: get_config("llama3-8b",
+                                              smoke=True).n_layers}

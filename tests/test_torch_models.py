@@ -286,24 +286,13 @@ def test_params_from_numpy_refuses_mismatch():
 
 
 # ---------------------------------------------------------------------------
-# what is not ported raises
+# a KV dtype the port does not know
 # ---------------------------------------------------------------------------
 
-def test_unported_paths_raise():
-    """What the port still refuses: the dry run's abstract specs and
-    sharded programs (ROADMAP Queue 1 A #6) raise ``NotImplementedError``
-    naming that item; a KV dtype neither bf16 nor int8 is no config at
-    all (``ValueError``)."""
-    from repro_torch.configs.base import SHAPES
-    from repro_torch.launch import steps
+def test_unknown_kv_dtype_raises():
+    """A KV dtype neither bf16 nor int8 is no config at all
+    (``ValueError``), for the model and for the cache alike."""
     cfg = get_config("llama3-8b", smoke=True)
-    shape = SHAPES["decode_32k"]
-    for call in (lambda: steps.abstract_batch(cfg, shape),
-                 lambda: steps.input_specs(cfg, shape),
-                 lambda: steps.build_cell(cfg, shape, None),
-                 lambda: steps.CellProgram(cfg, shape)):
-        with pytest.raises(NotImplementedError, match="Queue 1 A #6"):
-            call()
     fp8 = dataclasses.replace(cfg, kv_dtype="fp8")
     with pytest.raises(ValueError, match="fp8"):
         Model(fp8, device="cpu")

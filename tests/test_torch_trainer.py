@@ -167,7 +167,8 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
 
 def test_step_builders(tmp_path):
     """``make_prefill_step`` / ``make_decode_step`` run the serving model;
-    the dry-run's pieces raise naming the sharding item."""
+    the dry run's pieces build the train cell on ``meta`` tensors, and its
+    program's train step runs on the host mesh."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import SHAPES
     from repro_torch.launch import steps
@@ -184,8 +185,15 @@ def test_step_builders(tmp_path):
         assert c.shape == (2, cfg.padded_vocab)
     assert steps.cell_model_config(
         cfg, SHAPES["train_4k"]) is cfg
-    for fn in (steps.abstract_batch, steps.input_specs):
-        with pytest.raises(NotImplementedError, match="sharding"):
-            fn(cfg, SHAPES["train_4k"])
-    with pytest.raises(NotImplementedError, match="sharding"):
-        steps.build_cell(cfg, SHAPES["train_4k"], mesh=None)
+    from repro_torch.launch.mesh import make_host_mesh
+    batch = steps.abstract_batch(cfg, SHAPES["train_4k"])
+    assert set(steps.input_specs(cfg, SHAPES["train_4k"])) == {"batch"}
+    assert {k: (t.device.type, tuple(t.shape)) for k, t in batch.items()} \
+        == {k: ("meta", (256, 4096)) for k in ("tokens", "labels")}
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=8,
+                                global_batch=2)
+    cell = steps.build_cell(cfg, shape, make_host_mesh("cpu"))
+    state = cell.materialize("cpu", seed=0)
+    _, opt_state, metrics = cell.run(state)
+    assert int(opt_state["step"]) == 1
+    assert torch.isfinite(metrics["loss"])
