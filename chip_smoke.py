@@ -277,7 +277,7 @@ Phases, in order; any failure exits non-zero:
    every spec divides, one line a cell with its per-device argument GB
    and whether it fits the card (jamba-v0.1 at 32 layers does not); (b)
    ``prefill_32k_llama3_8b_B1``: llama3-8b at its published size through
-   ``build_cell(cfg, prefill_32k at batch 1, make_host_mesh())``, the
+   ``build_cell(cfg, prefill_32k at batch 1, one_card_mesh())``, the
    weights and the 32,768-position cache the card holds equal to the dry
    run's per-device argument bytes, one prefill with 32 ``tc`` launches;
    (c) ``decode_32k_llama3_8b_B8``: the same weights through
@@ -289,7 +289,26 @@ Phases, in order; any failure exits non-zero:
    32768, 128]`` x k/v ``[8, 32768, 128]``; q ``[256, 1, 128]`` x k/v
    ``[64, 32768, 128]``) against its plain version (at prefill the last
    256 rows against every key) with planted faults above the row limit,
-   timed beside its bound and SDPA.
+   timed beside its bound and SDPA;
+17. one cell across the cards of a mesh (``parallel/{group,collectives}.py``,
+   ``CellProgram.materialize(group=...)``) -- (a) phase 16 (c)'s cell
+   through a one-rank NCCL group on its weights, filled cache and token:
+   the bytes the dry run's, logits equal to (c)'s bit for bit, 32
+   ``decode`` launches, no collective; (b) on a host of four or more
+   cards, four processes, one a card, run ``MESH_CELLS``:
+   ``prefill_32k_llama3_8b_B32_4x1`` (32 prompts of 32,768 tokens, FSDP
+   and the batch over ``data``) and ``decode_32k_llama3_8b_B32_1x4`` (32
+   requests over a 32,768-position cache of seeded bf16, heads over
+   ``model``): each rank's bytes the dry run's and its collectives the
+   trace's, every flash launch on the route the plan gives, the prefill's
+   seconds and the decode step's ms (median of 5) with the time in the
+   collectives, rank 0's logits against one card's ``Model.prefill`` /
+   ``decode_step`` on the gathered weights (and cache), the prefill bit
+   for bit, the decode's distance from the f32 step within 1.5 times one
+   card's (``MESH_F32_FACTOR``) and from one card within twice it, which
+   the planted faults (a rank's query heads rolled; the all-reduce after
+   ``wo`` skipped) exceed, each rank's flash call timed beside SDPA
+   (``scripts/mesh_cell.py`` runs (b) alone).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``{"kernels": [...]}`` record, and the line before that the
@@ -6332,7 +6351,7 @@ def _cell_launches(fa_kernel) -> tuple:
 def prefill_32k_cell(steps_mod, mesh_mod, fa_kernel, cfg, dev, seed: int,
                      batch: int = CELL_BATCH["prefill_32k"]) -> tuple:
     """Phase 16 (b): ``prefill_32k`` reduced to ``batch`` requests through
-    ``build_cell(cfg, shape, make_host_mesh())``: the materialized
+    ``build_cell(cfg, shape, one_card_mesh())``: the materialized
     weights and cache equal to the dry run's argument bytes, one prefill
     (one ``tc`` launch a layer, the cache's index at the prompt's end,
     finite logits), its time and the peak memory.  Returns (the model,
@@ -6340,7 +6359,7 @@ def prefill_32k_cell(steps_mod, mesh_mod, fa_kernel, cfg, dev, seed: int,
     from repro_torch.configs.base import SHAPES
     tag = "phase 16 (b)"
     shape = dataclasses.replace(SHAPES["prefill_32k"], global_batch=batch)
-    cell = steps_mod.build_cell(cfg, shape, mesh_mod.make_host_mesh(dev))
+    cell = steps_mod.build_cell(cfg, shape, one_card_mesh())
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -6381,7 +6400,8 @@ def prefill_32k_cell(steps_mod, mesh_mod, fa_kernel, cfg, dev, seed: int,
 
 def decode_32k_cell(steps_mod, mesh_mod, fa_kernel, cfg, model, dev,
                     seed: int, batch: int = CELL_BATCH["decode_32k"],
-                    steps: int = CELL_DECODE_STEPS) -> dict:
+                    steps: int = CELL_DECODE_STEPS,
+                    keep: Optional[dict] = None) -> dict:
     """Phase 16 (c): ``decode_32k`` reduced to ``batch`` requests through
     ``build_cell`` on ``model``'s weights: the cache filled with seeded
     random bf16 K/V and its index at ``seq_len - 1`` (the step writes the
@@ -6390,13 +6410,15 @@ def decode_32k_cell(steps_mod, mesh_mod, fa_kernel, cfg, model, dev,
     step (one ``decode`` launch a layer, the split count the plan gives)
     whose logits equal ``Model.decode_step``'s on the same weights and
     cache bit for bit; the step's time over ``steps`` repeats against
-    its bound, the weights and the cache read once at 3.35 TB/s."""
+    its bound, the weights and the cache read once at 3.35 TB/s.  With
+    ``keep`` the cell, its filled state and the step's logits are put
+    there (phase 17 runs the same step through a process group)."""
     from repro_torch.configs.base import SHAPES
     from repro_torch.parallel.sharding import leaves
     tag = "phase 16 (c)"
     shape = dataclasses.replace(SHAPES["decode_32k"], global_batch=batch)
     L = shape.seq_len
-    cell = steps_mod.build_cell(cfg, shape, mesh_mod.make_host_mesh(dev))
+    cell = steps_mod.build_cell(cfg, shape, one_card_mesh())
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     state = cell.materialize(dev, seed, model=model)
@@ -6454,11 +6476,20 @@ def decode_32k_cell(steps_mod, mesh_mod, fa_kernel, cfg, model, dev,
         f"bound {bound:.3f} ms (the weights and the cache once at "
         f"{H100_BYTES_PER_S:.3g} B/s); max_memory_allocated "
         f"{peak / 1e9:.3f} GB")
+    if keep is not None:
+        keep.update(cell=cell, state=state, logits=logits)
     del state, cache, logits, again
     return res
 
 
 CELL_SMALL = {"prefill": (64, 2), "decode": (96, 2)}   # (seq_len, batch)
+
+
+def one_card_mesh():
+    """The mesh of one card (phase 16's cells run there on a host of any
+    number of cards)."""
+    from repro_torch.parallel.sharding import Mesh
+    return Mesh((1, 1), ("data", "model"))
 
 
 def cell_small_vs_cpu(get_config, fa_kernel, dev, seed: int, mode: str,
@@ -6471,14 +6502,13 @@ def cell_small_vs_cpu(get_config, fa_kernel, dev, seed: int, mode: str,
     ``SERVE_BF16_TOL`` (absolute) in bf16, as the small serves.  Returns
     the largest difference and the card's flash launches by route."""
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps as steps_mod
     from repro_torch.parallel.sharding import leaves
     head_dim = SERVE_BF16_HEAD_DIM if dtype == "bfloat16" else 0
     cfg = small_serve_config(get_config, dtype, head_dim)
     S, B = CELL_SMALL[mode]
     shape = ShapeConfig(f"{mode}_small", S, B, mode)
-    cell = steps_mod.build_cell(cfg, shape, mesh_mod.make_host_mesh(dev))
+    cell = steps_mod.build_cell(cfg, shape, one_card_mesh())
     cpu = cell.materialize("cpu", seed)
     card = cell.materialize(dev, seed, model=copy.deepcopy(cpu.model).to(dev))
     if mode == "decode":
@@ -6505,11 +6535,13 @@ def cell_small_vs_cpu(get_config, fa_kernel, dev, seed: int, mode: str,
     return dict(err=err, tol=tol, routes=routes)
 
 
-def cells_phase(fa_ref, fa_kernel, dev, seed: int) -> dict:
+def cells_phase(fa_ref, fa_kernel, dev, seed: int,
+                keep: Optional[dict] = None) -> dict:
     """Phase 16: (a) the dry run of every cell; (b) ``prefill_32k`` and
     (c) ``decode_32k`` of llama3-8b at its published size through
     ``build_cell`` on the card, the weights drawn once; then the flash
-    call of each cell held to its plain version and timed."""
+    call of each cell held to its plain version and timed.  ``keep``
+    receives (c)'s cell, state and logits."""
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps as steps_mod
@@ -6524,7 +6556,7 @@ def cells_phase(fa_ref, fa_kernel, dev, seed: int) -> dict:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     out["decode"] = decode_32k_cell(steps_mod, mesh_mod, fa_kernel, cfg,
-                                    model, dev, seed)
+                                    model, dev, seed, keep=keep)
     del model
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -6539,6 +6571,516 @@ def cells_phase(fa_ref, fa_kernel, dev, seed: int) -> dict:
                                 "phase 16 (c)")}
     out["wall_s"] = time.perf_counter() - t0
     log(f"phase 16 took {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: one cell across the cards of a mesh
+# ---------------------------------------------------------------------------
+
+# name -> (shape, mesh ("data", "model"), requests): llama3-8b at its
+# published size; 32 requests' 32k cache is 137.4 GB, 34.36 GB a card
+MESH_CELLS = {
+    "prefill_32k_llama3_8b_B32_4x1": ("prefill_32k", (4, 1), 32),
+    "decode_32k_llama3_8b_B32_1x4": ("decode_32k", (1, 4), 32)}
+# the same meshes at llama3-8b's smoke config in bf16 at head_dim 128
+# (the tc and decode routes) with 4 kv heads (2 would shard the cache's
+# sequence over a model axis of 4): 8 x 256 tokens, 8 requests over 512
+MESH_SMALL = {"prefill_32k": (256, 8), "decode_32k": (512, 8)}
+MESH_RANKS = 4
+MESH_CHECKED = 4          # decode requests held against one card
+MESH_STEPS = 5            # timed decode steps
+# the ranks' join deadline: phase 17 (b) took 85.8 s at full size on four
+# H100s, so a hung rank fails the phase inside the smoke's own limit
+MESH_TIMEOUT_S = 240.0
+# rank 0's logits against one card's: the prefill's FSDP gathers every
+# weight whole and sums no product in another order, so bit for bit (0).
+# The decode's all-reduce over "model" adds the cards' bf16 partial
+# products of wo (each rounded) where one card's product rounds once; its
+# gate is rank 0's distance from the same step run in f32 on one card
+# (the exact result) against one card's own: within MESH_F32_FACTOR times
+# it (full size on four H100s: 0.257 against 0.225; the planted faults
+# read above 6).  Beside it, rank 0 against one card within
+# MESH_ONE_CARD_FACTOR times that distance (0.273 read against 0.449).
+MESH_F32_FACTOR = 1.5
+MESH_ONE_CARD_FACTOR = 2.0
+MESH_FAULTS = ("head_slice", "no_wo_all_reduce")
+
+
+def _gathered_model(cell, model, group, dev):
+    """A one-card ``Model`` of ``cell``'s config holding the whole of every
+    parameter, all-gathered from the ranks' shards in ``model`` (every
+    rank gets it)."""
+    from repro_torch.launch.steps import model_holding
+    from repro_torch.parallel.collectives import Collectives
+    from repro_torch.parallel.group import gather_full
+    coll = Collectives(group)
+    return model_holding(cell.cfg, {
+        name: gather_full(t.detach(), cell.specs["params"][name], coll).to(dev)
+        for name, t in model.named_parameters()})
+
+
+def plant_mesh_fault(model, fault: str, rank: int):
+    """Plant ``fault`` in this rank's sharded model and return its undo:
+    ``head_slice``, rank 0's query heads rolled by one head in every layer
+    (it attends with another head's query); ``no_wo_all_reduce``, every
+    rank skips the all-reduce after the attention's ``wo``."""
+    if fault == "head_slice":
+        if rank != 0:
+            return lambda: None
+        hd = model.cfg.resolved_head_dim
+        ws = [unit["layer0"].attn["wq"] for unit in model.units]
+        for w in ws:
+            w.data = torch.roll(w.data, hd, dims=1)
+        return lambda: [setattr(w, "data", torch.roll(w.data, -hd, dims=1))
+                        for w in ws]
+    par = model.par
+    reduce = par.reduce
+    par.reduce = lambda t, name: t if name == "attn/wo" else reduce(t, name)
+    return lambda: setattr(par, "reduce", reduce)
+
+
+def _barrier(dev) -> None:
+    import torch.distributed as dist
+    _sync(dev)
+    dist.barrier()
+
+
+def _mesh_cell_config(small: bool):
+    from repro_torch.configs import get_config
+    if small:
+        return small_serve_config(get_config, "bfloat16", SERVE_BF16_HEAD_DIM,
+                                  over={"n_kv_heads": 4})
+    return get_config(CELL_ARCH)
+
+
+def _mesh_shape(shape_name: str, batch: int, small: bool):
+    from repro_torch.configs.base import SHAPES
+    shape = dataclasses.replace(SHAPES[shape_name], global_batch=batch)
+    if small:
+        L, B = MESH_SMALL[shape_name]
+        shape = dataclasses.replace(shape, seq_len=L, global_batch=B)
+    return shape
+
+
+def _run_rank_cell(fa_kernel, cell, state, dev):
+    """One step of this rank's part, the collectives timed: (logits,
+    seconds, collective seconds, launches, routes, records)."""
+    coll = state.model.par.coll
+    coll.reset()
+    fa_kernel.reset_counts()
+    _barrier(dev)
+    t0 = time.perf_counter()
+    logits, _ = cell.run(state)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    launches, routes = _cell_launches(fa_kernel)
+    return (logits, secs, coll.seconds(), launches, routes,
+            list(coll.records))
+
+
+def _mesh_prefill(steps_mod, fa_ref, fa_kernel, cfg, shape, group, rank,
+                  dev, seed, small) -> dict:
+    """The prefill cell on this rank: held bytes, one timed prefill (the
+    plan's route on every layer, the collectives against the trace), the
+    head-slice fault, then rank 0's request 0 against one card's
+    ``Model.prefill`` on the gathered weights."""
+    from repro_torch.parallel.collectives import tally
+    cell = steps_mod.build_cell(cfg, shape, group.mesh)
+    traced, _ = cell.trace()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = cell.materialize(dev, seed, group=group)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    state.model.par.coll.timed = dev.type == "cuda"
+    out = dict(held=state.held_bytes(), want=cell.argument_bytes(),
+               build_s=build_s)
+    logits, out["step_s"], out["collective_s"], out["launches"], \
+        out["routes"], records = _run_rank_cell(fa_kernel, cell, state, dev)
+    out["records_equal_trace"] = records == traced
+    out["collectives"], out["traced"] = tally(records), tally(traced)
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                         if dev.type == "cuda" else 0)
+    B_local, S = state.args["tokens"].shape
+    hd, G = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+    out["plan"] = (fa_kernel.plan(torch.bfloat16, hd, G * S, S,
+                                  B_local * cfg.n_kv_heads,
+                                  fa_kernel.n_sms(dev.index or 0))
+                   if dev.type == "cuda" else None)
+    mine = logits[0].float().cpu()
+    out["finite"] = bool(torch.isfinite(logits).all())
+    undo = plant_mesh_fault(state.model, "head_slice", rank)
+    state.args["cache"]["index"] = 0
+    faulted = cell.run(state)[0][0].float().cpu()
+    undo()
+    model = state.model
+    del state, logits
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    full = _gathered_model(cell, model, group, dev)
+    del model
+    if rank == 0:
+        tok = np.random.default_rng(seed).integers(
+            0, cfg.vocab, (shape.global_batch, shape.seq_len),
+            dtype=np.int32)[:1]
+        with torch.inference_mode():
+            want, _ = full.prefill(torch.from_numpy(tok).to(dev),
+                                   full.init_cache(1, shape.seq_len))
+        want = want[0].float().cpu()
+        out["one_card_err"] = float((mine - want).abs().max())
+        out["limit"] = 0.0
+        out["faults"] = {"head_slice": float((faulted - want).abs().max())}
+    del full
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if not small:
+        out["flash"] = flash_32k(fa_ref, fa_kernel, cfg, B_local, S, S, dev,
+                                 seed, f"phase 17 (b) rank {rank} prefill")
+    return out
+
+
+def _mesh_decode(steps_mod, fa_ref, fa_kernel, cfg, shape, group, rank, dev,
+                 seed, small) -> dict:
+    """The decode cell on this rank: the cache filled with seeded random
+    bf16 (this rank's shard from its own generator) at index L - 1, held
+    bytes, one step (the plan's route and splits on every layer, the
+    collectives against the trace) and ``MESH_STEPS`` timed; the planted
+    faults; then rank 0's first ``MESH_CHECKED`` requests against one
+    card's ``Model.decode_step`` on the gathered weights and cache."""
+    from repro_torch.parallel.collectives import Collectives, tally
+    from repro_torch.parallel.group import gather_full
+    from repro_torch.parallel.sharding import P
+    cell = steps_mod.build_cell(cfg, shape, group.mesh)
+    traced, _ = cell.trace()
+    L = shape.seq_len
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = cell.materialize(dev, seed, group=group)
+    gen = torch.Generator(device=dev).manual_seed(seed + 17 + group.rank)
+    cache = state.args["cache"]
+    _fill_normal(cache, gen)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    state.model.par.coll.timed = dev.type == "cuda"
+    out = dict(held=state.held_bytes(), want=cell.argument_bytes(),
+               build_s=build_s)
+    cache["index"] = L - 1
+    logits, _, _, out["launches"], out["routes"], records = _run_rank_cell(
+        fa_kernel, cell, state, dev)
+    out["records_equal_trace"] = records == traced
+    out["collectives"], out["traced"] = tally(records), tally(traced)
+    B_local = state.args["token"].shape[0]
+    hd, G = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+    kv_local = cfg.n_kv_heads // state.model.par.tp
+    out["plan"] = (fa_kernel.plan(torch.bfloat16, hd, G, L,
+                                  B_local * kv_local,
+                                  fa_kernel.n_sms(dev.index or 0))
+                   if dev.type == "cuda" else None)
+    times, coll_s = [], []
+    for _ in range(MESH_STEPS):
+        cache["index"] = L - 1
+        _, secs, cs, *_ = _run_rank_cell(fa_kernel, cell, state, dev)
+        times.append(secs * 1e3)
+        coll_s.append(cs * 1e3)
+    out.update(step_ms=float(np.median(times)), step_ms_all=times,
+               collective_ms=float(np.median(coll_s)),
+               collective_ms_all=coll_s,
+               peak_bytes=(torch.cuda.max_memory_allocated()
+                           if dev.type == "cuda" else 0),
+               finite=bool(torch.isfinite(logits).all()))
+    gather = Collectives(group)
+    n = MESH_CHECKED
+    lspec = P(None, cell.hints["logits"][2])
+
+    def head_logits(lg):
+        return gather_full(lg[:n], lspec, gather).float().cpu()
+
+    mine = head_logits(logits)
+    faulted = {}
+    for fault in MESH_FAULTS:
+        undo = plant_mesh_fault(state.model, fault, rank)
+        cache["index"] = L - 1
+        faulted[fault] = head_logits(cell.run(state)[0])
+        undo()
+    token = state.args["token"]
+    # the first requests' cache, every kv head (the batch is not split on
+    # this mesh: "data" is one card)
+    layers = {name: {k: gather_full(t[:, :n].contiguous(),
+                                    cell.specs["cache"][f"layers/{name}/{k}"],
+                                    gather)
+                     for k, t in layer.items()}
+              for name, layer in cache["layers"].items()}
+    model = state.model
+    del state, cache, logits
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    full = _gathered_model(cell, model, group, dev)
+    del model
+    if rank == 0:
+        from repro_torch.launch.steps import model_holding
+        cache1 = {"layers": layers, "index": L - 1}
+        with torch.inference_mode():
+            want, _ = full.decode_step(token[:n].to(dev), cache1)
+            exact = model_holding(
+                dataclasses.replace(cfg, dtype="float32"),
+                {k: t.float() for k, t in full.named_parameters()})
+            del full
+            cache1["index"] = L - 1
+            truth, _ = exact.decode_step(token[:n].to(dev), cache1)
+            del exact
+        want, truth = want.float().cpu(), truth.float().cpu()
+        floor = float((want - truth).abs().max())
+        out.update(one_card_err=float((mine - want).abs().max()),
+                   f32_err=float((mine - truth).abs().max()),
+                   one_card_f32_err=floor,
+                   f32_limit=MESH_F32_FACTOR * floor,
+                   limit=MESH_ONE_CARD_FACTOR * floor,
+                   faults={f: float((g - want).abs().max())
+                           for f, g in faulted.items()},
+                   faults_f32={f: float((g - truth).abs().max())
+                               for f, g in faulted.items()})
+    else:
+        del full
+    del layers
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if not small:
+        # the rank's call, q [B * n_heads / tp, 1, hd] x k/v [B *
+        # n_kv_heads / tp, L, hd], is flash_32k's at B * kv_local /
+        # n_kv_heads requests of every head
+        out["flash"] = flash_32k(fa_ref, fa_kernel, cfg,
+                                 B_local * kv_local // cfg.n_kv_heads, 1, L,
+                                 dev, seed,
+                                 f"phase 17 (b) rank {rank} decode")
+    return out
+
+
+def _fill_normal(cache, gen) -> None:
+    """Every cache leaf drawn from ``gen`` (in a scope of its own: no name
+    outlives the loop holding a leaf of the cache alive)."""
+    from repro_torch.parallel.sharding import leaves
+    for _, t in leaves(cache):
+        t.normal_(generator=gen)
+
+
+def mesh_rank(rank: int, tmp: str, seed: int, small: bool,
+              device: str) -> None:
+    """One rank of phase 17 (b), a process of its own: its card alone
+    (``CUDA_VISIBLE_DEVICES``), the two cells of ``MESH_CELLS`` on their
+    meshes through ``build_cell`` and ``materialize(group=...)``, its
+    results written to ``tmp/rank<r>.json``."""
+    import os
+    if device == "cuda":
+        os.environ["CUDA_VISIBLE_DEVICES"] = str(rank)
+        # the prefill's ~30 GB of transients beside 38 GB held: free blocks
+        # of the whole model drawn and cut must not strand them
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.parallel.group import destroy_mesh_group, init_mesh_group
+    from repro_torch.parallel.sharding import Mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    cfg = _mesh_cell_config(small)
+    out = {"rank": rank}
+    try:
+        for name, (shape_name, sizes, batch) in MESH_CELLS.items():
+            mesh = Mesh(sizes, ("data", "model"))
+            group = init_mesh_group(mesh, rank, pathlib.Path(tmp) / "store",
+                                    dev)
+            if dev.type == "cuda":
+                dev = group.device
+            shape = _mesh_shape(shape_name, batch, small)
+            run = _mesh_prefill if shape.mode == "prefill" else _mesh_decode
+            out[name] = run(steps_mod, fa_ref, fa_kernel, cfg, shape, group,
+                            rank, dev, seed, small)
+            out[name]["mesh"] = mesh.shape
+    finally:
+        destroy_mesh_group()
+    (pathlib.Path(tmp) / f"rank{rank}.json").write_text(
+        json.dumps(out, default=str))
+
+
+def mesh_cells(seed: int, small: bool = False, device: str = "cuda",
+               timeout: float = MESH_TIMEOUT_S) -> dict:
+    """Phase 17 (b): ``MESH_RANKS`` processes (``mesh_rank``, the
+    ``spawn`` context) run the cells of ``MESH_CELLS`` (at the smoke
+    config with ``small``), joined within ``timeout`` s (the rest
+    terminated and the phase failed).  Checks: every rank holds the dry
+    run's bytes and issued the traced collectives; every flash launch on
+    every rank took the route ``plan`` gives (``tc`` at prefill, ``decode``
+    at decode; on the card); rank 0's logits against one card's (the
+    prefill bit for bit; the decode's distance from the f32 step within
+    ``MESH_F32_FACTOR`` times one card's, and its distance from one card
+    within ``MESH_ONE_CARD_FACTOR`` times it), which every planted fault
+    exceeds.  Returns the ranks' records by cell."""
+    import multiprocessing as mp
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, tmp, seed, small, device))
+                 for r in range(MESH_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            alive = [p for p in procs if p.is_alive()]
+            for p in alive:
+                p.terminate()
+                p.join(30)
+        check(not alive, f"phase 17 (b): {len(alive)} ranks still ran after "
+              f"{timeout} s")
+        codes = [p.exitcode for p in procs]
+        check(not any(codes), f"phase 17 (b): ranks exited {codes}")
+        ranks = [json.loads((pathlib.Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(MESH_RANKS)]
+    out = {"wall_s": time.perf_counter() - t0, "small": small}
+    for name, (shape_name, sizes, _) in MESH_CELLS.items():
+        tag = f"phase 17 (b) {name}{' (smoke config)' if small else ''}"
+        recs = [r[name] for r in ranks]
+        for r, rec in enumerate(recs):
+            check(rec["held"] == rec["want"], f"{tag}: rank {r} holds "
+                  f"{rec['held']}, the dry run says {rec['want']}")
+            check(rec["records_equal_trace"], f"{tag}: rank {r} issued "
+                  f"{rec['collectives']}, the trace {rec['traced']}")
+            check(rec["finite"], f"{tag}: rank {r}'s logits")
+            if device == "cuda":
+                route = rec["plan"][0]
+                want = "tc" if shape_name == "prefill_32k" else "decode"
+                n = _mesh_cell_config(small).n_layers
+                check(route == want and rec["routes"] == {route: n},
+                      f"{tag}: rank {r} launched {rec['routes']}, the plan "
+                      f"gives {rec['plan']}, want {n} {want}")
+        head = recs[0]
+        if "f32_err" in head:
+            check(head["f32_err"] <= head["f32_limit"], f"{tag}: rank 0's "
+                  f"logits read {head['f32_err']} from the f32 step, above "
+                  f"{MESH_F32_FACTOR} x one card's {head['one_card_f32_err']}")
+            check(min(head["faults_f32"].values()) > head["f32_limit"],
+                  f"{tag}: a planted fault reads {head['faults_f32']} from "
+                  f"the f32 step, within {head['f32_limit']}")
+        check(head["one_card_err"] <= head["limit"], f"{tag}: rank 0's "
+              f"logits differ from one card's by {head['one_card_err']}, "
+              f"above {head['limit']}")
+        check(min(head["faults"].values()) > head["limit"], f"{tag}: a "
+              f"planted fault reads {head['faults']}, within "
+              f"{head['limit']}")
+        step = ("step_s" if shape_name == "prefill_32k" else "step_ms")
+        log(f"{tag}: mesh {dict(zip(('data', 'model'), sizes))}; per rank "
+            f"held (GB) {[round(x['held']['total'] / 1e9, 3) for x in recs]}"
+            f" == the dry run's; peak (GB) "
+            f"{[round(x['peak_bytes'] / 1e9, 3) for x in recs]}; "
+            f"{step} {[x[step] for x in recs]}"
+            + (f" (median of {MESH_STEPS}; all {recs[0]['step_ms_all']})"
+               if step == "step_ms" else "")
+            + f"; in collectives "
+            f"{[x.get('collective_ms', x.get('collective_s')) for x in recs]}"
+            f" {'ms' if step == 'step_ms' else 's'}; flash launches "
+            f"{[x['routes'] for x in recs]}, plan {recs[0]['plan']}; "
+            f"collectives issued {json.dumps(recs[0]['collectives'])} == "
+            f"traced; "
+            + (f"rank 0 vs the f32 step: max abs err {head['f32_err']:.4e} "
+               f"(limit {head['f32_limit']:.4e}: {MESH_F32_FACTOR} x one "
+               f"card's {head['one_card_f32_err']:.4e}), planted faults "
+               f"{json.dumps(head['faults_f32'])}; "
+               if "f32_err" in head else "")
+            + f"rank 0 vs one card: max abs err "
+            f"{head['one_card_err']:.4e} (limit {head['limit']:.4e}"
+            + (f": {MESH_ONE_CARD_FACTOR} x one card's distance from the "
+               f"f32 step" if "f32_err" in head else ", bit for bit")
+            + f"), planted faults "
+            f"{json.dumps(head['faults'])}")
+        for r, rec in enumerate(recs):
+            if "flash" in rec:
+                f = rec["flash"]
+                log(f"{tag}: rank {r} flash route {f['route']} (splits "
+                    f"{f['splits']}): kernel {f['ms']:.3f} ms, SDPA "
+                    f"{f['library_ms']:.3f} ms, bound {f['bound_ms']:.3f} ms "
+                    f"by {f['bound_by']}, err {f['err']:.3e}")
+        out[name] = recs
+    log(f"phase 17 (b) took {out['wall_s']:.1f} s")
+    return out
+
+
+def one_rank_decode(fa_kernel, kept: dict, dev, seed: int) -> dict:
+    """Phase 17 (a): phase 16 (c)'s cell through a one-rank process group
+    (NCCL on the card): ``materialize(group=..., model=..., cache=...)``
+    holding (c)'s weights and filled cache (no copy), its token put in,
+    the bytes equal to the dry run's; one
+    step whose logits equal (c)'s bit for bit, with (c)'s flash launches
+    (32 on ``decode``) and no collective."""
+    from repro_torch.parallel.group import destroy_mesh_group, init_mesh_group
+    tag = "phase 17 (a)"
+    cell, state = kept["cell"], kept["state"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        group = init_mesh_group(cell.mesh, 0, pathlib.Path(tmp) / "store",
+                                dev)
+        try:
+            init_s = time.perf_counter() - t0
+            mine = cell.materialize(dev, seed, model=state.model,
+                                    group=group, cache=state.args["cache"])
+            mine.args["token"] = state.args["token"]
+            held = _held_vs_dryrun(cell, mine, tag)
+            mine.args["cache"]["index"] = cell.shape.seq_len - 1
+            fa_kernel.reset_counts()
+            t1 = time.perf_counter()
+            logits, _ = cell.run(mine)
+            _sync(dev)
+            step_ms = (time.perf_counter() - t1) * 1e3
+            launches, routes = _cell_launches(fa_kernel)
+            records = list(mine.model.par.coll.records)
+        finally:
+            destroy_mesh_group()
+    n_attn = layer_counts(cell.cfg)["attn"]
+    check(torch.equal(logits, kept["logits"]), f"{tag}: logits differ from "
+          f"phase 16 (c)'s by {float((logits - kept['logits']).abs().max())}")
+    check(launches == n_attn and routes == {"decode": n_attn},
+          f"{tag}: {launches} flash launches {routes}, want {n_attn} decode")
+    check(records == [], f"{tag}: a one-rank group issued {records}")
+    res = dict(mesh=cell.mesh.shape, cards=torch.cuda.device_count()
+               if dev.type == "cuda" else 0, launches=launches,
+               routes=routes, held=held, init_s=init_s, step_ms=step_ms,
+               wall_s=time.perf_counter() - t0)
+    log(f"{tag}: decode_32k_llama3_8b_B{cell.shape.global_batch} through a "
+        f"one-rank {'NCCL' if dev.type == 'cuda' else 'gloo'} group on mesh "
+        f"{cell.mesh.shape} ({res['cards']} cards on the host): the card "
+        f"holds {held['total']} B, the dry run's; logits equal phase 16 "
+        f"(c)'s bit for bit; flash launches {routes}; no collective; group "
+        f"up in {init_s:.3f} s, the step {step_ms:.3f} ms (first call), the "
+        f"phase {res['wall_s']:.3f} s")
+    return res
+
+
+def mesh_phase(fa_kernel, kept: dict, dev, seed: int) -> dict:
+    """Phase 17: (a) :func:`one_rank_decode`; (b) on a host of
+    ``MESH_RANKS`` or more cards, :func:`mesh_cells` at full size."""
+    t0 = time.perf_counter()
+    out = {"one_rank": one_rank_decode(fa_kernel, kept, dev, seed)}
+    kept.clear()
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if cards >= MESH_RANKS:
+        torch.cuda.empty_cache()
+        out["mesh"] = mesh_cells(seed)
+    else:
+        log(f"phase 17 (b): {cards} card(s) on this host; the four-card "
+            f"cells {list(MESH_CELLS)} need {MESH_RANKS} "
+            f"(scripts/mesh_cell.py runs them)")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 17 took {out['wall_s']:.1f} s")
     return out
 
 
@@ -6673,8 +7215,12 @@ def main(argv=None) -> int:
     iq, il = int8["serve_qwen"], int8["llama3"]
     log("int8: " + json.dumps(int8, default=str))
     torch.cuda.empty_cache()
-    cells = cells_phase(fa_ref, fa_kernel, dev, args.seed)
+    kept = {}
+    cells = cells_phase(fa_ref, fa_kernel, dev, args.seed, keep=kept)
     log("cells: " + json.dumps(cells, default=str))
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(fa_kernel, kept, dev, args.seed)
+    log("mesh: " + json.dumps(mesh, default=str))
     log(f"the whole smoke took {time.perf_counter() - t_start:.1f} s")
 
     pre, dec = ft["prefill"], ft["decode"]
@@ -6778,6 +7324,14 @@ def main(argv=None) -> int:
                 "row_err")})
             for name, mode in (("prefill_32k", "prefill"),
                                ("decode_32k", "decode"))},
+        "mesh_one_rank_launches": mesh["one_rank"]["launches"],
+        "mesh_one_rank_route_launches": mesh["one_rank"]["routes"],
+        "mesh_cells": {name: dict(
+            mesh=recs[0]["mesh"],
+            rank_launches=[r["launches"] for r in recs],
+            rank_route_launches=[r["routes"] for r in recs])
+            for name, recs in mesh.get("mesh", {}).items()
+            if name in MESH_CELLS},
         "encdec_shapes": {name: {k: r[k] for k in (
             "route", "launches", "ms", "plain_ms", "plain_B", "bound_ms",
             "bound_by", "library_ms", "err")} for name, r in ef.items()},

@@ -5,7 +5,11 @@ dispatched by device.
 A CUDA tensor goes to the hand-written Hopper kernel
 (:func:`.kernel.flash_attention_cuda`); a CPU tensor goes to the plain
 PyTorch version (:mod:`.ref`).  There is no switch between the two: the
-tensors' device decides, so the card never runs the plain version.
+tensors' device decides, so the card never runs the plain version.  A
+``meta`` tensor (the dry run's trace) gets a ``meta`` output through the
+two products of a dense attention, ``q k^T`` and ``p v``, so that
+``FlopCounterMode`` counts ``4 * H * Sq * Sk * hd``, as it counts
+scaled-dot-product attention (no mask skipped).
 """
 from __future__ import annotations
 
@@ -25,10 +29,19 @@ def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               window=int(window), attn_cap=float(attn_cap))
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, q_pos, k_pos, **kw)
+    if q.device.type == "meta":
+        return _meta_products(q, k, v, int(g))
     if q.device.type != "cpu":
         raise ValueError(f"no flash_attention for device {q.device}")
     check_inputs(q, k, v, q_pos, k_pos, g)
     return ref.flash_attention_flat(q, k, v, q_pos, k_pos, **kw)
+
+
+def _meta_products(q, k, v, g: int) -> torch.Tensor:
+    H, Sq, hd = q.shape
+    HK, Sk, _ = k.shape
+    s = q.reshape(HK, g * Sq, hd) @ k.transpose(1, 2)
+    return (s @ v).reshape(H, Sq, v.shape[-1]).to(q.dtype)
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -15,10 +15,23 @@ a decode step, N the active parameters).
 
 The reference reads FLOPs, bytes accessed, temporary memory and
 collective bytes from XLA's compiled program.  The port has no such
-compiler, and its collectives would need more than one card, so those
-fields are ``null``; the roofline terms it prints are named for what they
-divide: the model FLOPs by the card's 989 TFLOP/s, the argument bytes by
-its 3.35 TB/s.
+compiler: it traces the program instead.  For every cell that runs on a
+mesh (the dense archs' prefill and decode where no cache spec shards the
+sequence, :func:`repro_torch.launch.steps.mesh_refusal`),
+:meth:`~repro_torch.launch.steps.CellProgram.trace` runs rank 0's step
+on ``meta`` tensors over the cell's mesh, its collectives recorded as
+they are issued (kind, count and per-device output bytes, the
+reference's output-shape proxy) and its FLOPs counted by
+``FlopCounterMode`` (``flops_per_device``; the flash kernel's as a dense
+attention's, no causal mask skipped).  As the reference's accounting
+builds do, the dry run traces the cell at one and at two units and takes
+the rest as repeats of the second (every unit issues the same products
+and collectives): the full trace's numbers, in a fraction of its time.  Every other cell keeps those
+fields ``null``, with a ``null_because`` that names its ROADMAP item;
+bytes accessed and temporary memory are ``null`` everywhere (no
+compiler).  The roofline terms it prints are named for what they divide:
+the model FLOPs by the card's 989 TFLOP/s, the argument bytes by its
+3.35 TB/s.
 
 Usage::
 
@@ -37,6 +50,7 @@ cpu``).  Writes one JSON a cell under ``experiments/dryrun_torch/``
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import sys
@@ -45,13 +59,20 @@ import traceback
 
 from repro_torch.configs import ALIASES, SHAPES, get_config, shapes_for
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.launch.steps import build_cell, cell_model_config
+from repro_torch.launch.steps import (build_cell, cell_model_config,
+                                     mesh_refusal)
+from repro_torch.parallel.collectives import tally
 from repro_torch.parallel.sharding import ShardingRules
 
 OUT_DIR = (pathlib.Path(__file__).resolve().parents[3] / "experiments"
            / "dryrun_torch")
 MESH_TAGS = {"single": "sp", "multi": "mp", "host": "host"}
-NOT_DERIVED = "no compiler; collectives need more than one card"
+NO_COMPILER = "no compiler: the port traces its program and reads no " \
+    "compiled one"
+NOT_TRACED = "; the dry run traces what runs on a mesh (its collectives " \
+    "and FLOPs: ROADMAP Queue 1 A #8.5)"
+TRACED_BY = ("rank 0's step on meta tensors: collectives as issued (the "
+             "reference's output-shape proxy), FLOPs by FlopCounterMode")
 
 
 def make_mesh(mesh: str, device="cuda"):
@@ -70,6 +91,55 @@ def model_flops(cfg, shape) -> int:
     if shape.mode == "prefill":
         return 2 * n * shape.seq_len
     return 2 * n
+
+
+def accounting(cell) -> dict:
+    """The cell's traced FLOPs and collectives a device (null, with the
+    reason, where the program does not run on a mesh), and the compiler's
+    fields, null."""
+    out = {"flops_per_device": None, "collective_bytes_per_device": None,
+           "collective_counts": None,
+           "collective_total_bytes_per_device": None,
+           "bytes_accessed_per_device": None, "temp_bytes": None}
+    why = {"bytes_accessed_per_device": NO_COMPILER,
+           "temp_bytes": NO_COMPILER}
+    refusal = mesh_refusal(cell, any_mesh=True)
+    if refusal:
+        for k in ("flops_per_device", "collective_bytes_per_device",
+                  "collective_counts", "collective_total_bytes_per_device"):
+            why[k] = refusal + NOT_TRACED
+    else:
+        t, flops = traced(cell)
+        out.update(flops_per_device=flops,
+                   collective_bytes_per_device=t["bytes"],
+                   collective_counts=t["counts"],
+                   collective_total_bytes_per_device=t["total_bytes"],
+                   traced_by=TRACED_BY)
+    out["null_because"] = why
+    return out
+
+
+def traced(cell):
+    """``(tally, flops)`` of ``cell``'s step a device, from traces of the
+    cell cut to one and to two units: one unit's, plus ``n_units - 1``
+    times the second unit's."""
+    u = len(cell.cfg.unit)
+    parts = []
+    for n in (1, 2):
+        cut = build_cell(dataclasses.replace(cell.cfg, n_layers=n * u),
+                         cell.shape, cell.mesh, rules=cell.rules)
+        records, flops = cut.trace()
+        parts.append((tally(records), flops))
+    (t1, f1), (t2, f2) = parts
+    reps = cell.cfg.n_units - 1
+
+    def extrap(a, b):
+        return a + reps * (b - a)
+
+    t = {k: {kind: extrap(t1[k][kind], t2[k][kind]) for kind in t1[k]}
+         for k in ("bytes", "counts")}
+    t["total_bytes"] = extrap(t1["total_bytes"], t2["total_bytes"])
+    return t, extrap(f1, f2)
 
 
 def cell_file(arch: str, shape_name: str, mesh: str, tag: str = ""):
@@ -96,6 +166,9 @@ def run_cell(arch: str, shape_name: str, mesh: str = "single",
     args = cell.argument_bytes()
     t_build = time.perf_counter() - t0
     flops = model_flops(cell.cfg, shape)
+    t0 = time.perf_counter()
+    acct = accounting(cell)
+    t_trace = time.perf_counter() - t0
     report = {
         "arch": arch,
         "shape": shape.name,
@@ -117,11 +190,8 @@ def run_cell(arch: str, shape_name: str, mesh: str = "single",
             / mesh_lib.PEAK_FLOPS_BF16,
             "argument_bytes_at_hbm_s": args["total"] / mesh_lib.HBM_BW,
         },
-        "compiler": {"hlo_flops_per_device": None,
-                     "bytes_accessed_per_device": None,
-                     "temp_bytes": None,
-                     "collective_bytes_per_device": None,
-                     "null_because": NOT_DERIVED},
+        "accounting": acct,
+        "t_trace_s": round(t_trace, 3),
         "tag": tag,
     }
     if write:
@@ -162,13 +232,19 @@ def main(argv=None) -> int:
         try:
             rep = run_cell(arch, sn, m, device=args.device)
             b, rf = rep["argument_bytes_per_device"], rep["roofline"]
+            a = rep["accounting"]
+            traced = ("not traced" if a["flops_per_device"] is None else
+                      f"traced {a['flops_per_device']:.4e} FLOPs, "
+                      f"collectives {a['collective_counts']} of "
+                      f"{a['collective_total_bytes_per_device'] / 1e9:.3f} GB")
             print(f"  ok: args {b['total'] / 1e9:.3f} GB/device (params "
                   f"{b['params'] / 1e9:.3f}, opt {b['opt_state'] / 1e9:.3f},"
                   f" cache {b['cache'] / 1e9:.3f}, batch "
                   f"{b['batch'] / 1e9:.6f}); model FLOPs at peak "
                   f"{rf['model_flops_at_peak_s']:.4f} s, argument bytes at "
-                  f"HBM {rf['argument_bytes_at_hbm_s']:.4f} s (build "
-                  f"{rep['t_build_s']} s)", flush=True)
+                  f"HBM {rf['argument_bytes_at_hbm_s']:.4f} s; {traced} "
+                  f"a device (build {rep['t_build_s']} s, trace "
+                  f"{rep['t_trace_s']} s)", flush=True)
         except Exception as e:  # noqa: BLE001 - report and continue
             failures.append((path.stem, repr(e)))
             print(f"  FAIL {path.stem}: {e}", flush=True)

@@ -8,9 +8,11 @@ The port of ``repro/launch/report.py``::
 A cell fits when its per-device argument bytes fit the card's memory:
 ``torch.cuda.get_device_properties(0).total_memory`` where a card is
 present, else the H100 data sheet's 80 GB.  The dry run derives no
-temporary memory, so a cell that fits here may still not run.  Fields
-the port leaves ``null`` (temporary bytes, collectives, the compiler's
-FLOPs) print as ``-``.
+temporary memory, so a cell that fits here may still not run.  The traced
+collectives (all-gather and all-reduce counts, the bytes of all kinds a
+device) and FLOPs a device print where the dry run traced the cell;
+fields the port leaves ``null`` (temporary bytes everywhere, the traced
+fields of a cell that does not run on a mesh) print as ``-``.
 """
 from __future__ import annotations
 
@@ -57,34 +59,42 @@ def fmt_s(x):
     return "-" if x is None else f"{x:.4f}"
 
 
+def fmt_count(counts, kind):
+    return "-" if counts is None else str(counts[kind])
+
+
 def dryrun_table(rows, memory: int, label: str) -> str:
     out = [f"| arch | shape | args GB/dev | params | opt state | cache | "
            f"batch | temp GB/dev | args fit {memory / 1e9:.1f} GB "
-           f"({label}) | kv | collective bytes/dev | build s |",
-           "|---|---|---|---|---|---|---|---|---|---|---|---|"]
+           f"({label}) | kv | collective GB/dev | all-gathers | "
+           f"all-reduces | build s |",
+           "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
     for r in rows:
-        b, c = r["argument_bytes_per_device"], r["compiler"]
+        b, a = r["argument_bytes_per_device"], r["accounting"]
         fits = "yes" if b["total"] <= memory else "NO"
+        counts = a["collective_counts"]
         out.append(
             f"| {r['arch']} | {r['shape']} | {fmt_gb(b['total'])} | "
             f"{fmt_gb(b['params'])} | {fmt_gb(b['opt_state'])} | "
             f"{fmt_gb(b['cache'])} | {fmt_gb(b['batch'])} | "
-            f"{fmt_gb(c['temp_bytes'])} | {fits} | {r['kv_dtype']} | "
-            f"{fmt_gb(c['collective_bytes_per_device'])} | "
-            f"{r['t_build_s']} |")
+            f"{fmt_gb(a['temp_bytes'])} | {fits} | {r['kv_dtype']} | "
+            f"{fmt_gb(a['collective_total_bytes_per_device'])} | "
+            f"{fmt_count(counts, 'all-gather')} | "
+            f"{fmt_count(counts, 'all-reduce')} | {r['t_build_s']} |")
     return "\n".join(out)
 
 
 def roofline_table(rows) -> str:
     out = ["| arch | shape | model FLOPs at 989 TFLOP/s, s | argument "
-           "bytes at 3.35 TB/s, s | larger | MODEL_FLOPS/HLO | what would "
-           "move it |",
+           "bytes at 3.35 TB/s, s | larger | MODEL_FLOPS/traced FLOPs | "
+           "what would move it |",
            "|---|---|---|---|---|---|---|"]
     for r in rows:
         rf = r["roofline"]
         f, b = rf["model_flops_at_peak_s"], rf["argument_bytes_at_hbm_s"]
-        hlo = r["compiler"]["hlo_flops_per_device"]
-        ratio = "-" if not hlo else f"{r['model_flops_per_device'] / hlo:.3f}"
+        traced = r["accounting"]["flops_per_device"]
+        ratio = ("-" if not traced else
+                 f"{r['model_flops_per_device'] / traced:.3f}")
         out.append(
             f"| {r['arch']} | {r['shape']} | {fmt_s(f)} | {fmt_s(b)} | "
             f"{'flops' if f >= b else 'bytes'} | {ratio} | {_hint(r)} |")

@@ -13,11 +13,22 @@ The abstract inputs are tensors on the ``meta`` device (the reference's
 ``ShapeDtypeStruct``s): shapes and dtypes, no storage.  :func:`build_cell`
 builds a cell's :class:`CellProgram` on them: the config, the sharding
 rules over a :class:`~repro_torch.parallel.sharding.Mesh`, the model's
-hints, every argument's per-leaf specs and the step builder.  The
-program runs (:meth:`CellProgram.materialize`, :meth:`CellProgram.run`)
-only where one device holds the whole of it, a mesh of one device; a
-larger mesh is accounted by the dry run (:mod:`.dryrun`) and raises
-``NotImplementedError`` when asked to run.
+hints, every argument's per-leaf specs and the step builder.
+
+The program runs (:meth:`CellProgram.materialize`, :meth:`CellProgram.run`)
+on a mesh of one device as it stands, and on a mesh of more than one as
+explicit SPMD: one process a device, each joined to the mesh's process
+group (:func:`repro_torch.parallel.group.init_mesh_group`) and holding
+only its shards of the parameters, the cache and the batch, on plain
+local tensors.  The dense decoder's serving steps run so: each layer's
+FSDP weights all-gathered over the data axes just before use, the
+attention on the rank's heads (the flash kernel on local q, k and v), an
+all-reduce over the model axis after each row-parallel product (``wo``)
+and after the vocabulary-parallel embedding lookup, the logits left
+split over the vocabulary.  What else a mesh would need raises
+``NotImplementedError`` naming its ROADMAP item (:func:`mesh_refusal`).
+:meth:`CellProgram.trace` runs rank 0's step on ``meta`` tensors through
+recording collectives: the dry run's collective bytes and FLOPs.
 """
 from __future__ import annotations
 
@@ -27,17 +38,32 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.transformer import Model, TrainModel
 from repro_torch.optim import adamw
+from repro_torch.parallel.collectives import TP_AXES, Collectives, Spmd
+from repro_torch.parallel.group import MeshGroup, local_shard
 from repro_torch.parallel.sharding import (P, Mesh, ShardingRules,
                                            device_bytes, leaves)
 from repro_torch.pmwcas import resolve_device
 
-MULTI_CARD = ("running a cell across more than one card (DTensor weights "
-              "and collectives inside the model) is not ported yet "
-              "(ROADMAP Queue 1 A #8)")
+# what a mesh of more than one device does not run yet, by ROADMAP item
+MULTI_CARD = {
+    "moe": "MoE and Mamba layers on a mesh of more than one device are "
+           "not ported yet (ROADMAP Queue 1 A #8.1: jamba-v0.1 on four "
+           "cards)",
+    "train": "a training step on a mesh of more than one device is not "
+             "ported yet (ROADMAP Queue 1 A #8.2: llama3-8b's train_4k on "
+             "four cards)",
+    "split": "a cache sharded over its sequence, or heads, the MLP's "
+             "width or the vocabulary that do not split evenly over the "
+             "model axis, is not ported yet (ROADMAP Queue 1 A #8.3)",
+    "stacks": "xLSTM, encoder-decoder and vision-prefix stacks on a mesh "
+              "of more than one device are not ported yet (ROADMAP Queue 1 "
+              "A #8.4)",
+}
 
 # which per-device byte count each argument of a step falls under
 ARG_GROUPS = {"params": "params", "opt_state": "opt_state",
@@ -239,32 +265,85 @@ class CellProgram:
         out["total"] = sum(out.values())
         return out
 
-    def _one_device(self, what: str) -> None:
-        if self.mesh.size > 1:
-            raise NotImplementedError(
-                f"CellProgram.{what}: the mesh {self.mesh.shape} has "
-                f"{self.mesh.size} devices; {MULTI_CARD}")
+    def _check_group(self, group) -> None:
+        """Raise unless ``group`` is a rank of this program's mesh (or
+        None on a mesh of one device) and the program runs there."""
+        if group is None:
+            if self.mesh.size > 1:
+                raise ValueError(f"the mesh {self.mesh.shape} has "
+                                 f"{self.mesh.size} devices: pass the rank's "
+                                 f"group (parallel.group.init_mesh_group)")
+            return
+        if group.mesh != self.mesh:
+            raise ValueError(f"the group's mesh {group.mesh.shape} "
+                             f"({group.mesh.size} ranks) is not the "
+                             f"program's {self.mesh.shape}")
+        reason = mesh_refusal(self)
+        if reason:
+            raise NotImplementedError(f"{self.cfg.name} {self.shape.name} on "
+                                      f"{self.mesh.shape}: {reason}")
 
-    def materialize(self, device="cuda", seed: int = 0,
-                    model=None) -> CellState:
+    def _local_model(self, model, dev, seed: int, group) -> Model:
+        """A serving ``Model`` holding this rank's shard of every
+        parameter of ``model`` (or of one drawn from ``seed`` on ``dev``,
+        whole, then cut: every mesh computes with the same global
+        weights)."""
+        full = model if model is not None else Model(
+            self.cfg, device=dev, seed=seed, init=dev.type != "meta")
+        specs = self.specs["params"]
+        local = model_holding(self.cfg, {
+            name: local_shard(t.detach(), specs[name], group, dev)
+            for name, t in full.named_parameters()})
+        if model is None and dev.type == "cuda":
+            del full           # the whole model's blocks back to the card
+            torch.cuda.empty_cache()
+        return local
+
+    def materialize(self, device="cuda", seed: int = 0, model=None,
+                    group=None, cache=None) -> CellState:
         """The model and its inputs on ``device``: ``model`` (of this
         cell's config and kind, its weights kept) or one drawn from
         ``seed`` there; tokens (and labels) drawn with numpy from
         ``seed`` (the same on every device), frontend embeddings ``0.02 *``
         a standard normal, a fresh cache (``init_cache``: zeros, index 0),
-        AdamW's zero state.  One device only."""
-        self._one_device("materialize")
-        dev = resolve_device(device)
+        AdamW's zero state.
+
+        ``group`` (a :class:`~repro_torch.parallel.group.MeshGroup` of
+        this program's mesh; needed on a mesh of more than one device)
+        makes this rank's part: the model's parameters cut to the rank's
+        shards (a full ``model`` given, on any device, or drawn whole from
+        ``seed`` first), the tokens cut to its requests, a cache of its
+        requests and kv heads, and the model's ``par``, the rank's
+        :class:`~repro_torch.parallel.collectives.Spmd` (its collectives
+        record into ``par.coll.records``).  On ``meta`` (the dry run's
+        trace) nothing is drawn.  ``cache`` (a serving step's whole cache,
+        filled) is held in place of a fresh one: its tensors cut to this
+        rank's shards (on one device, the tensors themselves: nothing is
+        copied).  Raises ``NotImplementedError`` for what a mesh does not
+        run yet (:func:`mesh_refusal`)."""
+        self._check_group(group)
+        dev = (torch.device("meta") if str(device) == "meta"
+               else resolve_device(device))
         cfg, B, S = self.cfg, self.shape.global_batch, self.shape.seq_len
-        if model is None:
+        if group is not None and self.mesh.size > 1:
+            model = self._local_model(model, dev, seed, group)
+        elif model is None:
             cls = TrainModel if self.mode == "train" else Model
-            model = cls(cfg, device=dev, seed=seed)
+            model = cls(cfg, device=dev, seed=seed, init=dev.type != "meta")
         model.hints = dict(self.hints)
+        if group is not None:
+            model.par = Spmd(Collectives(group), self.specs["params"])
         rng = np.random.default_rng(seed)
 
         def tokens(*shape):
-            return torch.from_numpy(rng.integers(
-                0, cfg.vocab, shape, dtype=np.int32)).to(dev)
+            if dev.type == "meta":
+                t = torch.empty(shape, dtype=torch.int32, device=dev)
+            else:
+                t = torch.from_numpy(rng.integers(
+                    0, cfg.vocab, shape, dtype=np.int32)).to(dev)
+            # every input of this program is sharded over its batch only
+            return t if group is None else local_shard(
+                t, self.rules.batch_pspecs({"": t})[""], group)
 
         def frames():
             return torch.from_numpy(0.02 * rng.standard_normal(
@@ -280,24 +359,109 @@ class CellProgram:
                     "opt_state": adamw.init_state(self.opt_cfg, params),
                     "batch": batch}
         elif self.mode == "prefill":
-            args = {"tokens": tokens(B, S),
-                    "cache": model.init_cache(B, prefill_len(cfg,
-                                                             self.shape))}
+            args = {"tokens": tokens(B, S)}
+            args["cache"] = self._cache(
+                cache, group, model, args["tokens"].shape[0],
+                prefill_len(cfg, self.shape))
             if cfg.frontend != "none":
                 args["frontend_embeds"] = frames()
         else:
-            args = {"token": tokens(B, 1),
-                    "cache": model.init_cache(B, S)}
+            args = {"token": tokens(B, 1)}
+            args["cache"] = self._cache(cache, group, model,
+                                        args["token"].shape[0], S)
         return CellState(model, self.make_step(model), args)
+
+    def _cache(self, cache, group, model, batch: int, length: int):
+        """``cache`` with each tensor cut to this rank's shard (the same
+        nesting; the index kept), or the model's fresh one."""
+        if cache is None:
+            return model.init_cache(batch, length)
+        specs = self.specs["cache"]
+
+        def cut(tree, prefix):
+            out = {}
+            for key, val in tree.items():
+                path = f"{prefix}/{key}" if prefix else key
+                if isinstance(val, dict):
+                    out[key] = cut(val, path)
+                elif isinstance(val, torch.Tensor) and group is not None:
+                    out[key] = local_shard(val, specs[path], group)
+                else:
+                    out[key] = val
+            return out
+        return cut(cache, "")
 
     def run(self, state: CellState):
         """One step: ``state.step(**state.args)`` (the serving steps under
-        ``torch.inference_mode``).  One device only."""
-        self._one_device("run")
+        ``torch.inference_mode``); on a mesh of more than one device, this
+        rank's part of it (``state`` materialized with its group)."""
+        if self.mesh.size > 1 and getattr(state.model, "par", None) is None:
+            raise ValueError("a step on a mesh of more than one device runs "
+                             "on a state materialized with the rank's group")
         if self.mode == "train":
             return state.step(**state.args)
         with torch.inference_mode():
             return state.step(**state.args)
+
+    def trace(self):
+        """Rank 0's step on ``meta`` tensors (every other rank issues the
+        same collectives at the same shapes): ``(records, flops)``, the
+        collectives it issues (:class:`~repro_torch.parallel.collectives.
+        Record`) and the FLOPs ``FlopCounterMode`` counts, the flash
+        kernel's as the two products of a dense attention.  Raises
+        ``NotImplementedError`` where the program does not run on this
+        mesh."""
+        from torch.utils.flop_counter import FlopCounterMode
+        state = self.materialize("meta", group=MeshGroup.trace(self.mesh))
+        with FlopCounterMode(display=False) as counter:
+            self.run(state)
+        return state.model.par.coll.records, counter.get_total_flops()
+
+
+def model_holding(cfg: ModelConfig, params: Dict[str, torch.Tensor]
+                  ) -> Model:
+    """A serving ``Model`` of ``cfg`` whose parameters are ``params`` (by
+    name, every one; any shapes: a rank's shards, or tensors gathered
+    whole), nothing drawn."""
+    model = Model(cfg, device="meta", init=False)
+    for name, t in params.items():
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner)
+        p = nn.Parameter(t, requires_grad=False)
+        if isinstance(mod, nn.ParameterDict):
+            mod[leaf] = p
+        else:
+            setattr(mod, leaf, p)
+    return model
+
+
+def mesh_refusal(cell: CellProgram, any_mesh: bool = False
+                 ) -> Optional[str]:
+    """Why ``cell`` does not run on its mesh yet (naming the ROADMAP item),
+    or None: a mesh of one device runs every cell; a larger one runs the
+    dense decoder's prefill and decode where the heads, the MLP's width
+    and the vocabulary split evenly over the model axis and no cache is
+    sharded over its sequence.  ``any_mesh`` judges a one-device mesh as
+    a larger one (the dry run traces only what runs on every mesh)."""
+    if cell.mesh.size == 1 and not any_mesh:
+        return None
+    cfg = cell.cfg
+    if cell.mode == "train":
+        return MULTI_CARD["train"]
+    if cfg.moe is not None or any(s.kind == "mamba" for s in cfg.unit):
+        return MULTI_CARD["moe"]
+    if cfg.enc_dec or cfg.frontend != "none" or any(
+            s.kind != "attn" for s in cfg.unit):
+        return MULTI_CARD["stacks"]
+    tp = cell.rules.axis_size(TP_AXES)
+    if cell.rules.model_candidates[0] != TP_AXES or any(
+            n % tp for n in (cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+                             cfg.padded_vocab)):
+        return MULTI_CARD["split"]
+    if any(len(spec) > 3 and spec[3] is not None
+           for spec in cell.specs["cache"].values()):
+        return MULTI_CARD["split"]
+    return None
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
@@ -348,4 +512,5 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
 __all__ = ["CellProgram", "CellState", "abstract_batch", "abstract_cache",
            "abstract_model", "build_cell", "cell_model_config",
            "input_specs", "make_decode_step", "make_prefill_step",
-           "make_train_step", "prefill_len"]
+           "make_train_step", "mesh_refusal", "model_holding",
+           "prefill_len"]

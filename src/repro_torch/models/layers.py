@@ -194,9 +194,15 @@ def init_mlp(kg: KeyGen, d_model: int, d_ff: int, dtype,
     }
 
 
-def apply_mlp(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def apply_mlp(p, x: torch.Tensor, act: str = "silu",
+              par=None) -> torch.Tensor:
+    """The gated MLP.  With ``par`` (a rank's
+    :class:`~repro_torch.parallel.collectives.Spmd`) the weights are its
+    model-axis shards, ``wi_*`` split by columns and ``wo`` by rows, and
+    the rows' partial products are all-reduced over the model axis."""
     h = act_fn(act)(matmul(x, p["wi_gate"])) * matmul(x, p["wi_up"])
-    return matmul(h, p["wo"])
+    y = matmul(h, p["wo"])
+    return y if par is None else par.reduce(y, "mlp/wo")
 
 
 # ---------------------------------------------------------------------------
@@ -216,27 +222,42 @@ def init_embed(kg: KeyGen, vocab: int, d_model: int, dtype, tie: bool,
 
 
 def embed_tokens(p, tokens: torch.Tensor, scale_embed: bool, d_model: int,
-                 dtype: torch.dtype) -> torch.Tensor:
-    x = p["embedding"][tokens].to(dtype)
+                 dtype: torch.dtype, par=None) -> torch.Tensor:
+    """The tokens' rows of the table.  With ``par`` over a model axis of
+    more than one device the table is this rank's slice of the
+    vocabulary: a token outside it reads zeros, and the all-reduce over
+    the model axis adds the one rank's row to zeros (exact)."""
+    table = p["embedding"]
+    if par is None or par.tp == 1:
+        x = table[tokens].to(dtype)
+    else:
+        local = tokens - par.tp_index * table.shape[0]
+        mine = (local >= 0) & (local < table.shape[0])
+        x = table[torch.where(mine, local, 0)].to(dtype)
+        x = par.reduce(torch.where(mine[..., None], x, 0),
+                       "embed/embedding")
     if scale_embed:
         x = x * torch.tensor(np.sqrt(d_model), dtype=dtype)
     return x
 
 
 def unembed(p, x: torch.Tensor, logit_cap: float = 0.0,
-            n_valid: int = 0) -> torch.Tensor:
+            n_valid: int = 0, par=None) -> torch.Tensor:
     """Logits in float32.  The product runs in the activation dtype and
     only its result is widened, as in the reference; padded-vocab columns
-    get -1e9 so they never win a softmax or an argmax."""
+    get -1e9 so they never win a softmax or an argmax.  With ``par`` the
+    head is this rank's slice of the vocabulary over the model axis, and
+    so are the logits (the ``logits`` hint)."""
     if "lm_head" in p:
         logits = matmul(x, p["lm_head"])
     else:
         logits = x @ p["embedding"].to(x.dtype).T
     logits = softcap(logits.float(), logit_cap)
     V = logits.shape[-1]
-    if n_valid and n_valid < V:
-        mask = torch.where(torch.arange(V, device=logits.device) < n_valid,
-                           0.0, -1e9)
+    lo = 0 if par is None else par.tp_index * V
+    if n_valid and n_valid < lo + V:
+        mask = torch.where(torch.arange(lo, lo + V, device=logits.device)
+                           < n_valid, 0.0, -1e9)
         logits = logits + mask
     return logits
 

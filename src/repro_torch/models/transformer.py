@@ -224,7 +224,7 @@ class Layer(nn.Module):
 
 def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
                 layer_cache=None, cache_index: int = 0, cross_kv=None,
-                causal: bool = True, moe_groups: int = 1):
+                causal: bool = True, moe_groups: int = 1, par=None):
     """One sublayer's forward: ``p`` maps ``ln1``, the mixer, with a
     ``cross`` group ``ln_cross`` and ``cross``, and unless ``ffn="none"``
     ``ln2`` and ``mlp`` or ``moe`` to the weights
@@ -238,19 +238,28 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
     token groups (the model's ``hints``).  Returns ``(x, aux, state)``:
     the MoE layer's aux loss (a float32 tensor; 0 after a decode step's
     dense path), 0.0 without one; the recurrent layer's new state, None
-    for attention."""
+    for attention.  ``par`` (a rank's
+    :class:`~repro_torch.parallel.collectives.Spmd`; a dense attention
+    layer only) makes ``p`` the rank's model-axis shards: the attention
+    runs on the rank's ``n_heads / tp`` and ``n_kv_heads / tp`` heads (its
+    cache holds those kv heads) and its ``wo`` product, like the MLP's,
+    is all-reduced over the model axis."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     state = None
     if spec.kind == "attn":
         window = cfg.sliding_window if spec.attn_type == "local" else 0
         chunk = cfg.decode_chunk if h.shape[1] == 1 else cfg.attn_chunk
+        tp = 1 if par is None else par.tp
         y, _ = attn_mod.attention(
-            p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            p["attn"], h, n_heads=cfg.n_heads // tp,
+            n_kv_heads=cfg.n_kv_heads // tp,
             head_dim=cfg.resolved_head_dim, positions=positions,
             causal=causal, window=window,
             rotary_fraction=cfg.rotary_fraction, rope_theta=cfg.rope_theta,
             attn_cap=cfg.attn_softcap, impl=cfg.attn_impl, chunk=chunk,
             layer_cache=layer_cache, cache_index=cache_index)
+        if par is not None:
+            y = par.reduce(y, "attn/wo")
     elif spec.kind == "mamba":
         y, state = ssm_mod.apply_mamba(p["mamba"], h, chunk=cfg.mamba_chunk,
                                        state=layer_cache)
@@ -273,7 +282,7 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
         return x, 0.0, state
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if spec.ffn == "dense":
-        return x + apply_mlp(p["mlp"], h, cfg.act), 0.0, state
+        return x + apply_mlp(p["mlp"], h, cfg.act, par=par), 0.0, state
     if h.shape[1] == 1:          # decode: the dropless all-experts path
         y, aux = moe_mod.apply_moe_dense(p["moe"], h, top_k=cfg.moe.top_k,
                                          act=cfg.act)
@@ -368,10 +377,16 @@ class Model(nn.Module):
     ``init=False`` only allocates them (see
     :func:`repro_torch.models.convert.params_from_numpy`).
     ``hints`` (set by :func:`repro_torch.launch.steps.build_cell`) is the
-    reference's dict of activation hints: only ``moe_groups`` acts (the
-    MoE capacity path routes that many groups of tokens on their own);
-    the placement hints have no effect on one device, the only mesh the
-    port runs on."""
+    reference's dict of activation hints: ``moe_groups`` acts (the MoE
+    capacity path routes that many groups of tokens on their own); the
+    placement hints (``act``, ``logits``) are what ``par`` does on a mesh.
+    ``par`` (None on one device; set by
+    :meth:`repro_torch.launch.steps.CellProgram.materialize` on a mesh) is
+    the rank's :class:`~repro_torch.parallel.collectives.Spmd`: the
+    parameters are then the rank's shards, each all-gathered over its
+    FSDP axes just before use and dropped after, the cache holds the
+    rank's requests and kv heads, the embedding and the head are split
+    over the vocabulary, and the logits stay so split."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
                  init: bool = True):
@@ -380,6 +395,7 @@ class Model(nn.Module):
         self.cfg = cfg
         self.dtype = dtype_of(cfg.dtype)
         self.hints: Dict[str, Any] = {}
+        self.par = None
         device = torch.device(device)
         kg = KeyGen(seed, device) if init else None
         mode = "normal" if init else "empty"
@@ -413,10 +429,11 @@ class Model(nn.Module):
         [n_units, B, KV, frontend_len, hd]`` in ``cfg.dtype`` (zeros until
         a prefill writes them)."""
         cfg = self.cfg
+        kv_heads = cfg.n_kv_heads // (1 if self.par is None else self.par.tp)
         layers = {}
         for i, spec in enumerate(cfg.unit):
             if spec.kind == "attn":
-                c = attn_mod.init_kv_cache(batch, cfg.n_kv_heads, max_len,
+                c = attn_mod.init_kv_cache(batch, kv_heads, max_len,
                                            cfg.resolved_head_dim,
                                            cfg.kv_dtype, cfg.n_units,
                                            device=self.device)
@@ -436,19 +453,42 @@ class Model(nn.Module):
         return cache
 
     # ---------------------------------------------------------------- stack
+    def _weight(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """Parameter ``name`` as this rank computes with it (gathered over
+        its FSDP axes on a mesh)."""
+        return t if self.par is None else self.par.param(t, name)
+
+    def _layer_weights(self, u: int, name: str):
+        w = self.units[u][name].weights()
+        if self.par is None:
+            return w
+        pre = f"units.{u}.{name}."
+        return {g: ({k: self._weight(t, f"{pre}{g}.{k}")
+                     for k, t in v.items()} if isinstance(v, dict)
+                    else self._weight(v, pre + g))
+                for g, v in w.items()}
+
+    def _embed(self, key: str) -> Dict[str, torch.Tensor]:
+        return {key: self._weight(self.embed[key], f"embed.{key}")}
+
+    def _head(self) -> Dict[str, torch.Tensor]:
+        return self._embed("embedding" if self.cfg.tie_embeddings
+                           else "lm_head")
+
     def _run_units(self, x, *, positions, cache, cache_index):
-        for u, unit in enumerate(self.units):
+        for u in range(len(self.units)):
             cross_kv = ((cache["cross_k"][u], cache["cross_v"][u])
                         if self.cfg.enc_dec else None)
             for i, spec in enumerate(self.cfg.unit):
                 name = f"layer{i}"
                 c = cache["layers"][name]
                 x, _, state = apply_layer(   # serving drops the aux loss
-                    self.cfg, spec, unit[name].weights(), x,
+                    self.cfg, spec, self._layer_weights(u, name), x,
                     positions=positions,
                     layer_cache={k: t[u] for k, t in c.items()},
                     cache_index=cache_index, cross_kv=cross_kv,
-                    moe_groups=self.hints.get("moe_groups", 1))
+                    moe_groups=self.hints.get("moe_groups", 1),
+                    par=self.par)
                 for k, t in (state or {}).items():
                     c[k][u] = t
         return x
@@ -481,8 +521,8 @@ class Model(nn.Module):
         cfg = self.cfg
         if cfg.enc_dec:
             self._encode_into(frontend_embeds, cache)
-        x = embed_tokens(self.embed, tokens, cfg.scale_embed, cfg.d_model,
-                         self.dtype)
+        x = embed_tokens(self._embed("embedding"), tokens, cfg.scale_embed,
+                         cfg.d_model, self.dtype, par=self.par)
         if cfg.frontend != "none" and not cfg.enc_dec:
             x = torch.cat([project_frontend(cfg, self.frontend_proj,
                                             frontend_embeds, self.dtype), x],
@@ -493,7 +533,8 @@ class Model(nn.Module):
                             cache_index=0)
         cache["index"] = S
         x = rms_norm(x[:, -1:], self.final_norm, cfg.norm_eps)
-        logits = unembed(self.embed, x, cfg.logit_softcap, cfg.vocab)
+        logits = unembed(self._head(), x, cfg.logit_softcap, cfg.vocab,
+                         par=self.par)
         return logits[:, 0], cache
 
     def decode_step(self, token: torch.Tensor, cache: Dict[str, Any]):
@@ -501,14 +542,15 @@ class Model(nn.Module):
         place)."""
         cfg = self.cfg
         idx = cache["index"]
-        x = embed_tokens(self.embed, token, cfg.scale_embed, cfg.d_model,
-                         self.dtype)
+        x = embed_tokens(self._embed("embedding"), token, cfg.scale_embed,
+                         cfg.d_model, self.dtype, par=self.par)
         positions = idx + torch.arange(1, device=x.device)
         x = self._run_units(x, positions=positions, cache=cache,
                             cache_index=idx)
         cache["index"] = idx + 1
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        logits = unembed(self.embed, x, cfg.logit_softcap, cfg.vocab)
+        logits = unembed(self._head(), x, cfg.logit_softcap, cfg.vocab,
+                         par=self.par)
         return logits[:, 0], cache
 
 
@@ -525,9 +567,10 @@ class TrainModel(nn.Module):
     :func:`repro_torch.models.convert.params_from_numpy`).
     ``hints`` (set by :func:`repro_torch.launch.steps.build_cell`) is the
     reference's dict of activation hints: only ``moe_groups`` acts (the
-    MoE capacity path routes that many groups of tokens on their own);
-    the placement hints have no effect on one device, the only mesh the
-    port runs on."""
+    MoE capacity path routes that many groups of tokens on their own).
+    Training runs on one device: a training cell on a mesh of more than
+    one refuses (:meth:`repro_torch.launch.steps.CellProgram.materialize`),
+    so the placement hints have nothing to place here."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
                  init: bool = True):

@@ -45,11 +45,15 @@ cast without its clamp, one int8 value flipped) read above each limit.
 
 Cell programs: ``build_cell``'s prefill and decode steps at llama3-8b's
 smoke config on the card against the CPU within the small serves'
-limits.
+limits.  On a mesh: the steps through a one-rank NCCL group equal to
+the same program without one, bit for bit, on the same flash routes; on
+a host of four cards, ``chip_smoke.mesh_cells`` at the smoke config
+(skipped below four cards).
 """
 import dataclasses
 import importlib.util
 import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -89,6 +93,9 @@ _spec = importlib.util.spec_from_file_location("chip_smoke",
                                                REPO / "chip_smoke.py")
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
+# the four-card test's ranks are spawned with chip_smoke.mesh_rank, which
+# pickles by module name
+sys.modules.setdefault("chip_smoke", chip_smoke)
 
 
 @pytest.fixture
@@ -1164,3 +1171,71 @@ def test_build_cell_card_vs_cpu(cuda, mode, dtype):
             else "tc" if dtype == "bfloat16" else "simt")
     assert out["routes"] == {want: get_config("llama3-8b",
                                               smoke=True).n_layers}
+
+
+# ---------------------------------------------------------------------------
+# a cell across the cards of a mesh (chip_smoke.py phase 17)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["prefill", "decode"])
+def test_one_rank_group_equals_cell_run(cuda, mode, tmp_path):
+    """``build_cell``'s prefill and decode at llama3-8b's smoke config (bf16
+    at head_dim 128) through a one-rank NCCL group: the same logits as
+    the program run without a group, bit for bit, every layer's flash
+    launch on the route the plan gives, no collective."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.parallel.group import (destroy_mesh_group,
+                                            init_mesh_group)
+    from repro_torch.parallel.sharding import leaves
+    cfg = chip_smoke.small_serve_config(get_config, "bfloat16",
+                                        chip_smoke.SERVE_BF16_HEAD_DIM)
+    S, B = chip_smoke.CELL_SMALL[mode]
+    cell = steps.build_cell(cfg, ShapeConfig(f"{mode}_small", S, B, mode),
+                            chip_smoke.one_card_mesh())
+
+    def fill(state):
+        if mode == "decode":
+            gen = torch.Generator(device=cuda).manual_seed(17)
+            for _, t in leaves(state.args["cache"]):
+                t.normal_(generator=gen)
+            state.args["cache"]["index"] = S - 1
+
+    plain = cell.materialize(cuda, 0)
+    fill(plain)
+    want, _ = cell.run(plain)
+    group = init_mesh_group(cell.mesh, 0, tmp_path / "store", cuda)
+    try:
+        mine = cell.materialize(cuda, 0, group=group)   # the same draws
+        fill(mine)
+        fa_kernel.reset_counts()
+        got, _ = cell.run(mine)
+        torch.cuda.synchronize()
+        assert mine.model.par.coll.records == []
+    finally:
+        destroy_mesh_group()
+    assert torch.equal(got, want)
+    route = "decode" if mode == "decode" else "tc"
+    assert flash_attention_cuda.route_launches[route] == cfg.n_layers
+    assert flash_attention_cuda.launches == cfg.n_layers
+
+
+def test_mesh_cells_on_four_cards(cuda):
+    """``chip_smoke.mesh_cells`` at the smoke config on four cards (the
+    function ``scripts/mesh_cell.py`` runs): each rank's bytes the dry
+    run's, its collectives the trace's, its flash launches on the plan's
+    route, rank 0 against one card within its limit (the prefill bit for
+    bit; the decode's distance from the f32 step within 1.5 times one
+    card's, and from one card within twice it) and the planted faults
+    above it (the function checks each)."""
+    if torch.cuda.device_count() < chip_smoke.MESH_RANKS:
+        pytest.skip(f"needs {chip_smoke.MESH_RANKS} cards, this host has "
+                    f"{torch.cuda.device_count()}")
+    torch.cuda.synchronize()
+    out = chip_smoke.mesh_cells(0, small=True)
+    for name in chip_smoke.MESH_CELLS:
+        assert len(out[name]) == chip_smoke.MESH_RANKS
+        head = out[name][0]
+        assert head["one_card_err"] <= head["limit"]
+        if "f32_err" in head:
+            assert head["f32_err"] <= head["f32_limit"]

@@ -7,8 +7,13 @@
   reference's 0-d cache ``index`` is the int 0 in the port);
 - ``run_cell``: every cell at both production meshes and the host mesh,
   every spec dividing (``argument_bytes`` raises otherwise, as a spec
-  that does not divide shows), the compiler's fields null with the
-  reason;
+  that does not divide shows); the traced FLOPs and collectives filled
+  for the dense archs' prefill and decode where no cache spec shards the
+  sequence, null with the ROADMAP item that would run them everywhere
+  else, the compiler's fields null with the reason; llama3-8b's
+  ``decode_32k`` all-reduces on ``(32, 8)`` against a hand reckoning and
+  its ``prefill_32k`` FSDP all-gather bytes against the gathered
+  weights' shapes;
 - ``moe_groups``: the port's model with ``hints={"moe_groups": 4}``
   against the reference's with the same hints at granite-moe's smoke
   config in float32 (prefill logits within 1e-5), the groups reaching
@@ -23,7 +28,9 @@
   ``tests/test_torch_trainer.py``) and its gradient norm within 1e-4
   relative;
 - a materialized cell holds exactly the dry run's per-device argument
-  bytes; a mesh of more than one device refuses to run.
+  bytes; what a mesh of more than one device does not run yet refuses,
+  naming its ROADMAP item (``tests/test_torch_multicard.py`` runs what it
+  does).
 """
 import dataclasses
 import json
@@ -43,9 +50,12 @@ from repro.optim import adamw as ref_adamw
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config, shapes_for
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun, report, steps
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import moe as pt_moe
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.transformer import Model
+from repro_torch.parallel.collectives import KINDS, tally
+from repro_torch.parallel.group import MeshGroup
 from repro_torch.parallel.sharding import Mesh, leaves
 
 CELL_ARCHS = ["llama3_8b", "granite_moe_3b_a800m"]
@@ -118,9 +128,25 @@ def test_run_cell_every_cell(arch, mesh):
             per * mcfg.n_active_params * shape.global_batch
         assert rep["roofline"]["argument_bytes_at_hbm_s"] == \
             b["total"] / 3.35e12
-        c = rep["compiler"]
-        assert c["null_because"] == dryrun.NOT_DERIVED
-        assert all(c[k] is None for k in c if k != "null_because")
+        a = rep["accounting"]
+        why = a["null_because"]
+        assert a["temp_bytes"] is None and a["bytes_accessed_per_device"] \
+            is None and why["temp_bytes"] == dryrun.NO_COMPILER
+        traced = cfg.family == "dense" and shape.mode != "train" and not (
+            arch == "glm4_9b" and mesh != "host")   # 2 kv heads over 8
+        fields = ("flops_per_device", "collective_bytes_per_device",
+                  "collective_counts", "collective_total_bytes_per_device")
+        if traced:
+            assert a["flops_per_device"] > 0
+            assert set(a["collective_counts"]) == set(KINDS)
+            assert a["collective_total_bytes_per_device"] == sum(
+                a["collective_bytes_per_device"].values())
+            assert (a["collective_total_bytes_per_device"] > 0) == \
+                (mesh != "host")
+            assert not set(fields) & set(why)
+        else:
+            assert all(a[k] is None and "ROADMAP Queue 1 A #8." in why[k]
+                       for k in fields), (arch, shape.name, why)
     assert rep["params_dtype"] == ("bfloat16" if rep["mode"] != "train"
                                    else "float32")
 
@@ -146,7 +172,8 @@ def test_dryrun_cli_and_report(tmp_path, monkeypatch, capsys):
                      "llama3_8b_prefill_32k_host.json",
                      "llama3_8b_train_4k_host.json"]
     rep = json.loads((tmp_path / names[-1]).read_text())
-    assert rep["mesh"] == "host_1x1" and rep["compiler"]["temp_bytes"] is None
+    assert rep["mesh"] == "host_1x1" and \
+        rep["accounting"]["temp_bytes"] is None
     capsys.readouterr()
     report.main()
     out = capsys.readouterr().out
@@ -337,16 +364,141 @@ def test_materialized_cell_holds_the_dry_run_bytes():
         assert held == cell.argument_bytes(), mode
 
 
-def test_cell_program_refuses_more_than_one_device():
-    _, cfg = _configs("llama3_8b")
-    for shape in SMALL.values():
-        cell = steps.build_cell(cfg, shape, Mesh((4, 2), ("data",
-                                                          "model")))
-        assert cell.argument_bytes()["total"] > 0
-        with pytest.raises(NotImplementedError, match="Queue 1 A #8"):
-            cell.run(None)
-        with pytest.raises(NotImplementedError, match="Queue 1 A #8"):
-            cell.materialize("cpu")
+REFUSED = {   # (arch, mode, mesh) -> the ROADMAP item it names
+    "glm4_9b decode 1x4": ("glm4_9b", "decode", (1, 4), "#8.3"),
+    "llama3_8b train 4x1": ("llama3_8b", "train", (4, 1), "#8.2"),
+    "granite_moe_3b_a800m decode 2x2": ("granite_moe_3b_a800m", "decode",
+                                        (2, 2), "#8.1"),
+    "jamba_v01_52b prefill 4x1": ("jamba_v01_52b", "prefill", (4, 1),
+                                  "#8.1"),
+    "xlstm_125m decode 4x1": ("xlstm_125m", "decode", (4, 1), "#8.4"),
+    "seamless_m4t_medium prefill 2x2": ("seamless_m4t_medium", "prefill",
+                                        (2, 2), "#8.4"),
+}
+
+
+@pytest.mark.parametrize("case", ["size", "no group", *REFUSED])
+def test_cell_program_refusals(case):
+    """What a mesh of more than one device does not run yet: a group of
+    another mesh (its world size differing), a mesh with no group, a
+    cache sharded over its sequence (glm4-9b's 2 kv heads over a model
+    axis of 4), training, and the MoE, Mamba, xLSTM and encoder-decoder
+    stacks, each naming its ROADMAP item (the trace too)."""
+    mesh = Mesh((4, 1), ("data", "model"))
+    if case in ("size", "no group"):
+        cfg = get_config("llama3_8b", smoke=True)
+        cell = steps.build_cell(cfg, SMALL["decode"], mesh)
+        group = (MeshGroup.trace(Mesh((2, 1), ("data", "model")))
+                 if case == "size" else None)
+        with pytest.raises(ValueError, match="group"):
+            cell.materialize("cpu", group=group)
+        with pytest.raises(ValueError, match="group"):
+            cell.run(steps.CellState(Model(cfg, device="meta", init=False),
+                                     None, {}))
+        return
+    arch, mode, sizes, item = REFUSED[case]
+    cfg = get_config(arch, smoke=True)
+    cell = steps.build_cell(cfg, SMALL[mode], Mesh(sizes, ("data",
+                                                           "model")))
+    assert cell.argument_bytes()["total"] > 0
+    match = f"ROADMAP Queue 1 A {item}"
+    assert match in steps.mesh_refusal(cell)
+    with pytest.raises(NotImplementedError, match=match):
+        cell.materialize("cpu", group=MeshGroup.trace(cell.mesh))
+    with pytest.raises(NotImplementedError, match=match):
+        cell.trace()
+
+
+def test_materialize_holds_a_given_cache_cut_to_each_rank():
+    """``materialize(group=, cache=)`` on ``(2, 2)``: every rank holds its
+    shard of the given cache (the batch over ``data``, the kv heads over
+    ``model``) and exactly ``argument_bytes()``; no process group is
+    needed to place them (ranks as ``MeshGroup``s with none)."""
+    cfg = dataclasses.replace(get_config("llama3_8b", smoke=True),
+                              dtype="float32")
+    shape = SMALL["decode"]
+    whole = steps.build_cell(cfg, shape, make_host_mesh("cpu"))
+    full = whole.materialize("cpu", 0)
+    gen = torch.Generator().manual_seed(5)
+    for _, t in leaves(full.args["cache"]):
+        t.normal_(generator=gen)
+    full.args["cache"]["index"] = shape.seq_len - 1
+    mesh = Mesh((2, 2), ("data", "model"))
+    cell = steps.build_cell(cfg, shape, mesh)
+    for rank in range(mesh.size):
+        group = MeshGroup(mesh, rank, torch.device("cpu"))
+        state = cell.materialize("cpu", 0, model=full.model, group=group,
+                                 cache=full.args["cache"])
+        assert state.held_bytes() == cell.argument_bytes()
+        assert state.args["cache"]["index"] == shape.seq_len - 1
+        d, m = divmod(rank, 2)
+        wants = dict(leaves(full.args["cache"]))
+        for path, t in leaves(state.args["cache"]):
+            want = wants[path]
+            # 2 requests over data, 2 kv heads over model: one of each
+            assert torch.equal(t, want[:, d:d + 1, m:m + 1])
+
+
+def test_decode_32k_all_reduces_by_hand():
+    """llama3-8b's ``decode_32k`` on ``(32, 8)``: 4 requests a device
+    (128 over 32), so each all-reduce over ``model`` carries ``[4, 1,
+    4096]`` bf16: after ``attn/wo`` and ``mlp/wo`` in each of the 32
+    layers, and after the embedding lookup; and 7 FSDP all-gathers a
+    layer beside the embedding's and the head's."""
+    rep = dryrun.run_cell("llama3-8b", "decode_32k", "single", write=False)
+    a = rep["accounting"]
+    per = 4 * 1 * 4096 * 2
+    assert a["collective_counts"]["all-reduce"] == 2 * 32 + 1
+    assert a["collective_bytes_per_device"]["all-reduce"] == (2 * 32 + 1) \
+        * per
+    assert a["collective_counts"]["all-gather"] == 7 * 32 + 2
+    assert a["collective_counts"]["reduce-scatter"] == 0
+
+
+def test_prefill_32k_fsdp_gather_bytes():
+    """llama3-8b's ``prefill_32k`` on ``(32, 8)``: the all-gather bytes a
+    device are the gathered weights' per-device output shapes, each
+    parameter sharded over ``data`` gathered whole but for its ``model``
+    split, once; the traced FLOPs at least the model's."""
+    cell = steps.build_cell(get_config("llama3_8b"), SHAPES["prefill_32k"],
+                            make_production_mesh())
+    want = 0
+    for name, t in cell.args["params"].items():
+        spec = cell.specs["params"][name]
+        if "data" not in [a for e in spec if e for a in
+                          (e if isinstance(e, tuple) else (e,))]:
+            continue
+        n = t.numel() * t.element_size()
+        want += n // (8 if "model" in spec else 1)
+    rep = dryrun.run_cell("llama3-8b", "prefill_32k", "single", write=False)
+    a = rep["accounting"]
+    assert a["collective_bytes_per_device"]["all-gather"] == want
+    assert want > 2e9 / 1.01 and want < 16.06e9 / 8 * 1.01
+    assert a["flops_per_device"] >= rep["model_flops_per_device"]
+
+
+def test_dry_run_extrapolation_equals_the_full_trace():
+    """The dry run's one- and two-unit traces extrapolated to every unit
+    give the full trace's collectives and FLOPs exactly (llama3-8b and
+    gemma2-9b, whose unit is two layers, on the production mesh)."""
+    for arch, shape in (("llama3_8b", "decode_32k"),
+                        ("gemma2_9b", "prefill_32k")):
+        cell = steps.build_cell(get_config(arch), SHAPES[shape],
+                                make_production_mesh())
+        records, flops = cell.trace()
+        assert dryrun.traced(cell) == (tally(records), flops)
+
+
+def test_trace_on_one_device_issues_no_collective():
+    """The host mesh's trace: the same FLOPs as any mesh's sum over its
+    devices would give for the products, and no collective."""
+    cfg = get_config("llama3_8b", smoke=True)
+    records, flops = steps.build_cell(cfg, SMALL["decode"],
+                                      make_host_mesh("cpu")).trace()
+    assert records == [] and flops > 0
+    four, f4 = steps.build_cell(cfg, SMALL["decode"],
+                                Mesh((2, 1), ("data", "model"))).trace()
+    assert f4 * 2 == flops and len(four) == 7 * cfg.n_layers + 2
 
 
 def test_build_cell_on_the_full_config_is_abstract():

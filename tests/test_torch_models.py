@@ -173,18 +173,33 @@ def test_attention_without_cache(impl):
 
 
 @pytest.mark.parametrize("impl", ["ref", "chunked", "pallas"])
-def test_attention_off_the_cpu_always_reaches_the_kernel(impl):
+def test_attention_off_the_cpu_always_reaches_the_kernel(impl, monkeypatch):
     """Off the CPU every ``impl`` goes to the kernel's op, never to a
-    plain version: on a meta tensor the op refuses the device, which
-    only the kernel's route does."""
+    plain version: on a meta tensor (the op gives a meta result there,
+    for the dry run's trace) the plain versions are made to raise and the
+    op is reached once."""
     D, H, KV, hd, B, S = 32, 4, 1, 16, 2, 9
     p = {n: torch.zeros(s, device="meta")
          for n, s in (("wq", (D, H * hd)), ("wk", (D, KV * hd)),
                       ("wv", (D, KV * hd)), ("wo", (H * hd, D)))}
-    with pytest.raises(ValueError, match="no flash_attention for device"):
-        pt_attn.attention(p, torch.zeros(B, S, D, device="meta"),
-                          positions=torch.arange(S, device="meta"),
-                          impl=impl, n_heads=H, n_kv_heads=KV, head_dim=hd)
+    calls, op = [], pt_attn.fa_ops.flash_attention
+
+    def spy(q, *a, **kw):
+        calls.append(q.device)
+        return op(q, *a, **kw)
+
+    def plain(*a, **kw):
+        raise AssertionError("a plain version ran off the CPU")
+
+    monkeypatch.setattr(pt_attn.fa_ops, "flash_attention", spy)
+    for name in ("ref", "chunked"):
+        monkeypatch.setitem(pt_attn._IMPLS, name, plain)
+    y, _ = pt_attn.attention(p, torch.zeros(B, S, D, device="meta"),
+                             positions=torch.arange(S, device="meta"),
+                             impl=impl, n_heads=H, n_kv_heads=KV,
+                             head_dim=hd)
+    assert calls == [torch.device("meta")]
+    assert y.device.type == "meta" and tuple(y.shape) == (B, S, D)
 
 
 # ---------------------------------------------------------------------------

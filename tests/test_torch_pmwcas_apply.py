@@ -308,7 +308,8 @@ def test_tombstone_round_trips_through_kernel_backend():
 def _port_files():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     assert files, "src/repro_torch has no python files"
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py",
+                    REPO / "scripts" / "mesh_cell.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),
