@@ -308,7 +308,27 @@ Phases, in order; any failure exits non-zero:
    card's (``MESH_F32_FACTOR``) and from one card within twice it, which
    the planted faults (a rank's query heads rolled; the all-reduce after
    ``wo`` skipped) exceed, each rank's flash call timed beside SDPA
-   (``scripts/mesh_cell.py`` runs (b) alone).
+   (``scripts/mesh_cell.py`` runs (b) alone);
+18. jamba-v0.1 across four cards (experts and Mamba's inner channels over
+   the model axis) -- (a) on any host: each four-card cell's flash call
+   on one card (``JAMBA_FLASH``: q ``[1024, 1, 128]`` x k/v ``[256,
+   32768, 128]`` on ``decode`` at 1 split; q ``[8, 1, 128]`` x k/v ``[2,
+   524288, 128]`` on ``decode`` at 66; q ``[64, 32768, 128]`` x k/v
+   ``[16, 32768, 128]`` causal on ``tc``) against its plain version with
+   planted faults, timed beside bound and SDPA; one jamba unit (8
+   layers at published widths) through a one-rank NCCL group, its
+   logits equal to ``Model.decode_step``'s bit for bit; (b) on a host of
+   four or more cards, four processes run ``JAMBA_CELLS`` at jamba's 32
+   layers on ``(1, 4)``: ``decode_32k_jamba_v01_52b_B128_1x4``,
+   ``long_500k_jamba_v01_52b_B1_1x4`` and
+   ``prefill_32k_jamba_v01_52b_B8_1x4``, each rank's weights drawn one
+   parameter at a time and cut: its bytes the table's, its collectives
+   the trace's, every flash launch on the table's route, the time
+   against the cell's bound; then each cell at one unit, rank 0 against
+   one card's step in bf16 and f32 (phase 17's gate), which the planted
+   faults (an expert slice, Mamba's ``out_proj`` all-reduce skipped,
+   ``in_proj`` cut plainly) exceed (``scripts/mesh_cell.py`` runs (b)
+   alone, after phase 17 (b)).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``{"kernels": [...]}`` record, and the line before that the
@@ -1692,6 +1712,18 @@ def route_tile(route: str, hd: int) -> tuple:
     return 64, (3 if hd <= 128 else 2)
 
 
+def fault_tiles(n_keys: int, last_pos: int, tile: int, stages: int):
+    """The key slices :func:`fa_fault_errs` plants its faults in: a middle
+    tile (at least the ring's second lap), the tile ``stages`` before it
+    (the stale fault's source), and the tile holding the key at
+    ``last_pos`` (the last row's own)."""
+    j = max(stages, n_keys // tile // 2)
+    last = min(last_pos, n_keys - 1) // tile * tile
+    return (slice(j * tile, (j + 1) * tile),
+            slice((j - stages) * tile, (j - stages + 1) * tile),
+            slice(last, last + tile))
+
+
 def fa_fault_errs(fa_ref, args, kw, want, tile: int, stages: int) -> dict:
     """:func:`fa_row_err` of outputs that a kernel with a planted fault
     would give, against the plain version's ``want``: the plain version
@@ -1705,10 +1737,7 @@ def fa_fault_errs(fa_ref, args, kw, want, tile: int, stages: int) -> dict:
     where a row has keys after its position, ``causal``: a causal mask
     applied."""
     q, k, v, qp, kp = args
-    j = max(stages, k.shape[1] // tile // 2)
-    mid = slice(j * tile, (j + 1) * tile)
-    old = slice((j - stages) * tile, (j - stages + 1) * tile)
-    last = min(int(qp.max()), k.shape[1] - 1) // tile * tile
+    mid, old, last = fault_tiles(k.shape[1], int(qp.max()), tile, stages)
 
     def masked(keys):
         kpf = kp.clone()
@@ -1718,7 +1747,7 @@ def fa_fault_errs(fa_ref, args, kw, want, tile: int, stages: int) -> dict:
     ks, vs = k.clone(), v.clone()
     ks[:, mid], vs[:, mid] = k[:, old], v[:, old]
     runs = {"drop": (k, v, masked(mid), kw), "stale": (ks, vs, kp, kw),
-            "last": (k, v, masked(slice(last, last + tile)), kw)}
+            "last": (k, v, masked(last), kw)}
     if not kw["causal"] and bool((kp[None, :] > qp[:, None]).any()):
         runs["causal"] = (k, v, kp, dict(kw, causal=True))
     return {name: fa_row_err(fa_ref.flash_attention_flat(q, kf, vf, qp, kpf,
@@ -6230,7 +6259,7 @@ def _sdpa_32k(q, k, v, B: int, causal: bool):
 
 
 def flash_32k(fa_ref, fa_kernel, cfg, B: int, Sq: int, Sk: int, dev,
-              seed: int, tag: str) -> dict:
+              seed: int, tag: str, hot: float = 1.0) -> dict:
     """The flash call of a 32k cell (one layer, seeded bf16 q/k/v): q
     ``[B * n_heads, Sq, hd]`` at the last ``Sq`` of ``Sk`` positions, k/v
     ``[B * n_kv_heads, Sk, hd]``, causal.  The kernel's rows against the
@@ -6243,7 +6272,11 @@ def flash_32k(fa_ref, fa_kernel, cfg, B: int, Sq: int, Sk: int, dev,
     version on the checked rows; at decode device time in replayed CUDA
     graphs, kernel and SDPA in turns, and the plain version by events;
     the bound: the bf16 FLOPs of the visible pairs at 989 TFLOP/s or
-    q, k, v and the output once at 3.35 TB/s, whichever is larger."""
+    q, k, v and the output once at 3.35 TB/s, whichever is larger.
+    ``hot`` scales the K rows of the tiles the planted faults touch
+    (:func:`fault_tiles`), so that they carry a share of each row's
+    weight where the keys are so many that one tile's share of them
+    would leave a fault under the row limit."""
     hd, G = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
     H, HK = B * cfg.n_heads, B * cfg.n_kv_heads
     gen = torch.Generator(device=dev).manual_seed(seed + 16)
@@ -6252,13 +6285,17 @@ def flash_32k(fa_ref, fa_kernel, cfg, B: int, Sq: int, Sk: int, dev,
         return torch.randn(shape, generator=gen, device=dev).to(
             torch.bfloat16)
 
+    route, splits = fa_kernel.plan(torch.bfloat16, hd, G * Sq, Sk, HK,
+                                   fa_kernel.n_sms(dev.index or 0))
+    tile, stages = route_tile(route, hd)
     q, k, v = mk(H, Sq, hd), mk(HK, Sk, hd), mk(HK, Sk, hd)
+    if hot != 1.0:
+        for keys in fault_tiles(Sk, Sk - 1, tile, stages):
+            k[:, keys] *= hot
     qp = torch.arange(Sk - Sq, Sk, device=dev, dtype=torch.float32)
     kp = torch.arange(Sk, device=dev, dtype=torch.float32)
     kw = dict(g=G, scale=1.0 / np.sqrt(hd), causal=True, window=0,
               attn_cap=0.0)
-    route, splits = fa_kernel.plan(torch.bfloat16, hd, G * Sq, Sk, HK,
-                                   fa_kernel.n_sms(dev.index or 0))
     o = torch.empty_like(q)
     ws = (torch.empty(fa_kernel.workspace_floats(HK, splits, G * Sq, hd),
                       dtype=torch.float32, device=dev)
@@ -6282,7 +6319,6 @@ def flash_32k(fa_ref, fa_kernel, cfg, B: int, Sq: int, Sk: int, dev,
     row = fa_row_err(got, want)
     check(ok, f"{tag}: flash kernel != plain at q [{H}, {Sq}, {hd}] x "
           f"k/v [{HK}, {Sk}, {hd}]: max abs err {err}, row err {row}")
-    tile, stages = route_tile(route, hd)
     nq, nk = cfg.n_heads, cfg.n_kv_heads
     faults = fa_fault_errs(fa_ref, (qs[:nq], k[:nk], v[:nk], qps, kp), kw,
                            want[:nq], tile, stages)
@@ -6605,6 +6641,9 @@ MESH_TIMEOUT_S = 240.0
 MESH_F32_FACTOR = 1.5
 MESH_ONE_CARD_FACTOR = 2.0
 MESH_FAULTS = ("head_slice", "no_wo_all_reduce")
+# jamba's: an expert slice, Mamba's out_proj unreduced, in_proj cut plainly
+JAMBA_MESH_FAULTS = ("expert_slice", "no_out_proj_all_reduce",
+                     "in_proj_contiguous")
 
 
 def _gathered_model(cell, model, group, dev):
@@ -6612,31 +6651,69 @@ def _gathered_model(cell, model, group, dev):
     parameter, all-gathered from the ranks' shards in ``model`` (every
     rank gets it)."""
     from repro_torch.launch.steps import model_holding
+    return model_holding(cell.cfg, _gathered_params(cell, model, group, dev))
+
+
+def _gathered_params(cell, model, group, dev) -> dict:
+    """Every parameter of ``model`` gathered whole from the ranks' shards,
+    by name."""
     from repro_torch.parallel.collectives import Collectives
     from repro_torch.parallel.group import gather_full
+    from repro_torch.parallel.sharding import param_blocks
     coll = Collectives(group)
-    return model_holding(cell.cfg, {
-        name: gather_full(t.detach(), cell.specs["params"][name], coll).to(dev)
-        for name, t in model.named_parameters()})
+    return {name: gather_full(t.detach(), cell.specs["params"][name], coll,
+                              blocks=param_blocks(name)).to(dev)
+            for name, t in model.named_parameters()}
+
+
+# the product whose all-reduce each skipping fault leaves out
+SKIPPED_REDUCE = {"no_wo_all_reduce": "attn/wo",
+                  "no_out_proj_all_reduce": "mamba/out_proj"}
 
 
 def plant_mesh_fault(model, fault: str, rank: int):
     """Plant ``fault`` in this rank's sharded model and return its undo:
-    ``head_slice``, rank 0's query heads rolled by one head in every layer
-    (it attends with another head's query); ``no_wo_all_reduce``, every
-    rank skips the all-reduce after the attention's ``wo``."""
-    if fault == "head_slice":
+    ``head_slice``, rank 0's query heads rolled by one head in every
+    attention layer (it attends with another head's query);
+    ``expert_slice``, rank 0's local experts rolled by one in every MoE
+    layer (each of its slots runs the next expert's weights);
+    ``in_proj_contiguous``, every rank's Mamba ``in_proj`` replaced by a
+    plain contiguous cut of the whole (the first ranks then hold only
+    ``x`` columns, the last only ``z`` columns); ``no_wo_all_reduce`` and
+    ``no_out_proj_all_reduce``, every rank skips the all-reduce after the
+    attention's ``wo`` or after Mamba's ``out_proj``."""
+    layers = [layer for unit in model.units for layer in unit.values()]
+
+    def rolled(ws, by, dim):
         if rank != 0:
             return lambda: None
-        hd = model.cfg.resolved_head_dim
-        ws = [unit["layer0"].attn["wq"] for unit in model.units]
         for w in ws:
-            w.data = torch.roll(w.data, hd, dims=1)
-        return lambda: [setattr(w, "data", torch.roll(w.data, -hd, dims=1))
+            w.data = torch.roll(w.data, by, dims=dim)
+        return lambda: [setattr(w, "data", torch.roll(w.data, -by, dims=dim))
                         for w in ws]
+
+    if fault == "head_slice":
+        return rolled([layer.attn["wq"] for layer in layers
+                       if "attn" in layer.groups],
+                      model.cfg.resolved_head_dim, 1)
+    if fault == "expert_slice":
+        return rolled([layer.moe[k] for layer in layers
+                       if "moe" in layer.groups
+                       for k in ("wi_gate", "wi_up", "wo")], 1, 0)
     par = model.par
-    reduce = par.reduce
-    par.reduce = lambda t, name: t if name == "attn/wo" else reduce(t, name)
+    if fault == "in_proj_contiguous":
+        from repro_torch.parallel.collectives import Collectives
+        from repro_torch.parallel.group import gather_full, local_shard
+        coll, saved = Collectives(par.coll.group), []
+        for name, w in model.named_parameters():
+            if name.endswith("mamba.in_proj"):
+                spec = par.pspecs[name]
+                whole = gather_full(w.data, spec, coll, blocks=2)
+                saved.append((w, w.data))
+                w.data = local_shard(whole, spec, par.coll.group)
+        return lambda: [setattr(w, "data", d) for w, d in saved]
+    reduce, skipped = par.reduce, SKIPPED_REDUCE[fault]
+    par.reduce = lambda t, name: t if name == skipped else reduce(t, name)
     return lambda: setattr(par, "reduce", reduce)
 
 
@@ -6866,28 +6943,34 @@ def _fill_normal(cache, gen) -> None:
         t.normal_(generator=gen)
 
 
+def _rank_device(rank: int, device: str) -> torch.device:
+    """Set a rank's process up: its card alone (``CUDA_VISIBLE_DEVICES``)
+    with expandable segments (a prefill's transients beside the held
+    bytes must not be stranded between freed blocks), the port on the
+    path, full float32 products (no TF32)."""
+    import os
+    if device == "cuda":
+        os.environ["CUDA_VISIBLE_DEVICES"] = str(rank)
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device(device)
+
+
 def mesh_rank(rank: int, tmp: str, seed: int, small: bool,
               device: str) -> None:
     """One rank of phase 17 (b), a process of its own: its card alone
     (``CUDA_VISIBLE_DEVICES``), the two cells of ``MESH_CELLS`` on their
     meshes through ``build_cell`` and ``materialize(group=...)``, its
     results written to ``tmp/rank<r>.json``."""
-    import os
-    if device == "cuda":
-        os.environ["CUDA_VISIBLE_DEVICES"] = str(rank)
-        # the prefill's ~30 GB of transients beside 38 GB held: free blocks
-        # of the whole model drawn and cut must not strand them
-        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
-                              "expandable_segments:True")
-    sys.path.insert(0, str(ROOT / "src"))
+    dev = _rank_device(rank, device)
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.launch import steps as steps_mod
     from repro_torch.parallel.group import destroy_mesh_group, init_mesh_group
     from repro_torch.parallel.sharding import Mesh
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device(device)
     cfg = _mesh_cell_config(small)
     out = {"rank": rank}
     try:
@@ -6908,26 +6991,18 @@ def mesh_rank(rank: int, tmp: str, seed: int, small: bool,
         json.dumps(out, default=str))
 
 
-def mesh_cells(seed: int, small: bool = False, device: str = "cuda",
-               timeout: float = MESH_TIMEOUT_S) -> dict:
-    """Phase 17 (b): ``MESH_RANKS`` processes (``mesh_rank``, the
-    ``spawn`` context) run the cells of ``MESH_CELLS`` (at the smoke
-    config with ``small``), joined within ``timeout`` s (the rest
-    terminated and the phase failed).  Checks: every rank holds the dry
-    run's bytes and issued the traced collectives; every flash launch on
-    every rank took the route ``plan`` gives (``tc`` at prefill, ``decode``
-    at decode; on the card); rank 0's logits against one card's (the
-    prefill bit for bit; the decode's distance from the f32 step within
-    ``MESH_F32_FACTOR`` times one card's, and its distance from one card
-    within ``MESH_ONE_CARD_FACTOR`` times it), which every planted fault
-    exceeds.  Returns the ranks' records by cell."""
+def _spawn_ranks(target, seed: int, small: bool, device: str,
+                 timeout: float, tag: str) -> list:
+    """``MESH_RANKS`` processes (the ``spawn`` context) running
+    ``target(rank, tmp, seed, small, device)``, joined within ``timeout``
+    s (the rest terminated and the phase failed); returns what each
+    wrote to ``tmp/rank<r>.json``."""
     import multiprocessing as mp
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
-    t0 = time.perf_counter()
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=mesh_rank,
+        procs = [ctx.Process(target=target,
                              args=(r, tmp, seed, small, device))
                  for r in range(MESH_RANKS)]
         for p in procs:
@@ -6941,12 +7016,30 @@ def mesh_cells(seed: int, small: bool = False, device: str = "cuda",
             for p in alive:
                 p.terminate()
                 p.join(30)
-        check(not alive, f"phase 17 (b): {len(alive)} ranks still ran after "
+        check(not alive, f"{tag}: {len(alive)} ranks still ran after "
               f"{timeout} s")
         codes = [p.exitcode for p in procs]
-        check(not any(codes), f"phase 17 (b): ranks exited {codes}")
-        ranks = [json.loads((pathlib.Path(tmp) / f"rank{r}.json").read_text())
-                 for r in range(MESH_RANKS)]
+        check(not any(codes), f"{tag}: ranks exited {codes}")
+        return [json.loads((pathlib.Path(tmp) / f"rank{r}.json").read_text())
+                for r in range(MESH_RANKS)]
+
+
+def mesh_cells(seed: int, small: bool = False, device: str = "cuda",
+               timeout: float = MESH_TIMEOUT_S) -> dict:
+    """Phase 17 (b): ``MESH_RANKS`` processes (``mesh_rank``, the
+    ``spawn`` context) run the cells of ``MESH_CELLS`` (at the smoke
+    config with ``small``), joined within ``timeout`` s (the rest
+    terminated and the phase failed).  Checks: every rank holds the dry
+    run's bytes and issued the traced collectives; every flash launch on
+    every rank took the route ``plan`` gives (``tc`` at prefill, ``decode``
+    at decode; on the card); rank 0's logits against one card's (the
+    prefill bit for bit; the decode's distance from the f32 step within
+    ``MESH_F32_FACTOR`` times one card's, and its distance from one card
+    within ``MESH_ONE_CARD_FACTOR`` times it), which every planted fault
+    exceeds.  Returns the ranks' records by cell."""
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(mesh_rank, seed, small, device, timeout,
+                         "phase 17 (b)")
     out = {"wall_s": time.perf_counter() - t0, "small": small}
     for name, (shape_name, sizes, _) in MESH_CELLS.items():
         tag = f"phase 17 (b) {name}{' (smoke config)' if small else ''}"
@@ -7081,6 +7174,525 @@ def mesh_phase(fa_kernel, kept: dict, dev, seed: int) -> dict:
             f"(scripts/mesh_cell.py runs them)")
     out["wall_s"] = time.perf_counter() - t0
     log(f"phase 17 took {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: jamba-v0.1 at its published 32 layers across four cards
+# ---------------------------------------------------------------------------
+
+JAMBA_ARCH = "jamba-v0.1-52b"
+# name -> (shape, mesh ("data", "model"), requests, bytes a card holds by
+# argument_bytes): jamba's 103 GB of bf16 weights need two cards, a batch
+# of its 32k contexts four; prefill_32k's 32 requests cut to 8 (at 32 the
+# capacity path's [4, 163840, 14336] bf16 expert buffers take 18.8 GB
+# each beside 30.2 GB held)
+JAMBA_CELLS = {
+    "decode_32k_jamba_v01_52b_B128_1x4": ("decode_32k", (1, 4), 128,
+                                          43_524_850_176),
+    "long_500k_jamba_v01_52b_B1_1x4": ("long_500k", (1, 4), 1,
+                                       27_938_979_844),
+    "prefill_32k_jamba_v01_52b_B8_1x4": ("prefill_32k", (1, 4), 8,
+                                         26_896_793_600)}
+# each cell's flash call on a card (its 8 of 32 heads and 2 of 8 kv heads
+# of every request; 4 attention layers a step): cell -> (requests, query
+# rows, keys, route, splits)
+JAMBA_FLASH = {
+    "decode_32k_jamba_v01_52b_B128_1x4": (128, 1, 32768, "decode", 1),
+    "long_500k_jamba_v01_52b_B1_1x4": (1, 1, 524288, "decode", 66),
+    "prefill_32k_jamba_v01_52b_B8_1x4": (8, 32768, 32768, "tc", 1)}
+JAMBA_TP = 4
+# long_500k's call: one 64-key tile is 1/8192 of its 524,288 keys, and a
+# fault there reads ~0.015 a row, under FA_ROW_TOL; with the faulted
+# tiles' K rows doubled (flash_32k's ``hot``) they read 0.21-0.42 (the
+# plain version on the CPU), the rest of the keys still most of a row
+JAMBA_HOT = {"long_500k_jamba_v01_52b_B1_1x4": 2.0}
+# the one-unit checks' traffic on the same mesh, (seq_len, requests):
+# rank 0's first MESH_CHECKED requests of a decode, every request of a
+# prefill, against one card's step on the gathered weights and states;
+# the prefill at 4 x 4,096 tokens (at 8 x 32,768 one card's capacity
+# path alone would take 56 GB, and its routing couples all 8 requests)
+JAMBA_UNIT = {"decode_32k": (32768, 128), "long_500k": (524288, 1),
+              "prefill_32k": (4096, 4)}
+# phase 18 (a): one unit through a one-rank group, (seq_len, requests)
+JAMBA_ONE_RANK = (4096, 4)
+# --small: jamba's smoke config in bf16 at head_dim 128 (the tc and
+# decode routes) with 4 kv heads and 8 experts (2 a rank: the expert-slice
+# fault rolls something), the same meshes, (seq_len, requests)
+JAMBA_SMALL = {"decode_32k": (512, 8), "long_500k": (2048, 1),
+               "prefill_32k": (256, 8)}
+# the ranks' join deadline: about three times the 125.4 s phase 18 (b)
+# took at full size on four H100s (the prefill's eager scan 54.85 s of it)
+JAMBA_TIMEOUT_S = 360.0
+
+
+def _jamba_config(small: bool = False, n_units: int = 0):
+    """jamba-v0.1 at its published widths (``n_units`` of its 8-layer
+    units when given), or the ``--small`` smoke config."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MoEConfig
+    if small:
+        cfg = small_serve_config(get_config, "bfloat16", SERVE_BF16_HEAD_DIM,
+                                 arch=JAMBA_ARCH, over={"n_kv_heads": 4})
+        cfg = dataclasses.replace(cfg, moe=MoEConfig(
+            n_experts=8, top_k=cfg.moe.top_k, d_ff=cfg.moe.d_ff))
+    else:
+        cfg = get_config(JAMBA_ARCH)
+    if n_units:
+        cfg = dataclasses.replace(cfg, n_layers=n_units * len(cfg.unit))
+    return cfg
+
+
+def _jamba_shape(shape_name: str, batch: int, small: bool, unit: bool):
+    from repro_torch.configs.base import SHAPES
+    shape = dataclasses.replace(SHAPES[shape_name], global_batch=batch)
+    if small or unit:
+        L, B = (JAMBA_SMALL if small else JAMBA_UNIT)[shape_name]
+        shape = dataclasses.replace(shape, seq_len=L, global_batch=B)
+    return shape
+
+
+def jamba_flash_call(fa_ref, fa_kernel, name: str, dev, seed: int) -> dict:
+    """Cell ``name``'s flash call on one card (``JAMBA_FLASH``: a card's
+    8 query and 2 kv heads of every request, bf16) through
+    :func:`flash_32k`: the kernel against its plain version within the
+    existing limits, the planted faults above them, timed beside its
+    bound and SDPA; the plan's route and splits as the table gives
+    them."""
+    from repro_torch.configs import get_config
+    full = get_config(JAMBA_ARCH)
+    cfg = dataclasses.replace(full, n_heads=full.n_heads // JAMBA_TP,
+                              n_kv_heads=full.n_kv_heads // JAMBA_TP,
+                              head_dim=full.resolved_head_dim)
+    B, Sq, Sk, route, splits = JAMBA_FLASH[name]
+    res = flash_32k(fa_ref, fa_kernel, cfg, B, Sq, Sk, dev, seed,
+                    f"phase 18 (a) {name}", hot=JAMBA_HOT.get(name, 1.0))
+    check((res["route"], res["splits"]) == (route, splits),
+          f"phase 18 (a) {name}: the plan gives {res['route']} at "
+          f"{res['splits']} splits, want {route} at {splits}")
+    return res
+
+
+def _fresh_cache(cell, cache, dev, seed: int) -> None:
+    """A step's starting cache: a decode's every leaf drawn from a
+    generator seeded with ``seed`` (index at the last position), a
+    prefill's zeros (it starts from the cache's states)."""
+    from repro_torch.parallel.sharding import leaves
+    if cell.mode == "decode":
+        _fill_normal(cache, torch.Generator(device=dev).manual_seed(seed))
+        cache["index"] = cell.shape.seq_len - 1
+    else:
+        for _, t in leaves(cache):
+            t.zero_()
+        cache["index"] = 0
+
+
+def jamba_one_rank(fa_kernel, dev, seed: int) -> dict:
+    """Phase 18 (a), second part: one jamba unit (8 layers at published
+    widths) drawn on the card through ``build_cell`` on the mesh of one
+    card and a one-rank NCCL group (its Mamba, MoE and attention layers
+    on the mesh's path, every collective over groups of one), at
+    ``JAMBA_ONE_RANK`` requests over a cache of seeded random K/V and
+    states: the bytes the dry run's, one ``decode`` launch, no collective,
+    logits equal to ``Model.decode_step``'s on the same weights and cache
+    bit for bit."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models.transformer import Model
+    from repro_torch.parallel.group import destroy_mesh_group, init_mesh_group
+    tag = "phase 18 (a)"
+    t0 = time.perf_counter()
+    cfg = _jamba_config(n_units=1)
+    L, B = JAMBA_ONE_RANK
+    cell = steps_mod.build_cell(cfg, ShapeConfig("decode_32k", L, B,
+                                                 "decode"), one_card_mesh())
+    model = Model(cfg, device=dev, seed=seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        group = init_mesh_group(cell.mesh, 0, pathlib.Path(tmp) / "store",
+                                dev)
+        try:
+            state = cell.materialize(dev, seed, model=model, group=group)
+            held = _held_vs_dryrun(cell, state, tag)
+            cache = state.args["cache"]
+            _fresh_cache(cell, cache, dev, seed + 18)
+            fa_kernel.reset_counts()
+            logits, _ = cell.run(state)
+            _sync(dev)
+            launches, routes = _cell_launches(fa_kernel)
+            records = list(state.model.par.coll.records)
+        finally:
+            destroy_mesh_group()
+    _fresh_cache(cell, cache, dev, seed + 18)
+    model.par = None
+    with torch.inference_mode():
+        want, _ = model.decode_step(state.args["token"], cache)
+    n_attn = layer_counts(cfg)["attn"]
+    check(torch.equal(logits, want), f"{tag}: logits differ from "
+          f"Model.decode_step's by {float((logits - want).abs().max())}")
+    check(launches == n_attn and routes == {"decode": n_attn},
+          f"{tag}: {launches} flash launches {routes}, want {n_attn} decode")
+    check(records == [], f"{tag}: a one-rank group issued {records}")
+    res = dict(launches=launches, routes=routes, held=held,
+               wall_s=time.perf_counter() - t0)
+    log(f"{tag}: one jamba unit ({cfg.n_layers} layers, "
+        f"{held['params'] / 1e9:.3f} GB of weights) through a one-rank "
+        f"{'NCCL' if dev.type == 'cuda' else 'gloo'} group, {B} requests "
+        f"over {L} positions: the card holds {held['total']} B, the dry "
+        f"run's; logits equal Model.decode_step's bit for bit; flash "
+        f"launches {routes}; no collective; {res['wall_s']:.3f} s")
+    del state, model, cache, logits, want
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def _jamba_cell(steps_mod, fa_kernel, cfg, shape, group, dev,
+                seed: int) -> dict:
+    """One cell on this rank: its weights drawn one parameter at a time
+    and cut (``materialize``), a decode's cache filled with seeded random
+    bf16 K/V and f32 states at index L - 1, held bytes, one step (the
+    plan's route and splits on every attention layer, the collectives
+    against the trace), a decode's ``MESH_STEPS`` steps timed, peak
+    memory, and the cell's bound: the larger of the traced FLOPs at 989
+    TFLOP/s and the held bytes once at 3.35 TB/s."""
+    from repro_torch.parallel.collectives import tally
+    cell = steps_mod.build_cell(cfg, shape, group.mesh)
+    traced, flops = cell.trace()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = cell.materialize(dev, seed, group=group)
+    cache = state.args["cache"]
+    _fresh_cache(cell, cache, dev, seed + 18 + group.rank)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    state.model.par.coll.timed = dev.type == "cuda"
+    out = dict(held=state.held_bytes(), want=cell.argument_bytes(),
+               build_s=build_s)
+    logits, secs, coll_s, out["launches"], out["routes"], records = \
+        _run_rank_cell(fa_kernel, cell, state, dev)
+    out.update(records_equal_trace=records == traced,
+               collectives=tally(records), traced=tally(traced),
+               finite=bool(torch.isfinite(logits).all()))
+    B_local = (state.args["token"] if cell.mode == "decode"
+               else state.args["tokens"]).shape[0]
+    Sq = shape.seq_len if cell.mode == "prefill" else 1
+    hd, G = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+    kv_local = cfg.n_kv_heads // state.model.par.tp
+    out["plan"] = (fa_kernel.plan(torch.bfloat16, hd, G * Sq, shape.seq_len,
+                                  B_local * kv_local,
+                                  fa_kernel.n_sms(dev.index or 0))
+                   if dev.type == "cuda" else None)
+    if cell.mode == "decode":
+        times, colls = [], []
+        for _ in range(MESH_STEPS):
+            cache["index"] = shape.seq_len - 1
+            _, t, c, *_ = _run_rank_cell(fa_kernel, cell, state, dev)
+            times.append(t * 1e3)
+            colls.append(c * 1e3)
+        out.update(step_ms=float(np.median(times)), step_ms_all=times,
+                   collective_ms=float(np.median(colls)),
+                   collective_ms_all=colls)
+    else:
+        out.update(step_s=secs, collective_s=coll_s)
+    bound_ops = flops / H100_BF16_FLOPS * 1e3
+    bound_bytes = out["held"]["total"] / H100_BYTES_PER_S * 1e3
+    out.update(bound_ms=max(bound_ops, bound_bytes), traced_flops=flops,
+               bound_by="operations" if bound_ops >= bound_bytes
+               else "bytes",
+               peak_bytes=(torch.cuda.max_memory_allocated()
+                           if dev.type == "cuda" else 0))
+    del state, cache, logits
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _digest(t: torch.Tensor) -> str:
+    """The hash of a tensor's bytes (copied to the host)."""
+    import hashlib
+    t = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+    return hashlib.sha1(t.numpy().tobytes()).hexdigest()
+
+
+@contextlib.contextmanager
+def routing_digests(moe_mod):
+    """Digests of every MoE call's router input and, on the capacity
+    path, its kept assignments, a dict a call in call order: what every
+    rank of a model axis must compute alike, bit for bit."""
+    rec = []
+    probs_of, route = moe_mod.router_probs, moe_mod.route
+
+    def probs(xf, router):
+        rec.append({"input": _digest(xf)})
+        return probs_of(xf, router)
+
+    def routed(p, k, capacity):
+        r = route(p, k, capacity)
+        rec[-1]["keep"] = _digest(r.keep)
+        return r
+
+    moe_mod.router_probs, moe_mod.route = probs, routed
+    try:
+        yield rec
+    finally:
+        moe_mod.router_probs, moe_mod.route = probs_of, route
+
+
+def _jamba_unit_check(steps_mod, cfg, shape, group, dev, seed: int) -> dict:
+    """One unit of jamba on this rank's mesh: one step, its routing
+    recorded (:func:`routing_record`) and digested
+    (:func:`routing_digests`: every rank's must agree), and the same step
+    under each of ``JAMBA_MESH_FAULTS``; then rank 0's first
+    ``MESH_CHECKED`` requests of a decode (every request of a prefill,
+    whose capacity routing couples them) against one card's
+    ``Model.prefill`` / ``decode_step`` on the weights and starting
+    states gathered whole, in bf16 and in float32 (the bf16 weights freed
+    one by one as they are widened: one unit's float32 model is 53 GB),
+    as phase 17 (b) holds the decode.  Both one-card steps take rank 0's
+    expert choices (``follow``): each step rounds the router's input
+    otherwise (the mesh sums its partial products in another order), a
+    prefill's assignments sit at near-ties by the hundreds (at the smoke
+    config a bf16 step's choice differs from the f32 step's at ~350 of
+    8,192, at gaps down to 4e-7), and one moved assignment moves the
+    capacity path's drops: with each step on its own routing, which
+    near-ties flipped would set the distances, not the arithmetic.  The
+    tokens where rank 0's choice (and one card's) differs from the f32
+    step's own, and the smallest such gap (:func:`routing_flips`), are
+    logged."""
+    from repro_torch.launch.steps import model_holding
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel.collectives import Collectives
+    from repro_torch.parallel.group import gather_full
+    from repro_torch.parallel.sharding import P
+    rank = group.rank
+    cell = steps_mod.build_cell(cfg, shape, group.mesh)
+    state = cell.materialize(dev, seed, group=group)
+    cache, decode = state.args["cache"], cell.mode == "decode"
+    start = seed + 19 + rank
+
+    def step():
+        _fresh_cache(cell, cache, dev, start)
+        return cell.run(state)[0]
+
+    gather = Collectives(group)
+    # a prefill's requests share their MoE capacity groups (one group on
+    # this mesh), so one card's step sees them all: all are checked
+    n = (min(MESH_CHECKED, shape.global_batch) if decode
+         else shape.global_batch)
+    lspec = P(None, cell.hints["logits"][2])
+
+    def head_logits(lg):
+        return gather_full(lg[:n], lspec, gather).float().cpu()
+
+    with routing_record(moe_mod) as routing, \
+            routing_digests(moe_mod) as digests:
+        mine = head_logits(step())
+    for d, (probs, ids) in zip(digests, routing):
+        d.update(probs=_digest(probs), ids=_digest(ids))
+    # a decode's tokens are its requests: the checked ones' rows
+    routing = [(p[:n], i[:n]) if decode else (p, i) for p, i in routing]
+    faulted = {}
+    for fault in JAMBA_MESH_FAULTS:
+        undo = plant_mesh_fault(state.model, fault, rank)
+        faulted[fault] = head_logits(step())
+        undo()
+    _fresh_cache(cell, cache, dev, start)
+    # the first requests' starting states, every head and channel (the
+    # requests are not split on this mesh: "data" is one card)
+    layers = {name: {k: gather_full(t[:, :n].contiguous(),
+                                    cell.specs["cache"][f"layers/{name}/{k}"],
+                                    gather)
+                     for k, t in layer.items()}
+              for name, layer in cache["layers"].items()}
+    tokens = (state.args["token"] if decode else state.args["tokens"])[:n]
+    model = state.model
+    del state, cache
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    params = _gathered_params(cell, model, group, dev)
+    del model
+    out = {"checked": n, "routing": digests}
+    if rank == 0:
+        def one_card(m):
+            with torch.inference_mode(), \
+                    routing_record(moe_mod, follow=routing) as rec:
+                if decode:
+                    c = {"layers": {name: {k: t.clone() for k, t in
+                                           layer.items()}
+                                    for name, layer in layers.items()},
+                         "index": shape.seq_len - 1}
+                    lg = m.decode_step(tokens, c)[0]
+                else:
+                    lg = m.prefill(tokens, m.init_cache(n, shape.seq_len))[0]
+            return lg.float().cpu(), rec
+
+        want, want_rec = one_card(model_holding(cfg, params))
+        wide = {}
+        for name in list(params):
+            wide[name] = params.pop(name).float()
+        truth, truth_rec = one_card(model_holding(
+            dataclasses.replace(cfg, dtype="float32"), wide))
+        del wide
+        floor = float((want - truth).abs().max())
+        out.update(one_card_err=float((mine - want).abs().max()),
+                   f32_err=float((mine - truth).abs().max()),
+                   one_card_f32_err=floor,
+                   f32_limit=MESH_F32_FACTOR * floor,
+                   faults={f: float((g - want).abs().max())
+                           for f, g in faulted.items()},
+                   faults_f32={f: float((g - truth).abs().max())
+                               for f, g in faulted.items()},
+                   flips={who: routing_flips(rec, truth_rec, float("inf"))
+                          for who, rec in (("mesh", routing),
+                                           ("one card", want_rec))})
+    del params, layers
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def jamba_rank(rank: int, tmp: str, seed: int, small: bool,
+               device: str) -> None:
+    """One rank of phase 18 (b), a process of its own: the cells of
+    ``JAMBA_CELLS`` at jamba's 32 layers, then each at one unit
+    (``JAMBA_UNIT``) held against one card, all on mesh ``(1, 4)``; its
+    results written to ``tmp/rank<r>.json``."""
+    dev = _rank_device(rank, device)
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.parallel.group import destroy_mesh_group, init_mesh_group
+    from repro_torch.parallel.sharding import Mesh
+    out = {"rank": rank}
+    meshes = {sizes for _, sizes, _, _ in JAMBA_CELLS.values()}
+    check(len(meshes) == 1, f"phase 18 (b): one mesh, not {meshes}")
+    mesh = Mesh(meshes.pop(), ("data", "model"))
+    group = init_mesh_group(mesh, rank, pathlib.Path(tmp) / "store", dev)
+    dev = group.device
+    try:
+        cfg = _jamba_config(small)
+        for name, (shape_name, _, batch, _) in JAMBA_CELLS.items():
+            out[name] = _jamba_cell(steps_mod, fa_kernel, cfg,
+                                    _jamba_shape(shape_name, batch, small,
+                                                 False), group, dev, seed)
+        unit = _jamba_config(small, n_units=1)
+        for name, (shape_name, _, batch, _) in JAMBA_CELLS.items():
+            out["unit " + name] = _jamba_unit_check(
+                steps_mod, unit, _jamba_shape(shape_name, batch, small,
+                                              True), group, dev, seed)
+    finally:
+        destroy_mesh_group()
+    (pathlib.Path(tmp) / f"rank{rank}.json").write_text(
+        json.dumps(out, default=str))
+
+
+def jamba_mesh_cells(seed: int, small: bool = False, device: str = "cuda",
+                     timeout: float = JAMBA_TIMEOUT_S) -> dict:
+    """Phase 18 (b): ``MESH_RANKS`` processes (``jamba_rank``) run
+    ``JAMBA_CELLS`` at jamba's published size (the smoke config with
+    ``small``) on ``(1, 4)``.  Checks on every rank: the held bytes the
+    dry run's (and at full size the table's), the collectives the
+    trace's, finite logits, and on the card every flash launch on the
+    route and split count of ``JAMBA_FLASH`` (the plan's, at the smoke
+    config); the time against the cell's bound is logged.  At one unit,
+    every rank's router inputs, probabilities, experts and kept
+    assignments bit for bit rank 0's, and phase 17's gate: rank 0's
+    distance from the f32 step within ``MESH_F32_FACTOR`` times one
+    card's, both one-card steps on rank 0's experts
+    (:func:`_jamba_unit_check`), which every planted fault exceeds (its
+    distance from one card's bf16 step is logged beside).  Returns the
+    ranks' records by cell."""
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(jamba_rank, seed, small, device, timeout,
+                         "phase 18 (b)")
+    out = {"wall_s": time.perf_counter() - t0, "small": small}
+    n_attn = layer_counts(_jamba_config(small))["attn"]
+    for name, (shape_name, sizes, _, held) in JAMBA_CELLS.items():
+        tag = f"phase 18 (b) {name}{' (smoke config)' if small else ''}"
+        recs = [r[name] for r in ranks]
+        for r, rec in enumerate(recs):
+            check(rec["held"] == rec["want"] and (
+                small or rec["held"]["total"] == held),
+                f"{tag}: rank {r} holds {rec['held']}, the dry run says "
+                f"{rec['want']}" + ("" if small else f", the table {held}"))
+            check(rec["records_equal_trace"], f"{tag}: rank {r} issued "
+                  f"{rec['collectives']}, the trace {rec['traced']}")
+            check(rec["finite"], f"{tag}: rank {r}'s logits")
+            if device == "cuda":
+                _, _, _, route, splits = JAMBA_FLASH[name]
+                want = (route, rec["plan"][1] if small else splits)
+                check(tuple(rec["plan"]) == want
+                      and rec["routes"] == {route: n_attn},
+                      f"{tag}: rank {r} launched {rec['routes']}, the plan "
+                      f"gives {rec['plan']}, want {n_attn} {want}")
+        step = "step_s" if shape_name == "prefill_32k" else "step_ms"
+        unit = ranks[0]["unit " + name]
+        alike = [r["unit " + name]["routing"] == unit["routing"]
+                 for r in ranks]
+        per = [x[step] * (1e3 if step == "step_s" else 1.0) for x in recs]
+        log(f"{tag}: mesh {dict(zip(('data', 'model'), sizes))}; per rank "
+            f"held (B) {[x['held']['total'] for x in recs]} == the dry "
+            f"run's; build (s) {[round(x['build_s'], 3) for x in recs]}; "
+            f"peak (GB) {[round(x['peak_bytes'] / 1e9, 3) for x in recs]}; "
+            f"{step} {[x[step] for x in recs]}"
+            + (f" (median of {MESH_STEPS}; rank 0's all "
+               f"{recs[0]['step_ms_all']})" if step == "step_ms" else "")
+            + f" against the bound {recs[0]['bound_ms']:.3f} ms by "
+            f"{recs[0]['bound_by']} ({max(per) / recs[0]['bound_ms']:.2f}x"
+            f" at the slowest rank); in collectives "
+            f"{[x.get('collective_ms', x.get('collective_s')) for x in recs]}"
+            f" {'ms' if step == 'step_ms' else 's'}; flash launches "
+            f"{[x['routes'] for x in recs]}, plan {recs[0]['plan']}; "
+            f"collectives issued {json.dumps(recs[0]['collectives'])} == "
+            f"traced; at one unit ({unit['checked']} requests checked): "
+            f"rank 0 vs the f32 step {unit['f32_err']:.4e} (limit "
+            f"{unit['f32_limit']:.4e}: {MESH_F32_FACTOR} x one card's "
+            f"{unit['one_card_f32_err']:.4e}), vs one card "
+            f"{unit['one_card_err']:.4e} (both one-card steps on rank 0's "
+            f"experts; (tokens, smallest gap) where the f32 step's own "
+            f"choice differs: {json.dumps(unit['flips'])}); ranks routing its "
+            f"{len(unit['routing'])} MoE calls as rank 0: {alike}; planted "
+            f"faults from the f32 step "
+            f"{json.dumps(unit['faults_f32'])}, from one card "
+            f"{json.dumps(unit['faults'])}")
+        check(all(alike), f"{tag} at one unit: ranks' router inputs, "
+              f"probabilities, experts or kept assignments against rank "
+              f"0's: {alike}")
+        check(unit["f32_err"] <= unit["f32_limit"], f"{tag} at one unit: "
+              f"rank 0's logits read {unit['f32_err']} from the f32 step, "
+              f"above {MESH_F32_FACTOR} x one card's "
+              f"{unit['one_card_f32_err']}")
+        check(min(unit["faults_f32"].values()) > unit["f32_limit"],
+              f"{tag} at one unit: a planted fault reads "
+              f"{unit['faults_f32']} from the f32 step, within "
+              f"{unit['f32_limit']}")
+        out[name] = recs
+        out["unit " + name] = unit
+    log(f"phase 18 (b) took {out['wall_s']:.1f} s")
+    return out
+
+
+def jamba_phase(fa_ref, fa_kernel, dev, seed: int) -> dict:
+    """Phase 18: (a) :func:`jamba_flash_call` for each cell and
+    :func:`jamba_one_rank`;
+    (b) on a host of ``MESH_RANKS`` or more cards, :func:`jamba_mesh_cells`
+    at full size."""
+    t0 = time.perf_counter()
+    out = {"flash": {name: jamba_flash_call(fa_ref, fa_kernel, name, dev,
+                                            seed) for name in JAMBA_FLASH},
+           "one_rank": jamba_one_rank(fa_kernel, dev, seed)}
+    out["a_s"] = time.perf_counter() - t0
+    log(f"phase 18 (a) took {out['a_s']:.1f} s")
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if cards >= MESH_RANKS:
+        torch.cuda.empty_cache()
+        out["mesh"] = jamba_mesh_cells(seed)
+    else:
+        log(f"phase 18 (b): {cards} card(s) on this host; the four-card "
+            f"cells {list(JAMBA_CELLS)} need {MESH_RANKS} "
+            f"(scripts/mesh_cell.py runs them)")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 18 took {out['wall_s']:.1f} s")
     return out
 
 
@@ -7221,6 +7833,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     mesh = mesh_phase(fa_kernel, kept, dev, args.seed)
     log("mesh: " + json.dumps(mesh, default=str))
+    torch.cuda.empty_cache()
+    jamba = jamba_phase(fa_ref, fa_kernel, dev, args.seed)
+    log("jamba: " + json.dumps(jamba, default=str))
     log(f"the whole smoke took {time.perf_counter() - t_start:.1f} s")
 
     pre, dec = ft["prefill"], ft["decode"]
@@ -7284,6 +7899,7 @@ def main(argv=None) -> int:
                            sj["flash"]["prefill"]["err"],
                            sj["flash"]["decode"]["err"],
                            *(r["err"] for r in ef.values()),
+                           *(r["err"] for r in jamba["flash"].values()),
                            *(w[0] for w in train["lse"]["worst"].values())),
         "ms": pre["ms"], "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
@@ -7332,6 +7948,18 @@ def main(argv=None) -> int:
             rank_route_launches=[r["routes"] for r in recs])
             for name, recs in mesh.get("mesh", {}).items()
             if name in MESH_CELLS},
+        "jamba_unit_one_rank_launches": jamba["one_rank"]["launches"],
+        "jamba_unit_one_rank_route_launches": jamba["one_rank"]["routes"],
+        "jamba_4card_shapes": {name: {k: r[k] for k in (
+            "route", "splits", "ms", "plain_rows_ms", "rows", "bound_ms",
+            "bound_by", "library_ms", "library_how", "err", "row_err")}
+            for name, r in jamba["flash"].items()},
+        "jamba_mesh_cells": {name: dict(
+            mesh=dict(zip(("data", "model"), JAMBA_CELLS[name][1])),
+            rank_launches=[r["launches"] for r in recs],
+            rank_route_launches=[r["routes"] for r in recs])
+            for name, recs in jamba.get("mesh", {}).items()
+            if name in JAMBA_CELLS},
         "encdec_shapes": {name: {k: r[k] for k in (
             "route", "launches", "ms", "plain_ms", "plain_B", "bound_ms",
             "bound_by", "library_ms", "err")} for name, r in ef.items()},

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Run one cell across four cards: chip_smoke.py's phase 17 (b) alone.
+"""Run cells across four cards: chip_smoke.py's phases 17 (b) and 18 (b).
 
-``chip_smoke.mesh_cells``: four processes, one a card, joined over NCCL,
+``chip_smoke.mesh_cells`` (phase 17 (b)): four processes, one a card, joined over NCCL,
 run llama3-8b at its published size through ``build_cell`` on two
 meshes over ``("data", "model")``: ``prefill_32k_llama3_8b_B32_4x1`` (32
 prompts of 32,768 tokens; FSDP and the batch over ``data``) and
@@ -12,17 +12,31 @@ memory, the prefill's seconds and the decode step's ms (median of 5),
 the time in the collectives, the collectives issued against the dry
 run's trace, each rank's flash launches by route and its flash call
 timed beside SDPA; rank 0's logits against one card's on the gathered
-weights, and the planted faults::
+weights, and the planted faults.
+
+``chip_smoke.jamba_mesh_cells`` (phase 18 (b)): four processes run
+jamba-v0.1 at its published 32 layers on ``(1, 4)`` (experts, Mamba's
+inner channels and the heads over ``model``), each rank's weights drawn
+one parameter at a time and cut: ``decode_32k_jamba_v01_52b_B128_1x4``,
+``long_500k_jamba_v01_52b_B1_1x4`` and
+``prefill_32k_jamba_v01_52b_B8_1x4``; each rank's held bytes against the
+table's, its collectives against the trace, its flash launches by route
+and split count, the prefill's seconds and the decode steps' ms (median
+of 5) against each cell's bound; then each cell at one unit, rank 0
+against one card's step in bf16 and f32, and the planted faults::
 
     python3 scripts/mesh_cell.py [--small] [--seed N]
 
 ``--small`` runs the same meshes at llama3-8b's smoke config (bf16 at
 head_dim 128, 4 kv heads; 8 x 256 tokens, 8 requests over 512
-positions).  Builds the flash kernels into ``build/`` first; needs four
-CUDA cards.  Prints the card's name and power limit, phase 17's lines and
-one ``MESH {...}`` line.  Rehearse on the CPU with
+positions) and jamba's (bf16 at head_dim 128, 4 kv heads, 8 experts;
+``chip_smoke.JAMBA_SMALL``).  Builds the flash kernels into ``build/`` first; needs four
+CUDA cards.  Prints the card's name and power limit, the phases' lines
+and one ``MESH {...}`` line.  Rehearse on the CPU with
 ``chip_smoke.mesh_cells(0, small=True, device="cpu")`` (four gloo ranks,
-~20 s; the route checks need the card).
+~20 s) and ``chip_smoke.jamba_mesh_cells(0, small=True, device="cpu")``
+(~210 s: bf16 on the CPU; the route checks need the card; call it from
+a script file, which the ranks' ``spawn`` re-imports).
 """
 from __future__ import annotations
 
@@ -60,7 +74,8 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count()}")
     smoke.build_kernels([functools.partial(fa_kernel.build, r)
                          for r in fa_kernel.ROUTES])
-    out = smoke.mesh_cells(args.seed, small=args.small)
+    out = {"phase 17": smoke.mesh_cells(args.seed, small=args.small),
+           "phase 18": smoke.jamba_mesh_cells(args.seed, small=args.small)}
     print("MESH " + json.dumps(out, default=str), flush=True)
     return 0
 

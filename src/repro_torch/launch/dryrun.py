@@ -16,14 +16,17 @@ a decode step, N the active parameters).
 The reference reads FLOPs, bytes accessed, temporary memory and
 collective bytes from XLA's compiled program.  The port has no such
 compiler: it traces the program instead.  For every cell that runs on a
-mesh (the dense archs' prefill and decode where no cache spec shards the
-sequence, :func:`repro_torch.launch.steps.mesh_refusal`),
+mesh (the prefill and decode of the dense, MoE and jamba archs where the
+heads, widths, experts and Mamba's channels split over the model axis
+and no cache spec shards the sequence,
+:func:`repro_torch.launch.steps.mesh_refusal`),
 :meth:`~repro_torch.launch.steps.CellProgram.trace` runs rank 0's step
 on ``meta`` tensors over the cell's mesh, its collectives recorded as
 they are issued (kind, count and per-device output bytes, the
 reference's output-shape proxy) and its FLOPs counted by
 ``FlopCounterMode`` (``flops_per_device``; the flash kernel's as a dense
-attention's, no causal mask skipped).  As the reference's accounting
+attention's, no causal mask skipped; Mamba's step loop as one product of
+the same FLOPs, ``2 B d_in N`` a step).  As the reference's accounting
 builds do, the dry run traces the cell at one and at two units and takes
 the rest as repeats of the second (every unit issues the same products
 and collectives): the full trace's numbers, in a fraction of its time.  Every other cell keeps those

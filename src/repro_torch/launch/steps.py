@@ -19,14 +19,19 @@ The program runs (:meth:`CellProgram.materialize`, :meth:`CellProgram.run`)
 on a mesh of one device as it stands, and on a mesh of more than one as
 explicit SPMD: one process a device, each joined to the mesh's process
 group (:func:`repro_torch.parallel.group.init_mesh_group`) and holding
-only its shards of the parameters, the cache and the batch, on plain
-local tensors.  The dense decoder's serving steps run so: each layer's
-FSDP weights all-gathered over the data axes just before use, the
-attention on the rank's heads (the flash kernel on local q, k and v), an
-all-reduce over the model axis after each row-parallel product (``wo``)
-and after the vocabulary-parallel embedding lookup, the logits left
-split over the vocabulary.  What else a mesh would need raises
-``NotImplementedError`` naming its ROADMAP item (:func:`mesh_refusal`).
+only its shards of the parameters (each cut as it is drawn, so no rank
+holds the whole model), the cache and the batch, on plain local tensors.
+The serving steps of the dense decoder, the MoE archs and jamba run so:
+each layer's FSDP weights all-gathered over the data axes just before
+use, the attention on the rank's heads (the flash kernel on local q, k
+and v), Mamba on the rank's inner channels, the MoE layer on the rank's
+experts (its tokens routed alike on every rank of the model axis, its
+capacity groups those of the rank's own tokens), an all-reduce over the
+model axis after each row-parallel product (``wo``, Mamba's ``x_proj``
+and ``out_proj``, the experts' combine) and after the
+vocabulary-parallel embedding lookup, the logits left split over the
+vocabulary.  What else a mesh would need raises ``NotImplementedError``
+naming its ROADMAP item (:func:`mesh_refusal`).
 :meth:`CellProgram.trace` runs rank 0's step on ``meta`` tensors through
 recording collectives: the dry run's collective bytes and FLOPs.
 """
@@ -40,26 +45,26 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.configs.base import MambaConfig, ModelConfig, ShapeConfig
+from repro_torch.models.layers import on_draw
 from repro_torch.models.transformer import Model, TrainModel
 from repro_torch.optim import adamw
 from repro_torch.parallel.collectives import TP_AXES, Collectives, Spmd
 from repro_torch.parallel.group import MeshGroup, local_shard
 from repro_torch.parallel.sharding import (P, Mesh, ShardingRules,
-                                           device_bytes, leaves)
+                                           device_bytes, leaves,
+                                           param_blocks)
 from repro_torch.pmwcas import resolve_device
 
 # what a mesh of more than one device does not run yet, by ROADMAP item
 MULTI_CARD = {
-    "moe": "MoE and Mamba layers on a mesh of more than one device are "
-           "not ported yet (ROADMAP Queue 1 A #8.1: jamba-v0.1 on four "
-           "cards)",
     "train": "a training step on a mesh of more than one device is not "
              "ported yet (ROADMAP Queue 1 A #8.2: llama3-8b's train_4k on "
              "four cards)",
     "split": "a cache sharded over its sequence, or heads, the MLP's "
-             "width or the vocabulary that do not split evenly over the "
-             "model axis, is not ported yet (ROADMAP Queue 1 A #8.3)",
+             "width, the vocabulary, the experts or Mamba's channels that "
+             "do not split evenly over the model axis, is not ported yet "
+             "(ROADMAP Queue 1 A #8.3)",
     "stacks": "xLSTM, encoder-decoder and vision-prefix stacks on a mesh "
               "of more than one device are not ported yet (ROADMAP Queue 1 "
               "A #8.4)",
@@ -283,21 +288,50 @@ class CellProgram:
             raise NotImplementedError(f"{self.cfg.name} {self.shape.name} on "
                                       f"{self.mesh.shape}: {reason}")
 
+    def _shard(self, name: str, t: torch.Tensor, group, dev=None):
+        return local_shard(t.detach(), self.specs["params"][name], group,
+                           dev, blocks=param_blocks(name))
+
     def _local_model(self, model, dev, seed: int, group) -> Model:
         """A serving ``Model`` holding this rank's shard of every
-        parameter of ``model`` (or of one drawn from ``seed`` on ``dev``,
-        whole, then cut: every mesh computes with the same global
-        weights)."""
-        full = model if model is not None else Model(
-            self.cfg, device=dev, seed=seed, init=dev.type != "meta")
-        specs = self.specs["params"]
-        local = model_holding(self.cfg, {
-            name: local_shard(t.detach(), specs[name], group, dev)
-            for name, t in full.named_parameters()})
-        if model is None and dev.type == "cuda":
-            del full           # the whole model's blocks back to the card
-            torch.cuda.empty_cache()
-        return local
+        parameter of ``model``, or of ``Model(cfg, device=dev,
+        seed=seed)``: every mesh computes with the same global weights.
+        That one is drawn one weight at a time from its generator, in the
+        model's order, each cut to this rank's shard as it is made
+        (:func:`~repro_torch.models.layers.on_draw`) and the rest of it
+        freed before the next draw: the whole model is never held (jamba
+        at 32 layers is 103 GB of bf16).  The draws' names come from the
+        same construction on ``meta`` (each made tensor's storage is its
+        parameter's; a draw that is not raises ``RuntimeError`` before
+        anything is drawn); what no draw makes (the norms, the attention
+        biases, Mamba's ``a_log``) is cut after."""
+        if model is not None:
+            return model_holding(self.cfg, {
+                name: self._shard(name, t, group, dev)
+                for name, t in model.named_parameters()})
+        made = []
+        with on_draw(lambda t: made.append(t) or t):
+            shapes = Model(self.cfg, device="meta", init=False)
+        name_of = {p.untyped_storage()._cdata: name
+                   for name, p in shapes.named_parameters()}
+        names = [name_of.get(t.untyped_storage()._cdata) for t in made]
+        if None in names:       # reshaped or stacked into its parameter
+            raise RuntimeError(f"{self.cfg.name}: draw {names.index(None)} "
+                               f"is no parameter's own tensor, so it "
+                               f"cannot be cut as it is made")
+        order, cut = iter(names), set()
+
+        def take(t):
+            name = next(order)
+            cut.add(name)
+            return self._shard(name, t, group)
+
+        with on_draw(take):
+            drawn = Model(self.cfg, device=dev, seed=seed,
+                          init=dev.type != "meta")
+        return model_holding(self.cfg, {
+            name: t.detach() if name in cut else self._shard(name, t, group)
+            for name, t in drawn.named_parameters()})
 
     def materialize(self, device="cuda", seed: int = 0, model=None,
                     group=None, cache=None) -> CellState:
@@ -333,6 +367,8 @@ class CellProgram:
         model.hints = dict(self.hints)
         if group is not None:
             model.par = Spmd(Collectives(group), self.specs["params"])
+            if "moe_groups" in self.hints:   # the groups of its own tokens
+                model.hints["moe_groups"] //= self._batch_shards()
         rng = np.random.default_rng(seed)
 
         def tokens(*shape):
@@ -370,6 +406,11 @@ class CellProgram:
             args["cache"] = self._cache(cache, group, model,
                                         args["token"].shape[0], S)
         return CellState(model, self.make_step(model), args)
+
+    def _batch_shards(self) -> int:
+        """The ways the step's requests are split over the mesh."""
+        return self.rules.axis_size(
+            self.rules.batch_spec(self.shape.global_batch) or ())
 
     def _cache(self, cache, group, model, batch: int, length: int):
         """``cache`` with each tensor cut to this rank's shard (the same
@@ -439,27 +480,38 @@ def mesh_refusal(cell: CellProgram, any_mesh: bool = False
                  ) -> Optional[str]:
     """Why ``cell`` does not run on its mesh yet (naming the ROADMAP item),
     or None: a mesh of one device runs every cell; a larger one runs the
-    dense decoder's prefill and decode where the heads, the MLP's width
-    and the vocabulary split evenly over the model axis and no cache is
-    sharded over its sequence.  ``any_mesh`` judges a one-device mesh as
-    a larger one (the dry run traces only what runs on every mesh)."""
+    prefill and decode of a stack of attention, Mamba, dense MLP and MoE
+    layers (the dense decoder, granite-moe, qwen3-moe, jamba) where the
+    heads, the MLP's width, the vocabulary, the experts and Mamba's inner
+    channels split evenly over the model axis, no cache is sharded over
+    its sequence, and the MoE capacity groups fall on the requests'
+    split.  ``any_mesh`` judges a one-device mesh as a larger one (the
+    dry run traces only what runs on every mesh)."""
     if cell.mesh.size == 1 and not any_mesh:
         return None
     cfg = cell.cfg
     if cell.mode == "train":
         return MULTI_CARD["train"]
-    if cfg.moe is not None or any(s.kind == "mamba" for s in cfg.unit):
-        return MULTI_CARD["moe"]
     if cfg.enc_dec or cfg.frontend != "none" or any(
-            s.kind != "attn" for s in cfg.unit):
+            s.kind not in ("attn", "mamba") for s in cfg.unit):
         return MULTI_CARD["stacks"]
     tp = cell.rules.axis_size(TP_AXES)
+    widths = [cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.padded_vocab]
+    if cfg.moe is not None:
+        widths.append(cfg.moe.n_experts)
+    if any(s.kind == "mamba" for s in cfg.unit):
+        widths.append((cfg.mamba or MambaConfig()).expand * cfg.d_model)
     if cell.rules.model_candidates[0] != TP_AXES or any(
-            n % tp for n in (cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
-                             cfg.padded_vocab)):
+            n % tp for n in widths):
         return MULTI_CARD["split"]
-    if any(len(spec) > 3 and spec[3] is not None
-           for spec in cell.specs["cache"].values()):
+    if any(path.rsplit("/", 1)[-1] in ("k", "v", "k_scale", "v_scale")
+           and spec[3] is not None
+           for path, spec in cell.specs["cache"].items()):
+        return MULTI_CARD["split"]          # a K/V cache over its sequence
+    groups, shards = cell.hints.get("moe_groups", 1), cell._batch_shards()
+    if cfg.moe is not None and cell.mode == "prefill" and shards > 1 and (
+            groups % shards or cell.shape.global_batch
+            * cell.shape.seq_len % groups):
         return MULTI_CARD["split"]
     return None
 

@@ -7,8 +7,9 @@ reference, so carrying them across is a plain copy.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -37,6 +38,30 @@ class KeyGen:
         return self.generator
 
 
+# what make_param and make_const pass each tensor through (on_draw)
+_DRAW_HOOKS: List[Callable[[torch.Tensor], torch.Tensor]] = []
+
+
+@contextlib.contextmanager
+def on_draw(hook: Callable[[torch.Tensor], torch.Tensor]):
+    """Within the block, every tensor :func:`make_param` and
+    :func:`make_const` make (drawn, a constant, or in ``mode="empty"``
+    only allocated) is passed through ``hook`` and its result returned in
+    its place, in the order the model makes them: a rank of a mesh keeps
+    its shard of each weight as it is drawn
+    (:meth:`repro_torch.launch.steps.CellProgram.materialize`), so no
+    whole model is held at once."""
+    _DRAW_HOOKS.append(hook)
+    try:
+        yield
+    finally:
+        _DRAW_HOOKS.pop()
+
+
+def _made(t: torch.Tensor) -> torch.Tensor:
+    return _DRAW_HOOKS[-1](t) if _DRAW_HOOKS else t
+
+
 def make_param(gen: Optional[torch.Generator], shape, dtype: torch.dtype,
                scale: float = 1.0, mode: str = "normal",
                device=None) -> torch.Tensor:
@@ -46,11 +71,11 @@ def make_param(gen: Optional[torch.Generator], shape, dtype: torch.dtype,
     in)."""
     device = gen.device if gen is not None else device
     if mode == "empty":
-        return torch.empty(shape, dtype=dtype, device=device)
+        return _made(torch.empty(shape, dtype=dtype, device=device))
     fan_in = shape[0] if len(shape) > 1 else max(1, shape[0])
     std = scale / np.sqrt(fan_in)
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return x.mul_(std).to(dtype)
+    return _made(x.mul_(std).to(dtype))
 
 
 def make_const(shape, value: float, dtype, mode: str = "normal",
@@ -58,9 +83,9 @@ def make_const(shape, value: float, dtype, mode: str = "normal",
     """A constant leaf (a bias, a gate's opening value): made in float32
     and cast to ``dtype``; ``mode="empty"`` only allocates it."""
     if mode == "empty":
-        return torch.empty(shape, dtype=dtype, device=device)
-    return torch.full(shape, value, dtype=torch.float32,
-                      device=device).to(dtype)
+        return _made(torch.empty(shape, dtype=dtype, device=device))
+    return _made(torch.full(shape, value, dtype=torch.float32,
+                            device=device).to(dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -24,9 +24,24 @@ is later speed work).  What must match the reference exactly, and how:
   default for matrix products): routing flips on an ulp of a logit.
 
 ``ecd_hint``, ``gather_hint`` and ``group_hint`` are the reference's
-sharding constraints; they are accepted and have no effect on one
-device, the only mesh the port runs on.  ``groups`` is honoured: it
-enforces capacity per group of tokens, which changes which tokens drop.
+sharding constraints; they are accepted and place nothing.  ``groups``
+is honoured: it enforces capacity per group of tokens, which changes
+which tokens drop.
+
+On a mesh (``par``, a rank's
+:class:`~repro_torch.parallel.collectives.Spmd`, with a model axis of
+more than one device) the experts are split over the model axis, as the
+reference's ``moe_ecd`` constraint places them: the rank holds
+``E / tp`` experts' weights (``wi_* [E/tp, D, F]``, ``wo [E/tp, F, D]``)
+and the whole router.  Its tokens are the same on every rank of the axis,
+so the router, :func:`topk_stable`, :func:`route`, the capacity and the
+drops are the same on every rank; each computes only its experts' slots
+(the capacity path) or columns of the gate matrix (the dense path), adds
+its experts' weighted outputs into a float32 partial ``y`` and the
+partials are all-reduced over the model axis (``moe``), then rounded
+once: one card's combine sums the same bf16 products in float32 and
+rounds once, so a token whose experts sit on one rank gets one card's
+``y`` and the rest differ by the order of a float32 sum.
 """
 from __future__ import annotations
 
@@ -99,26 +114,48 @@ def route(probs: torch.Tensor, k: int, capacity: int) -> Routing:
     gate_vals, expert_ids = topk_stable(probs, k)
     flat_e = expert_ids.reshape(N * k)
     order = torch.argsort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = torch.zeros(E, dtype=flat_e.dtype, device=flat_e.device) \
+        .index_add_(0, flat_e, torch.ones_like(flat_e))    # a bincount
+    # that also runs on meta tensors (the dry run's trace)
     starts = torch.cumsum(counts, 0) - counts
     ranks = torch.arange(N * k, device=probs.device) - starts[flat_e[order]]
     pos = torch.empty_like(flat_e).scatter_(0, order, ranks).reshape(N, k)
     return Routing(gate_vals, expert_ids, pos, pos < capacity, counts)
 
 
+def _split(par) -> bool:
+    """Whether ``par`` splits the experts over a model axis of more than
+    one device."""
+    return par is not None and par.tp > 1
+
+
+def _combine_f32(par, x: torch.Tensor, parts) -> torch.Tensor:
+    """The sum over the ranks of this rank's partial ``y [N, D]`` in
+    float32, rounded once to ``x``'s dtype: ``parts`` yields ``(outputs
+    [N, D], weights [N])`` pairs (one at a time, so one is held), each
+    added as ``outputs * weights`` (bf16 products are exact in float32)."""
+    y = torch.zeros(x.shape[0] * x.shape[1], x.shape[2],
+                    dtype=torch.float32, device=x.device)
+    for out, w in parts:
+        y.addcmul_(out, w[:, None])
+    return par.reduce(y, "moe").to(x.dtype).reshape(x.shape)
+
+
 def apply_moe(p, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25, act: str = "silu",
               ecd_hint=None, gather_hint=None, groups: int = 1,
-              group_hint=None) -> Tuple[torch.Tensor, torch.Tensor]:
+              group_hint=None, par=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (y [B, S, D], the load-balancing aux loss, a 0-d
     float32 tensor).  ``groups > 1`` (dividing B*S) routes each group of
-    tokens on its own, capacity per group, and averages their aux."""
+    tokens on its own, capacity per group, and averages their aux.
+    ``par``: a rank of a mesh, its experts split over the model axis (the
+    module's docstring)."""
     B, S, D = x.shape
     N = B * S
     if groups > 1 and N % groups == 0:
         xg = x.reshape(groups, N // groups, 1, D)
         outs = [apply_moe(p, xg[g], top_k=top_k,
-                          capacity_factor=capacity_factor, act=act)
+                          capacity_factor=capacity_factor, act=act, par=par)
                 for g in range(groups)]
         return (torch.stack([y for y, _ in outs]).reshape(B, S, D),
                 torch.stack([a for _, a in outs]).mean())
@@ -128,43 +165,52 @@ def apply_moe(p, x: torch.Tensor, *, top_k: int,
     xf = x.reshape(N, D)
     probs = router_probs(xf, p["router"])
     r = route(probs, top_k, C)
+    # load-balancing auxiliary loss (Switch-style); counts include drops
+    me = probs.mean(dim=0)
+    aux = E * torch.sum(me * (r.counts.float() / (N * top_k)))
 
+    # this rank's experts [e0, e0 + E_l): every expert on one device
+    E_l = p["wi_gate"].shape[0]
+    e0 = par.local_range(E)[0] if _split(par) else 0
+    mine = r.keep & (r.expert_ids >= e0) & (r.expert_ids < e0 + E_l)
     # dispatch: src[e*C + c] = the token of expert e's c-th kept
     # assignment (the reference gathers it from the expert-sorted
     # stream); slot = where each assignment's output lands.  An empty
     # slot reads token (e*C + c) mod N where the reference reads a zero
     # row appended to xf: no output of an empty slot reaches y but with
-    # weight 0 (a dropped assignment reads slot E*C - 1 with weight 0 in
-    # both), so y is the same and so is every gradient, up to the order
-    # of its sums; and the backward's sort-based scatter of xe's gradient
-    # does not serialize over the one row that every empty slot would
-    # share (a fifth of the slots at capacity factor 1.25)
-    slot = torch.where(r.keep, r.expert_ids * C + r.pos, E * C)
+    # weight 0 (a dropped assignment, or another rank's, reads slot
+    # E_l*C - 1 with weight 0), so y is the same and so is every
+    # gradient, up to the order of its sums; and the backward's
+    # sort-based scatter of xe's gradient does not serialize over the one
+    # row that every empty slot would share (a fifth of the slots at
+    # capacity factor 1.25)
+    slot = torch.where(mine, (r.expert_ids - e0) * C + r.pos, E_l * C)
     tokens = torch.arange(N, device=x.device)[:, None].expand(N, top_k)
-    src = torch.arange(E * C + 1, device=x.device) % N
-    src[slot.reshape(-1)] = tokens.reshape(-1)     # drops land on E*C
-    xe = xf[src[:E * C]].reshape(E, C, D)
+    src = torch.arange(E_l * C + 1, device=x.device) % N
+    src[slot.reshape(-1)] = tokens.reshape(-1)   # the rest land on E_l*C
+    xe = xf[src[:E_l * C]].reshape(E_l, C, D)
 
     h = act_fn(act)(torch.einsum("ecd,edf->ecf", xe, p["wi_gate"])) * \
         torch.einsum("ecd,edf->ecf", xe, p["wi_up"])
-    ye = torch.einsum("ecf,efd->ecd", h, p["wo"])
-
-    gathered = ye.reshape(E * C, D)[slot.clamp(max=E * C - 1).reshape(-1)]
-    gathered = gathered.reshape(N, top_k, D)
+    ye = torch.einsum("ecf,efd->ecd", h, p["wo"]).reshape(E_l * C, D)
+    del xe, h
+    at = slot.clamp(max=E_l * C - 1)
+    if _split(par):
+        w = (r.gate_vals * mine).to(x.dtype).float()
+        return _combine_f32(par, x, ((ye[at[:, k]], w[:, k])
+                                     for k in range(top_k))), aux
+    gathered = ye[at.reshape(-1)].reshape(N, top_k, D)
     w = (r.gate_vals * r.keep).to(x.dtype)                   # dropped -> 0
     y = torch.einsum("nkd,nk->nd", gathered, w)
-
-    # load-balancing auxiliary loss (Switch-style); counts include drops
-    me = probs.mean(dim=0)
-    ce = r.counts.float() / (N * top_k)
-    aux = E * torch.sum(me * ce)
     return y.reshape(B, S, D), aux
 
 
-def apply_moe_dense(p, x: torch.Tensor, *, top_k: int,
-                    act: str = "silu") -> Tuple[torch.Tensor, torch.Tensor]:
+def apply_moe_dense(p, x: torch.Tensor, *, top_k: int, act: str = "silu",
+                    par=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dropless MoE for decode: every expert on every token, combined with
-    the normalized top-k gates; the aux loss is 0."""
+    the normalized top-k gates; the aux loss is 0.  ``par``: a rank of a
+    mesh, which computes its experts' columns of the gate matrix and
+    sums their outputs over the ranks (the module's docstring)."""
     calls["dense"] += 1
     B, S, D = x.shape
     E = p["router"].shape[1]
@@ -176,6 +222,11 @@ def apply_moe_dense(p, x: torch.Tensor, *, top_k: int,
     h = act_fn(act)(torch.einsum("nd,edf->nef", xf, p["wi_gate"])) * \
         torch.einsum("nd,edf->nef", xf, p["wi_up"])
     ye = torch.einsum("nef,efd->ned", h, p["wo"])
-    y = torch.einsum("ned,ne->nd", ye, w.to(ye.dtype))
-    return y.reshape(B, S, D), torch.zeros((), dtype=torch.float32,
-                                           device=x.device)
+    if _split(par):
+        e0, e1 = par.local_range(E)
+        w = w[:, e0:e1].to(ye.dtype).float()
+        y = _combine_f32(par, x, ((ye[:, e], w[:, e])
+                                  for e in range(e1 - e0)))
+    else:
+        y = torch.einsum("ned,ne->nd", ye, w.to(ye.dtype)).reshape(B, S, D)
+    return y, torch.zeros((), dtype=torch.float32, device=x.device)

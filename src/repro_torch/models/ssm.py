@@ -23,7 +23,23 @@ kernel is later speed work.  Two differences of form, neither of maths:
 ``silu`` and ``softplus`` take jax.nn's formulas
 (:mod:`repro_torch.models.layers`), so bf16 rounds where the reference's
 op-by-op run does.  ``unroll`` (the reference's accounting switch) is
-accepted and ignored.
+accepted and ignored.  On ``meta`` tensors (the dry run's trace) the step
+loop runs as one product of the same FLOPs: ``L`` steps of bookkeeping
+on shapes would take minutes at a 32k prompt.
+
+On a mesh (``par``, a rank's
+:class:`~repro_torch.parallel.collectives.Spmd`, with a model axis of
+more than one device) the inner channels ``d_in`` are split over the
+model axis, as the specs place them: the rank holds ``[x_r | z_r]`` of
+``in_proj`` (:func:`~repro_torch.parallel.sharding.param_blocks`), its
+channels of ``conv_w``, ``conv_b``, ``dt_proj_w/b``, ``a_log``,
+``d_skip``, its rows of ``x_proj`` and ``out_proj``, and its channels of
+the state.  ``x_proj`` is row-parallel: its partial product is summed
+over the ranks in float32 and rounded once (``mamba/x_proj``), as one
+card's product rounds once, before ``dt``, ``B`` and ``C`` are split
+from it (``softplus`` and ``exp`` would amplify a second rounding);
+``out_proj``'s partial result is all-reduced as the attention's ``wo``
+is (``mamba/out_proj``).
 """
 from __future__ import annotations
 
@@ -77,20 +93,34 @@ def causal_conv(hist: torch.Tensor, w: torch.Tensor, S: int) -> torch.Tensor:
     return out.to(torch.promote_types(hist.dtype, w.dtype))
 
 
+def _x_proj(x: torch.Tensor, w: torch.Tensor, par) -> torch.Tensor:
+    """``x @ x_proj``; on a mesh the rank's rows' partial product, summed
+    over the model axis in float32 and rounded once."""
+    if par is None or par.tp == 1:
+        return matmul(x, w)
+    return par.reduce(matmul(x.float(), w.float()), "mamba/x_proj").to(
+        torch.promote_types(x.dtype, w.dtype))
+
+
 def _selective_ssm(p, x: torch.Tensor, h0: torch.Tensor, chunk: int,
-                   unroll: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                   unroll: bool = False,
+                   par=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, L, d_in] post-conv, h0: [B, d_in, N] float32.  Returns
     (y [B, L, d_in] float32, h_final)."""
     B, L, d_in = x.shape
     d_state = p["a_log"].shape[1]
     dt_rank = p["x_proj"].shape[1] - 2 * d_state
-    proj = matmul(x, p["x_proj"])
+    proj = _x_proj(x, p["x_proj"], par)
     dt = softplus(matmul(proj[..., :dt_rank], p["dt_proj_w"])
                     + p["dt_proj_b"]).float()                  # [B,L,d_in]
     Bm = proj[..., dt_rank:dt_rank + d_state].float()
     Cm = proj[..., dt_rank + d_state:].float()
     A = -torch.exp(p["a_log"])                                 # [d_in, N]
     xf = x.float()
+    if x.device.type == "meta":
+        # every step's h @ C as one product (2 B d_in N FLOPs a step)
+        y = (xf.new_empty(B, L, d_in, d_state) @ Cm[..., None])[..., 0]
+        return y + xf * p["d_skip"], torch.empty_like(h0)
     h = h0
     ys = []
     for c0 in range(0, L, chunk):
@@ -106,11 +136,12 @@ def _selective_ssm(p, x: torch.Tensor, h0: torch.Tensor, chunk: int,
 
 
 def apply_mamba(p, x: torch.Tensor, *, chunk: int = 256, unroll: bool = False,
-                state: Optional[Dict[str, torch.Tensor]] = None,
+                state: Optional[Dict[str, torch.Tensor]] = None, par=None,
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """x: [B, S, D].  state (decode): {"conv": [B,d_conv-1,d_in],
     "ssm": [B,d_in,N]}, both float32.  Returns (y [B,S,D], new_state or
-    None)."""
+    None).  ``par``: a rank of a mesh, on its channels (``d_in`` its
+    share; the module's docstring)."""
     B, S, D = x.shape
     d_in = p["in_proj"].shape[1] // 2
     d_conv = p["conv_w"].shape[0]
@@ -129,9 +160,11 @@ def apply_mamba(p, x: torch.Tensor, *, chunk: int = 256, unroll: bool = False,
     h0 = (state["ssm"] if state is not None
           else torch.zeros(B, d_in, d_state, dtype=torch.float32,
                            device=x.device))
-    y, h_final = _selective_ssm(p, xc, h0, chunk, unroll)
+    y, h_final = _selective_ssm(p, xc, h0, chunk, unroll, par)
     y = (y * silu(z.float())).to(x.dtype)
     out = matmul(y, p["out_proj"])
+    if par is not None:
+        out = par.reduce(out, "mamba/out_proj")
 
     new_state = None
     if state is not None:
@@ -141,9 +174,11 @@ def apply_mamba(p, x: torch.Tensor, *, chunk: int = 256, unroll: bool = False,
 
 
 def init_mamba_state(batch: int, d_model: int, d_state: int = 16,
-                     d_conv: int = 4, expand: int = 2,
-                     device=None) -> Dict[str, torch.Tensor]:
-    d_in = expand * d_model
+                     d_conv: int = 4, expand: int = 2, device=None,
+                     tp: int = 1) -> Dict[str, torch.Tensor]:
+    """The zero state of ``batch`` sequences: a rank's ``d_in / tp``
+    channels of it on a model axis of ``tp`` devices."""
+    d_in = expand * d_model // tp
     f32 = dict(dtype=torch.float32, device=device)
     return {"conv": torch.zeros(batch, d_conv - 1, d_in, **f32),
             "ssm": torch.zeros(batch, d_in, d_state, **f32)}

@@ -239,11 +239,14 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
     the MoE layer's aux loss (a float32 tensor; 0 after a decode step's
     dense path), 0.0 without one; the recurrent layer's new state, None
     for attention.  ``par`` (a rank's
-    :class:`~repro_torch.parallel.collectives.Spmd`; a dense attention
-    layer only) makes ``p`` the rank's model-axis shards: the attention
-    runs on the rank's ``n_heads / tp`` and ``n_kv_heads / tp`` heads (its
-    cache holds those kv heads) and its ``wo`` product, like the MLP's,
-    is all-reduced over the model axis."""
+    :class:`~repro_torch.parallel.collectives.Spmd`; an attention or
+    Mamba mixer, a dense MLP or an MoE layer) makes ``p`` the rank's
+    model-axis shards: the attention runs on the rank's ``n_heads / tp``
+    and ``n_kv_heads / tp`` heads (its cache holds those kv heads) and its
+    ``wo`` product, like the MLP's, is all-reduced over the model axis;
+    Mamba runs on the rank's ``d_in / tp`` channels (its state holds
+    those), and the MoE layer on its ``E / tp`` experts
+    (:mod:`repro_torch.models.ssm`, :mod:`repro_torch.models.moe`)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     state = None
     if spec.kind == "attn":
@@ -262,7 +265,7 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
             y = par.reduce(y, "attn/wo")
     elif spec.kind == "mamba":
         y, state = ssm_mod.apply_mamba(p["mamba"], h, chunk=cfg.mamba_chunk,
-                                       state=layer_cache)
+                                       state=layer_cache, par=par)
     elif spec.kind == "mlstm":
         y, state = xlstm_mod.apply_mlstm(p["mlstm"], h, n_heads=cfg.n_heads,
                                          chunk=cfg.xlstm.chunk,
@@ -285,23 +288,26 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
         return x + apply_mlp(p["mlp"], h, cfg.act, par=par), 0.0, state
     if h.shape[1] == 1:          # decode: the dropless all-experts path
         y, aux = moe_mod.apply_moe_dense(p["moe"], h, top_k=cfg.moe.top_k,
-                                         act=cfg.act)
+                                         act=cfg.act, par=par)
     else:
         y, aux = moe_mod.apply_moe(
             p["moe"], h, top_k=cfg.moe.top_k,
             capacity_factor=cfg.moe.capacity_factor, act=cfg.act,
-            groups=moe_groups)
+            groups=moe_groups, par=par)
     return x + y, aux, state
 
 
 def init_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
-               device=None) -> Dict[str, torch.Tensor]:
+               device=None, tp: int = 1) -> Dict[str, torch.Tensor]:
     """A recurrent layer's zero state for ``batch`` sequences (float32):
-    Mamba ``{conv, ssm}``, mLSTM ``{C, n, m}``, sLSTM ``{c, n, m, h}``."""
+    Mamba ``{conv, ssm}`` (a rank's ``d_in / tp`` channels on a model
+    axis of ``tp`` devices), mLSTM ``{C, n, m}``, sLSTM ``{c, n, m,
+    h}``."""
     if spec.kind == "mamba":
         m = cfg.mamba or MambaConfig()
         return ssm_mod.init_mamba_state(batch, cfg.d_model, m.d_state,
-                                        m.d_conv, m.expand, device=device)
+                                        m.d_conv, m.expand, device=device,
+                                        tp=tp)
     if spec.kind == "mlstm":
         return xlstm_mod.init_mlstm_state(batch, cfg.d_model, cfg.n_heads,
                                           cfg.xlstm.proj_factor,
@@ -378,15 +384,18 @@ class Model(nn.Module):
     :func:`repro_torch.models.convert.params_from_numpy`).
     ``hints`` (set by :func:`repro_torch.launch.steps.build_cell`) is the
     reference's dict of activation hints: ``moe_groups`` acts (the MoE
-    capacity path routes that many groups of tokens on their own); the
-    placement hints (``act``, ``logits``) are what ``par`` does on a mesh.
+    capacity path routes that many groups of tokens on their own; on a
+    rank of a mesh, the groups of its own tokens); the placement hints
+    (``act``, ``logits``, ``moe_ecd``, ``moe_gather``, ``moe_grp``,
+    ``state_b``) are what ``par`` does on a mesh.
     ``par`` (None on one device; set by
     :meth:`repro_torch.launch.steps.CellProgram.materialize` on a mesh) is
     the rank's :class:`~repro_torch.parallel.collectives.Spmd`: the
     parameters are then the rank's shards, each all-gathered over its
     FSDP axes just before use and dropped after, the cache holds the
-    rank's requests and kv heads, the embedding and the head are split
-    over the vocabulary, and the logits stay so split."""
+    rank's requests, kv heads and Mamba channels, the experts are split
+    over the model axis, the embedding and the head over the vocabulary,
+    and the logits stay so split."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
                  init: bool = True):
@@ -429,7 +438,8 @@ class Model(nn.Module):
         [n_units, B, KV, frontend_len, hd]`` in ``cfg.dtype`` (zeros until
         a prefill writes them)."""
         cfg = self.cfg
-        kv_heads = cfg.n_kv_heads // (1 if self.par is None else self.par.tp)
+        tp = 1 if self.par is None else self.par.tp
+        kv_heads = cfg.n_kv_heads // tp
         layers = {}
         for i, spec in enumerate(cfg.unit):
             if spec.kind == "attn":
@@ -440,8 +450,8 @@ class Model(nn.Module):
                 c.pop("index")
             else:
                 c = {k: t.expand(cfg.n_units, *t.shape).clone()
-                     for k, t in init_state(cfg, spec, batch,
-                                            self.device).items()}
+                     for k, t in init_state(cfg, spec, batch, self.device,
+                                            tp).items()}
             layers[f"layer{i}"] = c
         cache = {"layers": layers, "index": 0}
         if cfg.enc_dec:

@@ -15,8 +15,11 @@ events (:meth:`Collectives.seconds` reads them).
 
 :class:`Spmd` is a model's view of its rank: the spec of every parameter,
 the FSDP all-gather of a parameter before use (every axis but the model
-axis gathered; the caller drops the result after use) and the all-reduce
-over the model axis after a row-parallel product.
+axis gathered; the caller drops the result after use), the all-reduce
+over the model axis after a row-parallel product (each named for the
+product it serves: ``attn/wo``, ``mlp/wo``, ``embed/embedding``, ``moe``,
+``mamba/x_proj``, ``mamba/out_proj``), and the rank's slice of a count
+split evenly over the model axis (its experts).
 """
 from __future__ import annotations
 
@@ -168,7 +171,8 @@ class Collectives:
 class Spmd:
     """A model's rank of a sharded program: ``coll``, its collectives;
     ``pspecs``, the spec of every parameter by name.  Heads, the MLP's
-    hidden width and the vocabulary are split over :data:`TP_AXES`."""
+    hidden width, the vocabulary, the experts and Mamba's inner channels
+    are split over :data:`TP_AXES`."""
 
     def __init__(self, coll: Collectives, pspecs: Dict[str, P]):
         self.coll = coll
@@ -189,3 +193,11 @@ class Spmd:
         """The sum of a row-parallel product's partial results over the
         model axes."""
         return self.coll.all_reduce(t, TP_AXES, name=name)
+
+    def local_range(self, n: int) -> Tuple[int, int]:
+        """``(start, stop)`` of this rank's share of ``n`` items split
+        evenly over the model axes (its experts)."""
+        if n % self.tp:
+            raise ValueError(f"{n} does not split {self.tp} ways")
+        step = n // self.tp
+        return self.tp_index * step, (self.tp_index + 1) * step

@@ -14,7 +14,12 @@ which is how a spec entry with several axes splits a dimension.
 
 :func:`local_shard` cuts a full tensor (or a ``meta`` one) to this rank's
 shard of it under a spec; :func:`gather_full` puts the shards back
-together through the collectives.  :meth:`MeshGroup.trace` is a group
+together through the collectives.  Both take ``blocks``
+(:func:`~repro_torch.parallel.sharding.param_blocks`): Mamba's
+``in_proj`` is ``[D, 2 d_in]``, the ``x`` half then the ``z`` half, and
+each half is cut over the model axis on its own, so that a rank holds
+``[x_r | z_r]``, the same bytes as a plain cut (which would give the
+first ranks only ``x`` columns and the last only ``z`` columns).  :meth:`MeshGroup.trace` is a group
 with no process group behind it, rank 0's coordinates only: the dry run
 traces a mesh of 256 or 512 devices on ``meta`` tensors through it.
 """
@@ -26,6 +31,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.parallel.collectives import TP_AXES
 from repro_torch.parallel.sharding import Mesh, axes_of
 from repro_torch.pmwcas import resolve_device
 
@@ -141,35 +147,53 @@ def destroy_mesh_group() -> None:
         dist.destroy_process_group()
 
 
+def _blocks(axes, blocks: int) -> int:
+    """The blocks a dimension sharded over ``axes`` is cut in: ``blocks``
+    along the model axes, one along any other."""
+    return blocks if set(axes) & set(TP_AXES) else 1
+
+
 def local_shard(full: torch.Tensor, spec: Sequence, group: MeshGroup,
-                device: Optional[torch.device] = None) -> torch.Tensor:
+                device: Optional[torch.device] = None,
+                blocks: int = 1) -> torch.Tensor:
     """This rank's shard of ``full`` under ``spec``: each dimension
     sharded over axes of total size ``n`` cut to its ``index``-th
-    ``1/n``.  A copy of its own when anything was cut (a view would keep
-    the full tensor alive), ``full`` itself when nothing was; moved to
-    ``device`` when given."""
+    ``1/n``; a dimension over the model axes made of ``blocks`` equal
+    blocks side by side gets its ``1/n`` of each block, in order.  A copy
+    of its own when anything was cut (a view would keep the full tensor
+    alive), ``full`` itself when nothing was; moved to ``device`` when
+    given."""
     out = full
     for d, entry in enumerate(spec):
         axes = axes_of(entry)
         n = group.size(axes)
         if n > 1:
-            if full.shape[d] % n:
+            b = _blocks(axes, blocks)
+            if full.shape[d] % (n * b):
                 raise ValueError(f"{spec} does not divide "
-                                 f"{tuple(full.shape)} on {group.mesh.shape}")
-            step = full.shape[d] // n
-            out = out.narrow(d, group.index(axes) * step, step)
+                                 f"{tuple(full.shape)} on {group.mesh.shape}"
+                                 f" in {b} block(s)")
+            step = full.shape[d] // (n * b)
+            out = out.unflatten(d, (b, n * step)).narrow(
+                d + 1, group.index(axes) * step, step).flatten(d, d + 1)
     if out is not full:
         out = out.clone(memory_format=torch.contiguous_format)
     return out if device is None else out.to(device)
 
 
-def gather_full(local: torch.Tensor, spec: Sequence, coll) -> torch.Tensor:
+def gather_full(local: torch.Tensor, spec: Sequence, coll,
+                blocks: int = 1) -> torch.Tensor:
     """The full tensor back from every rank's ``local`` shard under
-    ``spec``, all-gathered through ``coll``
+    ``spec`` (cut with ``blocks``, as :func:`local_shard` cuts it),
+    all-gathered through ``coll``
     (:class:`~repro_torch.parallel.collectives.Collectives`) over each
     sharded dimension's axes; every rank gets it."""
     for d, entry in enumerate(spec):
         axes = axes_of(entry)
         if axes:
             local = coll.all_gather(local, axes, d, name="gather_full")
+            n, b = coll.group.size(axes), _blocks(axes, blocks)
+            if n > 1 and b > 1:      # [r, block, part] -> [block, r, part]
+                local = local.unflatten(d, (n, b, -1)).transpose(
+                    d, d + 1).flatten(d, d + 2)
     return local

@@ -132,6 +132,17 @@ def device_bytes(shape: Sequence[int], itemsize: int, spec: Sequence,
     return n * itemsize
 
 
+def param_blocks(name: str) -> int:
+    """How many equal blocks lie side by side along a parameter's
+    model-axis dimension, each split over the axis on its own
+    (:func:`~repro_torch.parallel.group.local_shard`): 2 for Mamba's
+    ``in_proj`` (``[D, 2 d_in]``: the ``x`` half, then the ``z`` half that
+    gates it channel by channel), 1 for every other parameter.  ``name``
+    is the port's (``units.0.layer1.mamba.in_proj``) or the reference's
+    key."""
+    return 2 if re.search(r"mamba[./]in_proj$", name) else 1
+
+
 def leaves(tree, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
     """``(path, tensor)`` of every tensor of a nested dict, the path the
     keys joined by ``/``; other leaves (the cache's int index) are

@@ -47,8 +47,13 @@ Cell programs: ``build_cell``'s prefill and decode steps at llama3-8b's
 smoke config on the card against the CPU within the small serves'
 limits.  On a mesh: the steps through a one-rank NCCL group equal to
 the same program without one, bit for bit, on the same flash routes; on
-a host of four cards, ``chip_smoke.mesh_cells`` at the smoke config
-(skipped below four cards).
+a host of four cards, ``chip_smoke.mesh_cells`` and
+``chip_smoke.jamba_mesh_cells`` at the smoke config (skipped below four
+cards).  jamba's four-card cells: each card's flash call (q ``[1024, 1,
+128]`` x k/v ``[256, 32768, 128]``, q ``[8, 1, 128]`` x k/v ``[2,
+524288, 128]``, q ``[64, 32768, 128]`` x k/v ``[16, 32768, 128]``
+causal) against its plain version within 2e-2 and ``FA_ROW_TOL`` a row,
+on the route and split count ``chip_smoke.JAMBA_FLASH`` gives.
 """
 import dataclasses
 import importlib.util
@@ -1239,3 +1244,40 @@ def test_mesh_cells_on_four_cards(cuda):
         assert head["one_card_err"] <= head["limit"]
         if "f32_err" in head:
             assert head["f32_err"] <= head["f32_limit"]
+
+
+# ---------------------------------------------------------------------------
+# jamba across four cards (chip_smoke.py phase 18)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(chip_smoke.JAMBA_FLASH))
+def test_jamba_four_card_flash_call(cuda, name):
+    """Each of jamba's four-card cells' flash call on one card (a card's
+    8 query and 2 kv heads of every request): the kernel against its
+    plain version within 2e-2 and ``FA_ROW_TOL`` a row, the planted
+    faults above the row limit (``flash_32k`` checks both), on the route
+    and split count of ``chip_smoke.JAMBA_FLASH``."""
+    res = chip_smoke.jamba_flash_call(fa_ref, fa_kernel, name, cuda, 0)
+    _, _, _, route, splits = chip_smoke.JAMBA_FLASH[name]
+    assert (res["route"], res["splits"]) == (route, splits)
+    assert res["err"] <= 2e-2 and res["row_err"] <= chip_smoke.FA_ROW_TOL
+    assert min(res["faults"].values()) > chip_smoke.FA_ROW_TOL
+
+
+def test_jamba_mesh_cells_on_four_cards(cuda):
+    """``chip_smoke.jamba_mesh_cells`` at the smoke config on four cards:
+    each rank's bytes the dry run's, its collectives the trace's, its
+    flash launches on the plan's route, and at one unit every rank
+    routing alike and rank 0's distance from the f32 step within 1.5
+    times one card's (one card on rank 0's experts), which the planted
+    faults exceed (the function checks each)."""
+    if torch.cuda.device_count() < chip_smoke.MESH_RANKS:
+        pytest.skip(f"needs {chip_smoke.MESH_RANKS} cards, this host has "
+                    f"{torch.cuda.device_count()}")
+    torch.cuda.synchronize()
+    out = chip_smoke.jamba_mesh_cells(0, small=True)
+    for name in chip_smoke.JAMBA_CELLS:
+        assert len(out[name]) == chip_smoke.MESH_RANKS
+        unit = out["unit " + name]
+        assert unit["f32_err"] <= unit["f32_limit"] < min(
+            unit["faults_f32"].values())

@@ -132,8 +132,12 @@ def test_run_cell_every_cell(arch, mesh):
         why = a["null_because"]
         assert a["temp_bytes"] is None and a["bytes_accessed_per_device"] \
             is None and why["temp_bytes"] == dryrun.NO_COMPILER
-        traced = cfg.family == "dense" and shape.mode != "train" and not (
-            arch == "glm4_9b" and mesh != "host")   # 2 kv heads over 8
+        # the serving cells of the dense, MoE and hybrid archs, but where
+        # the kv heads do not split over the production meshes' model
+        # axis of 8 (glm4-9b's 2, qwen3-moe's 4)
+        traced = cfg.family in ("dense", "moe", "hybrid") and \
+            shape.mode != "train" and not (
+                arch in ("glm4_9b", "qwen3_moe_30b_a3b") and mesh != "host")
         fields = ("flops_per_device", "collective_bytes_per_device",
                   "collective_counts", "collective_total_bytes_per_device")
         if traced:
@@ -367,10 +371,10 @@ def test_materialized_cell_holds_the_dry_run_bytes():
 REFUSED = {   # (arch, mode, mesh) -> the ROADMAP item it names
     "glm4_9b decode 1x4": ("glm4_9b", "decode", (1, 4), "#8.3"),
     "llama3_8b train 4x1": ("llama3_8b", "train", (4, 1), "#8.2"),
-    "granite_moe_3b_a800m decode 2x2": ("granite_moe_3b_a800m", "decode",
-                                        (2, 2), "#8.1"),
-    "jamba_v01_52b prefill 4x1": ("jamba_v01_52b", "prefill", (4, 1),
-                                  "#8.1"),
+    "jamba_v01_52b train 4x1": ("jamba_v01_52b", "train", (4, 1), "#8.2"),
+    # the smoke's 2 kv heads over a model axis of 8
+    "qwen3_moe_30b_a3b decode 1x8": ("qwen3_moe_30b_a3b", "decode", (1, 8),
+                                     "#8.3"),
     "xlstm_125m decode 4x1": ("xlstm_125m", "decode", (4, 1), "#8.4"),
     "seamless_m4t_medium prefill 2x2": ("seamless_m4t_medium", "prefill",
                                         (2, 2), "#8.4"),
@@ -382,8 +386,9 @@ def test_cell_program_refusals(case):
     """What a mesh of more than one device does not run yet: a group of
     another mesh (its world size differing), a mesh with no group, a
     cache sharded over its sequence (glm4-9b's 2 kv heads over a model
-    axis of 4), training, and the MoE, Mamba, xLSTM and encoder-decoder
-    stacks, each naming its ROADMAP item (the trace too)."""
+    axis of 4, qwen3-moe's over 8), training (llama3-8b's, jamba's), and
+    the xLSTM and encoder-decoder stacks, each naming its ROADMAP item
+    (the trace too)."""
     mesh = Mesh((4, 1), ("data", "model"))
     if case in ("size", "no group"):
         cfg = get_config("llama3_8b", smoke=True)
@@ -407,6 +412,38 @@ def test_cell_program_refusals(case):
         cell.materialize("cpu", group=MeshGroup.trace(cell.mesh))
     with pytest.raises(NotImplementedError, match=match):
         cell.trace()
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+@pytest.mark.parametrize("arch", ["jamba_v01_52b", "granite_moe_3b_a800m"])
+def test_moe_and_mamba_serving_cells_trace_collectives(arch, mesh):
+    """jamba's and granite-moe's serving cells on the production meshes:
+    traced FLOPs and collectives, the experts' combine (``moe``) and
+    jamba's Mamba products (``mamba/x_proj``, ``mamba/out_proj``)
+    all-reduced once a layer of theirs (once a capacity group at
+    prefill: granite's 64 groups over the two pods' 32 data shards of its
+    32 requests give each device 2), beside FSDP's all-gathers."""
+    cfg = get_config(arch)
+    n = {k: sum(s.kind == k or s.ffn == k for s in cfg.unit) * cfg.n_units
+         for k in ("attn", "mamba", "moe")}
+    for shape in shapes_for(cfg):
+        if shape.mode == "train":
+            continue
+        cell = steps.build_cell(cfg, shape, dryrun.make_mesh(mesh))
+        assert steps.mesh_refusal(cell) is None
+        records, flops = cell.trace()
+        names = [r.name for r in records if r.kind == "all-reduce"]
+        groups = 2 if (mesh, shape.mode) == ("multi", "prefill") else 1
+        assert names.count("moe") == n["moe"] * groups
+        assert names.count("attn/wo") == n["attn"]
+        for name in ("mamba/x_proj", "mamba/out_proj"):
+            assert names.count(name) == n["mamba"]
+        assert tally(records)["counts"]["all-gather"] > 0
+        a = dryrun.accounting(cell)
+        assert a["flops_per_device"] == flops > 0
+        assert a["collective_counts"] == tally(records)["counts"]
+        assert not {"flops_per_device", "collective_counts"} & set(
+            a["null_because"])
 
 
 def test_materialize_holds_a_given_cache_cut_to_each_rank():

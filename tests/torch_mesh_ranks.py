@@ -1,17 +1,19 @@
-"""The ranks of ``tests/test_torch_multicard.py``: one process a device of a
-mesh over gloo on the CPU, each running a cell program's prefill and
-decode steps on its shards.  This module imports no JAX and nothing of
-the reference (a rank process imports it to find its entry point), so
-the ranks never do.
+"""The ranks of ``tests/test_torch_multicard.py`` and
+``tests/test_torch_multicard_moe.py``: one process a device of a mesh over
+gloo on the CPU, each running cell programs' prefill and decode steps on
+its shards.  This module imports no JAX and nothing of the reference (a
+rank process imports it to find its entry point), so the ranks never do.
 
-:func:`run_mesh` starts the ranks (the ``spawn`` context, a ``FileStore``
-in the caller's directory), joins them within a timeout (terminating
-them and raising on it) and returns rank by rank what each wrote: for
-``prefill`` and ``decode``, the logits and the cache gathered whole, the
-write index, ``held_bytes()`` beside ``argument_bytes()``, the
-collectives the step issued, and the gathered logits under each of
-``chip_smoke.py``'s planted faults (``plant_mesh_fault``); and the
-results of the three collectives on a known tensor.
+:func:`run_mesh_jobs` starts the ranks (the ``spawn`` context, a
+``FileStore`` in the caller's directory), joins them within a timeout
+(terminating them and raising on it) and returns rank by rank what each
+wrote: for every job (a config, its weights and its planted faults) and
+each of ``prefill`` and ``decode``, the logits and the cache gathered
+whole, the write index, ``held_bytes()`` beside ``argument_bytes()``,
+the collectives the step issued, and the gathered logits under each of
+the job's ``chip_smoke.py`` faults (``plant_mesh_fault``); and the
+results of the three collectives on a known tensor.  :func:`run_mesh`
+runs one job.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.parallel.collectives import Collectives
 from repro_torch.parallel.group import (destroy_mesh_group, gather_full,
                                         init_mesh_group, local_shard)
-from repro_torch.parallel.sharding import P, leaves
+from repro_torch.parallel.sharding import P, leaves, param_blocks
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (the planted faults; imports no JAX)
@@ -65,7 +67,9 @@ def _step(cell, state, group, seed):
     state.model.par.coll.reset()
     if cell.mode == "decode":
         fill_cache(cell, state.args["cache"], seed + 1, group)
-    else:
+    else:                       # a prefill starts from the cache's states
+        for _, t in leaves(state.args["cache"]):
+            t.zero_()
         state.args["cache"]["index"] = 0
     logits, cache = cell.run(state)
     records = list(state.model.par.coll.records)
@@ -86,32 +90,52 @@ def _collectives_probe(group) -> dict:
             "records": coll.records}
 
 
-def rank_main(rank: int, mesh, cfg, shapes: dict, weights_path: str,
-              store_path: str, out_dir: str, seed: int) -> None:
+def _job(cell_of, full, faults, group, seed) -> dict:
+    """Every step of one job on this rank (``cell_of``: mode -> cell), and
+    the names of the parameters that do not gather back to ``full``'s."""
+    out = {}
+    for mode, cell in cell_of.items():
+        state = cell.materialize("cpu", seed, model=full, group=group)
+        gather = Collectives(group)
+        if "gathered_differ" not in out:
+            whole = dict(full.named_parameters())
+            out["gathered_differ"] = [
+                name for name, t in state.model.named_parameters()
+                if not torch.equal(gather_full(
+                    t, cell.specs["params"][name], gather,
+                    blocks=param_blocks(name)), whole[name])]
+        logits, cache, records = _step(cell, state, group, seed)
+        res = {"logits": logits, "index": cache["index"],
+               "records": records, "held": state.held_bytes(),
+               "want": cell.argument_bytes(),
+               "cache": {path: gather_full(
+                   t, cell.specs["cache"][path], gather).float().numpy()
+                   for path, t in leaves(cache)},
+               "faults": {}}
+        for fault in faults:
+            undo = chip_smoke.plant_mesh_fault(state.model, fault,
+                                               group.rank)
+            res["faults"][fault] = _step(cell, state, group, seed)[0]
+            undo()
+        out[mode] = res
+    return out
+
+
+def rank_main(rank: int, mesh, jobs: dict, store_path: str, out_dir: str,
+              seed: int) -> None:
+    """``jobs``: tag -> (config, shapes by mode, the weights' pickle,
+    faults)."""
     torch.set_num_threads(1)
     group = init_mesh_group(mesh, rank, store_path, device="cpu")
     try:
-        with open(weights_path, "rb") as f:
-            full = params_from_numpy(pickle.load(f), cfg, device="cpu")
         out = {"rank": rank, "coords": group.coords,
                "probe": _collectives_probe(group)}
-        for mode, shape in shapes.items():
-            cell = build_cell(cfg, shape, mesh)
-            state = cell.materialize("cpu", seed, model=full, group=group)
-            gather = Collectives(group)
-            logits, cache, records = _step(cell, state, group, seed)
-            res = {"logits": logits, "index": cache["index"],
-                   "records": records, "held": state.held_bytes(),
-                   "want": cell.argument_bytes(),
-                   "cache": {path: gather_full(
-                       t, cell.specs["cache"][path], gather).float().numpy()
-                       for path, t in leaves(cache)},
-                   "faults": {}}
-            for fault in FAULTS:
-                undo = chip_smoke.plant_mesh_fault(state.model, fault, rank)
-                res["faults"][fault] = _step(cell, state, group, seed)[0]
-                undo()
-            out[mode] = res
+        for tag, (cfg, shapes, weights_path, faults) in jobs.items():
+            with open(weights_path, "rb") as f:
+                full = params_from_numpy(pickle.load(f), cfg, device="cpu")
+            out[tag] = _job({mode: build_cell(cfg, shape, mesh)
+                             for mode, shape in shapes.items()},
+                            full, faults, group, seed)
         with open(pathlib.Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
             pickle.dump(out, f)
     finally:
@@ -120,17 +144,30 @@ def rank_main(rank: int, mesh, cfg, shapes: dict, weights_path: str,
 
 def run_mesh(mesh, cfg, shapes: dict, tree, tmp: pathlib.Path,
              seed: int = 0) -> list:
-    """Run :func:`rank_main` on every rank of ``mesh`` (``tree``: the
-    reference's parameters as numpy); returns each rank's results."""
+    """One job, ``chip_smoke.MESH_FAULTS`` planted, on every rank of
+    ``mesh`` (``tree``: the reference's parameters as numpy); returns
+    each rank's results, the job's by mode beside the probe's."""
+    out = run_mesh_jobs(mesh, {"": (cfg, shapes, tree, FAULTS)}, tmp, seed)
+    return [dict(r, **r.pop("")) for r in out]
+
+
+def run_mesh_jobs(mesh, jobs: dict, tmp: pathlib.Path,
+                  seed: int = 0) -> list:
+    """Run :func:`rank_main` on every rank of ``mesh``; ``jobs``: tag ->
+    (config, shapes by mode, the reference's parameters as numpy, the
+    faults to plant).  Returns each rank's results by tag."""
     import torch.multiprocessing as mp
     tmp.mkdir(parents=True, exist_ok=True)
-    weights = tmp / "weights.pkl"
-    with open(weights, "wb") as f:
-        pickle.dump(tree, f)
+    pickled = {}
+    for i, (tag, (cfg, shapes, tree, faults)) in enumerate(jobs.items()):
+        weights = tmp / f"weights{i}.pkl"
+        with open(weights, "wb") as f:
+            pickle.dump(tree, f)
+        pickled[tag] = (cfg, shapes, str(weights), tuple(faults))
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=rank_main, args=(
-        r, mesh, cfg, shapes, str(weights), str(tmp / "store"), str(tmp),
-        seed)) for r in range(mesh.size)]
+        r, mesh, pickled, str(tmp / "store"), str(tmp), seed))
+        for r in range(mesh.size)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + JOIN_TIMEOUT_S
